@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/*.cu``), built with ``nvcc`` at
+first use and bound with ``ctypes``. Each wrapper runs its plain PyTorch
+version for a CPU tensor and its kernel for a CUDA tensor."""
+
+from mnasnet_tpu_torch.ops.cuda.dw_conv import dw_conv_bn_act, dw_conv_reference  # noqa: F401
+from mnasnet_tpu_torch.ops.cuda.mbconv import (  # noqa: F401
+    mbconv_fits_smem,
+    mbconv_fused,
+    mbconv_reference,
+)
