@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # full run: checks and timings
     python3 chip_smoke.py --no-timing  # checks only, for a first run of new kernels
     python3 chip_smoke.py --profile DIR  # also per-kernel device time tables in DIR
+    python3 chip_smoke.py --only train   # the train phases only (a new kernel's first run)
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -17,7 +18,25 @@ Phases, in order; any failure raises and exits non-zero:
      batches of 128x224x224x3; counts the kernel launches of those forwards,
      holds the logits against the "torch" route and an fp32 reference,
      answers one single-image request, and times images/s at batch 128 and
-     the latency of a batch of one.
+     the latency of a batch of one;
+  6. bn: the two BN+ReLU backward kernels against their plain versions at the
+     35 BN+ReLU regions of the mnasnet1_0@224 training forward, batch 128,
+     bf16 and fp32; the bf16 and fp32 ReLU masks exactly (with dy = 1, dβ
+     must equal the count of positive forward outputs per channel); two
+     launches bit-identical; and times, beside each kernel's bound, its plain
+     version, one library call (``native_batch_norm_backward`` on the masked
+     g) and the torch route's autograd of the region;
+  7. dw training op: the depthwise autograd Function's gradients against the
+     torch route's at one stride-1 and one stride-2 shape, bf16 and fp32;
+  8. train: ``make_train_step`` on the production configuration
+     (``create_model("mnasnet1_0", dtype=bf16, bn_ema="external",
+     stem_s2d=True)``, ``create_optimizer("rmsprop", 0.01, fused="small")``,
+     label smoothing 0.1) for 5 steps on one fixed batch of 128x224x224x3
+     with seeded labels: the losses finite and falling from step 1 to step 5,
+     and exactly 17 dw, 35 bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches
+     per step; one fp32 step on the kernel route against the torch route
+     from the same weights; images/s of both routes in bf16 and the step's
+     peak memory.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.
 
@@ -28,6 +47,19 @@ Tolerances (normalised by the largest magnitude of the reference):
     bf16 ulps at the largest output, for roundings that flip where the fp32
     sums differ in their last bit;
   * whole model, fp32, kernel route vs torch route: 1e-4;
+  * BN backward kernels vs plain versions: dγ and dβ 1e-4 in both dtypes
+    (fp32 sums of the same terms over up to 1.6 M rows, in another order),
+    dx 1e-4 (fp32) and 2^-7 (bf16, one ulp where the fp32 values differ in
+    their last bits); the mask counts exactly;
+  * dw training op vs torch route: dx 1e-4 (fp32) and 2^-7 (bf16); dw 1e-4
+    (fp32) and 2^-6 (bf16: the torch route rounds its weight gradient to
+    bf16, the Function sums in fp32);
+  * one fp32 training step, kernel route vs torch route: loss within 1e-5
+    relative, BN running statistics within 1e-5 relative, and the parameter
+    update p - p0 within 1e-2 relative RMS over all parameters (the
+    elementwise count outside rtol 5e-3 / atol 1e-4 is printed: at random
+    init a 1e-7 forward difference can flip a ReLU mask and move single
+    gradient elements by more);
   * whole model, bf16: max |kernel route - torch route| <= 0.25 of the
     largest logit, and the kernel route's relative RMS error against the fp32
     reference at most 1.25x the torch route's plus 0.01. Random weights make
@@ -53,23 +85,52 @@ from mnasnet_tpu_torch import create_model
 from mnasnet_tpu_torch.data.transforms import eval_transform
 from mnasnet_tpu_torch.models.layers import BatchNorm, nchw
 from mnasnet_tpu_torch.ops.cuda import _build
-from mnasnet_tpu_torch.ops.cuda.dw_conv import dw_conv_bn_act, dw_conv_reference, out_size
+from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
+    _fwd_math,
+    bn_bwd_dx,
+    bn_bwd_dx_reference,
+    bn_bwd_reduce,
+    bn_bwd_reduce_reference,
+    relu_mask_reference,
+)
+from mnasnet_tpu_torch.ops.cuda.dw_conv import (
+    depthwise_conv_train,
+    dw_conv_bn_act,
+    dw_conv_reference,
+    out_size,
+)
 from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fused, mbconv_reference, plan
+from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.tools.tune_plans import (
     BATCH,
     IMAGE,
     block_shapes,
+    bn_region_shapes,
     dw_shapes,
     random_block,
     time_ms,
 )
-from mnasnet_tpu_torch.train.steps import make_predict_fn
+from mnasnet_tpu_torch.train.optim import create_optimizer
+from mnasnet_tpu_torch.train.state import TrainState
+from mnasnet_tpu_torch.train.steps import make_predict_fn, make_train_step
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor-core rate
               "float32": 67e12}    # fp32 outside the tensor cores (TF32 off)
 TOL_DW = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 TOL_MB = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+TOL_BN_SUMS = {"float32": 1e-4, "bfloat16": 1e-4}
+TOL_BN_DX = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+TOL_DW_TRAIN = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -6)}  # (dx, dw)
+BN_EPS = 1e-5
+# The production train configuration (bench.py's "optimized" build): the
+# learning rate its RMSProp is timed at.
+TRAIN_LR = 0.01
+TRAIN_STEPS = 5
+LAUNCHES_PER_STEP = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 35, "bn_bwd_dx": 35,
+                     "mbconv_block": 0}
+COUNTERS = {"dw_conv_bn_act": dw_conv_bn_act, "mbconv_block": mbconv_fused,
+            "bn_bwd_reduce": bn_bwd_reduce, "bn_bwd_dx": bn_bwd_dx}
 
 
 def log(msg: str) -> None:
@@ -281,33 +342,259 @@ def serving_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
     return out
 
 
-def profile_forward(predict, x, path: Path) -> dict:
-    """Device time by kernel over 3 forwards (torch.profiler), written as a
-    table to ``path``; returns the kernel time per forward and its share of
-    the forward's wall time."""
+def profile_forward(fn, x, path: Path) -> dict:
+    """Device time by kernel over 3 calls of ``fn(x)`` (torch.profiler),
+    written as a table to ``path``; returns the kernel time per call, its
+    share of the call's wall time, and the kernels with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    predict(x)
+    fn(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            predict(x)
+            fn(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     events = prof.key_averages()
     key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
            else "self_cuda_time_total")
-    path.write_text(events.table(sort_by=key, row_limit=40))
+    path.write_text(events.table(sort_by=key, row_limit=60))
     # Kernel rows only: the rows of aten ops repeat their kernels' time.
-    device_ms = sum(getattr(e, key) for e in events
-                    if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3 / 3
-    return {"device_ms_per_forward": device_ms, "wall_ms_per_forward": wall_ms,
-            "device_busy_share": device_ms / wall_ms}
+    kernels = sorted(((getattr(e, key) / 1e3 / 3, e.count // 3, e.key) for e in events
+                      if getattr(e, "device_type", None) == DeviceType.CUDA), reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    return {"device_ms_per_call": device_ms, "wall_ms_per_call": wall_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "top_kernels": [{"ms": ms, "launches": n, "name": name[:90]}
+                            for ms, n, name in kernels[:25]]}
 
 
-def kernels_line(dw_rows, mb_rows, serving) -> dict:
+def _native_bn_backward(g, x, gamma, mean, inv, mask):
+    """One PyTorch call of the BN backward on the already-masked g (NCHW
+    views of the NHWC tensors): the yardstick, used nowhere in the port."""
+    return torch.ops.aten.native_batch_norm_backward(
+        nchw(g), nchw(x), gamma, None, None, mean, inv, True, BN_EPS, mask)
+
+
+def bn_phase(timing: bool) -> list[dict]:
+    """The BN+ReLU backward kernels at the 35 regions of the training forward."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for name, h, c in bn_region_shapes():
+        gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+        beta = torch.rand(c, device="cuda", generator=g) - 0.5
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[1]
+            x = (torch.randn(BATCH, h, h, c, device="cuda", generator=g) * 2 + 0.3).to(dt)
+            dy = torch.randn(BATCH, h, h, c, device="cuda", generator=g).to(dt)
+            y, mean, var = _fwd_math(x, gamma, beta, BN_EPS, "one_pass")
+            inv = torch.rsqrt(var + BN_EPS)
+            vecs = (mean, inv, gamma, beta)
+            dg, db = bn_bwd_reduce(x, dy, *vecs)
+            dx = bn_bwd_dx(x, dy, *vecs, dg, db)
+            rdg, rdb = bn_bwd_reduce_reference(x, dy, *vecs)
+            rdx = bn_bwd_dx_reference(x, dy, *vecs, rdg, rdb)
+            dg2, db2 = bn_bwd_reduce(x, dy, *vecs)
+            dx2 = bn_bwd_dx(x, dy, *vecs, dg2, db2)
+            # With dy = 1, dβ counts each channel's unmasked elements.
+            _, count = bn_bwd_reduce(x, torch.ones_like(dy), *vecs)
+            positive = (y > 0).float().sum(dim=(0, 1, 2))
+            torch.cuda.synchronize()
+            row = {"region": name, "shape": f"{h}x{h}x{c}", "dtype": dname,
+                   "dgamma_rel_err": rel_err(dg, rdg), "dbeta_rel_err": rel_err(db, rdb),
+                   "dx_rel_err": rel_err(dx, rdx),
+                   "reduce_max_abs_err": float(torch.maximum((dg - rdg).abs().max(),
+                                                             (db - rdb).abs().max())),
+                   "dx_max_abs_err": float((dx.float() - rdx.float()).abs().max()),
+                   "mask_count_exact": bool(torch.equal(count, positive)),
+                   "mask_matches_plain": bool(torch.equal(
+                       relu_mask_reference(x, *vecs), y > 0)),
+                   "deterministic": bool(torch.equal(dg, dg2) and torch.equal(db, db2)
+                                         and torch.equal(dx, dx2))}
+            bad = [k for k in ("dgamma_rel_err", "dbeta_rel_err") if row[k] > TOL_BN_SUMS[dname]]
+            if row["dx_rel_err"] > TOL_BN_DX[dname]:
+                bad.append("dx_rel_err")
+            bad += [k for k in ("mask_count_exact", "mask_matches_plain", "deterministic")
+                    if not row[k]]
+            if bad or not torch.isfinite(dx).all():
+                raise RuntimeError(f"bn {name} {dname}: {bad}: {row}")
+            plane = x.numel() * x.element_size()
+            row["reduce_bound_ms"], row["reduce_bound_by"] = bound(
+                2 * plane + 6 * c * 4, 8 * x.numel(), "float32")
+            row["dx_bound_ms"], row["dx_bound_by"] = bound(
+                3 * plane + 6 * c * 4, 10 * x.numel(), "float32")
+            if timing and dt == torch.bfloat16:
+                row["reduce_ms"] = time_ms(lambda: bn_bwd_reduce(x, dy, *vecs), 30.0)
+                row["dx_ms"] = time_ms(lambda: bn_bwd_dx(x, dy, *vecs, dg, db), 30.0)
+                row["reduce_plain_ms"] = time_ms(lambda: bn_bwd_reduce_reference(x, dy, *vecs), 30.0)
+                row["dx_plain_ms"] = time_ms(
+                    lambda: bn_bwd_dx_reference(x, dy, *vecs, rdg, rdb), 30.0)
+                gm = (dy * (y > 0)).contiguous()
+                try:
+                    row["reduce_library_ms"] = time_ms(lambda: _native_bn_backward(
+                        gm, x, gamma, mean, inv, [False, True, True]), 30.0)
+                    row["dx_library_ms"] = time_ms(lambda: _native_bn_backward(
+                        gm, x, gamma, mean, inv, [True, False, False]), 30.0)
+                except RuntimeError as e:
+                    row["library_refused"] = str(e).splitlines()[0]
+                # The torch route: autograd of relu(BN(x)) with batch statistics.
+                xr = x.detach().requires_grad_()
+                gr, br = gamma.detach().requires_grad_(), beta.detach().requires_grad_()
+                yr = _fwd_math(xr, gr, br, BN_EPS, "one_pass")[0]
+                row["torch_route_ms"] = time_ms(lambda: torch.autograd.grad(
+                    yr, (xr, gr, br), dy, retain_graph=True), 30.0)
+                del xr, yr, gm
+            log(f"[bn] {row}")
+            rows.append(row)
+            del x, dy, y, dx, rdx, dx2
+    return rows
+
+
+def dw_train_phase() -> list[dict]:
+    """The depthwise autograd Function (kernel forward, torch-op backward)
+    against the torch route's autograd at one stride-1 and one stride-2 shape."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for h, c, k, s in ((IMAGE // 2, 32, 3, 1), (IMAGE // 2, 48, 3, 2)):
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[1]
+            x = torch.randn(BATCH, h, h, c, device="cuda", generator=g).to(dt)
+            w = torch.randn(k, k, 1, c, device="cuda", generator=g) * 0.3
+            cot = torch.randn(BATCH, out_size(h, k, s), out_size(h, k, s), c, device="cuda",
+                              generator=g).to(dt)
+            grads = []
+            for route in ("kernel", "torch"):
+                xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+                fn = (lambda a, b: depthwise_conv_train(a, b, stride=s)) if route == "kernel" \
+                    else (lambda a, b: depthwise_conv2d(a, b, stride=s, impl="torch"))
+                grads.append(torch.autograd.grad(fn(xr, wr), (xr, wr), cot))
+            (dx, dw), (tdx, tdw) = grads
+            torch.cuda.synchronize()
+            row = {"shape": f"{h}x{h}x{c} k{k} s{s}", "dtype": dname,
+                   "dx_rel_err": rel_err(dx, tdx), "dw_rel_err": rel_err(dw, tdw),
+                   "tol": TOL_DW_TRAIN[dname]}
+            log(f"[dw-train] {row}")
+            if (row["dx_rel_err"] > row["tol"][0] or row["dw_rel_err"] > row["tol"][1]
+                    or dx.dtype != dt or dw.dtype != torch.float32):
+                raise RuntimeError(f"dw training op {row['shape']} {dname} disagrees: {row}")
+            rows.append(row)
+    return rows
+
+
+def _train_setup(dtype, route, seed=0):
+    kw = {} if route == "auto" else {"dw_impl": route, "bn_bwd": route}
+    model = create_model("mnasnet1_0", dtype=dtype, bn_ema="external", stem_s2d=True,
+                         seed=seed, **kw)
+    tx = create_optimizer("rmsprop", TRAIN_LR, fused="small")
+    state = TrainState.create(model, tx, seed=seed)
+    return model, state, make_train_step(model, tx, label_smoothing=0.1)
+
+
+def _params(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _stats(model):
+    return {n: b.clone() for n, b in model.named_buffers() if n.endswith(("mean", "var"))}
+
+
+def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.randn(BATCH, IMAGE, IMAGE, 3, device="cuda", generator=g)
+    labels = torch.randint(0, 1000, (BATCH,), device="cuda", generator=g)
+    model, state, step = _train_setup(torch.bfloat16, "auto")
+
+    # The main path: counts set to 0 just before, read just after.
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, images, labels)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    losses = [float(v) for v in losses]
+    out = {"launches": launches, "losses": losses}
+    log(f"[train] {TRAIN_STEPS} steps, losses {losses}, launches {launches}")
+    if launches != {k: v * TRAIN_STEPS for k, v in LAUNCHES_PER_STEP.items()}:
+        raise RuntimeError(f"expected {LAUNCHES_PER_STEP} launches per step, got {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"losses not finite or not falling: {losses}")
+    if model.training or state.step != TRAIN_STEPS:
+        raise RuntimeError("the step left the model in train mode or miscounted steps")
+
+    # One fp32 step on each route from the same weights (TF32 is off).
+    after = {}
+    for route in ("kernel", "torch"):
+        m32, st32, step32 = _train_setup(torch.float32, route, seed=1)
+        p0 = _params(m32)
+        st32, met = step32(st32, images, labels)
+        after[route] = (float(met["loss"]), p0, _params(m32), _stats(m32))
+        del m32, st32, step32
+    (lk, p0, pk, sk), (lt, _, pt, stt) = after["kernel"], after["torch"]
+    num = sum(float(((pk[n] - pt[n]) ** 2).sum()) for n in pt)
+    den = sum(float(((pt[n] - p0[n]) ** 2).sum()) for n in pt)
+    outside = sum(int((~torch.isclose(pk[n], pt[n], rtol=5e-3, atol=1e-4)).sum()) for n in pt)
+    fp32 = {"loss_kernel": lk, "loss_torch": lt, "loss_rel_diff": abs(lk - lt) / abs(lt),
+            "update_rel_rms_diff": (num / den) ** 0.5,
+            "param_max_abs_diff": max(float((pk[n] - pt[n]).abs().max()) for n in pt),
+            "params_outside_rtol5e-3_atol1e-4": outside,
+            "param_count": sum(p.numel() for p in pt.values()),
+            "stats_max_rel_diff": max(rel_err(sk[n], stt[n]) for n in stt)}
+    out["fp32_kernel_vs_torch"] = fp32
+    log(f"[train] fp32 one step, kernel route vs torch route: {json.dumps(fp32)}")
+    if fp32["loss_rel_diff"] > 1e-5 or fp32["stats_max_rel_diff"] > 1e-5 \
+            or fp32["update_rel_rms_diff"] > 1e-2:
+        raise RuntimeError(f"fp32 kernel route disagrees with the torch route: {fp32}")
+    del after, p0, pk, pt, sk, stt
+
+    if timing:
+        for route in ("kernel", "torch"):
+            m, st, stp = (model, state, step) if route == "kernel" else \
+                _train_setup(torch.bfloat16, "torch")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stp(st, images, labels)
+            torch.cuda.synchronize()
+            out[f"{route}_route_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            ms = time_ms(lambda: stp(st, images, labels), target_ms=2000.0)
+            out[f"{route}_route_ms_per_step"] = ms
+            out[f"{route}_route_images_per_s"] = BATCH / ms * 1e3
+            if profile_dir is not None:
+                out[f"{route}_route_profile"] = profile_forward(
+                    lambda x: stp(st, x, labels), images,
+                    profile_dir / f"profile_train_{route}_route.txt")
+            del m, st, stp
+        log(f"[train] bs{BATCH} bf16 train images/s: kernel route "
+            f"{out['kernel_route_images_per_s']:.1f}, torch route "
+            f"{out['torch_route_images_per_s']:.1f}; peak memory GB: kernel "
+            f"{out['kernel_route_peak_memory_gb']:.2f}, torch "
+            f"{out['torch_route_peak_memory_gb']:.2f} on {card}")
+    return out
+
+
+def _bn_entry(name, rows, serving_free_launches, replaces):
+    bf = [r for r in rows if r["dtype"] == "bfloat16"]
+    kind = "reduce" if name == "bn_bwd_reduce" else "dx"
+
+    def total(key):
+        return sum(r[key] for r in bf) if all(key in r for r in bf) else None
+
+    return {"name": name, "route": "cuda", "source": "mnasnet_tpu_torch/csrc/bn_bwd.cu",
+            "replaces": replaces, "launches": serving_free_launches,
+            "max_abs_err": max(r[f"{kind}_max_abs_err"] for r in rows),
+            "ms": total(f"{kind}_ms"), "plain_ms": total(f"{kind}_plain_ms"),
+            "bound_ms": total(f"{kind}_bound_ms"),
+            "bound_by": "bytes" if all(r[f"{kind}_bound_by"] == "bytes" for r in bf)
+            else "operations",
+            "library_ms": total(f"{kind}_library_ms"),
+            "torch_route_region_ms": total("torch_route_ms"),
+            "summed_over": f"{len(bf)} regions of one training step, bf16"}
+
+
+def kernels_line(dw_rows, mb_rows, serving, bn_rows, train) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -315,23 +602,36 @@ def kernels_line(dw_rows, mb_rows, serving) -> dict:
         return sum(r[key] for r in mb) if all(key in r for r in mb) else None
 
     by_bytes = sum(r["bound_ms"] for r in mb if r["bound_by"] == "bytes")
+    paths = {"serving": serving["launches"], "train": train["launches"]}
+
+    def by_path(name):
+        return {p: launches.get(name, 0) for p, launches in paths.items()}
+
+    def launches(name):
+        return sum(by_path(name).values())
+
+    bn = [_bn_entry(name, bn_rows, launches(name), f"mnasnet_tpu/ops/pallas/bn_bwd.py:{line}")
+          for name, line in (("bn_bwd_reduce", 57), ("bn_bwd_dx", 86))]
+    for e in bn:
+        e["launches_by_path"] = by_path(e["name"])
     return {"kernels": [
         {"name": "dw_conv_bn_act", "route": "cuda", "source": "mnasnet_tpu_torch/csrc/dw_conv.cu",
          "replaces": "mnasnet_tpu/ops/pallas/dw_conv.py:56",
          "also_replaces": "mnasnet_tpu/ops/pallas/dw_conv.py:96",
-         "launches": serving["launches"]["dw_conv_bn_act"],
+         "launches": launches("dw_conv_bn_act"), "launches_by_path": by_path("dw_conv_bn_act"),
          "max_abs_err": sep["max_abs_err"], "ms": sep.get("ms"),
          "plain_ms": sep.get("plain_ms"), "bound_ms": sep["bound_ms"],
          "bound_by": sep["bound_by"], "library_ms": sep.get("library_ms"),
          "shapes": dw_rows},
         {"name": "mbconv_block", "route": "cuda", "source": "mnasnet_tpu_torch/csrc/mbconv.cu",
          "replaces": "mnasnet_tpu/ops/pallas/mbconv.py:58",
-         "launches": serving["launches"]["mbconv_block"],
+         "launches": launches("mbconv_block"), "launches_by_path": by_path("mbconv_block"),
          "max_abs_err": max(r["max_abs_err"] for r in mb), "ms": total("ms"),
          "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
          "bound_by": "bytes" if by_bytes * 2 >= total("bound_ms") else "operations",
          "library_ms": None, "torch_route_ms": total("torch_route_ms"),
          "shapes": mb_rows},
+        *bn,
     ]}
 
 
@@ -339,7 +639,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-timing", action="store_true", help="run the checks only")
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
-                    help="also write torch.profiler tables of one forward per route to DIR")
+                    help="also write torch.profiler tables of each route's forward and "
+                         "train step to DIR")
+    ap.add_argument("--only", choices=("all", "train"), default="all",
+                    help="'train' runs the bn, dw training and train phases only")
     args = ap.parse_args()
     timing = not args.no_timing
     if args.profile is not None:
@@ -360,18 +663,24 @@ def main() -> int:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"(per source: {_build.build_seconds})")
 
-    t0 = time.perf_counter()
-    dw_rows = dw_phase(timing)
-    log(f"[dw] phase done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    mb_rows = mbconv_phase(timing)
-    log(f"[mbconv] phase done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    serving = serving_phase(timing, card, args.profile)
-    log(f"[serving] phase done in {time.perf_counter() - t0:.1f} s")
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+        return result
 
-    log(json.dumps(kernels_line(dw_rows, mb_rows, serving)))
-    log(json.dumps({"serving": serving}))
+    if args.only == "all":
+        dw_rows = phase("dw", dw_phase, timing)
+        mb_rows = phase("mbconv", mbconv_phase, timing)
+        serving = phase("serving", serving_phase, timing, card, args.profile)
+    bn_rows = phase("bn", bn_phase, timing)
+    dw_train = phase("dw-train", dw_train_phase)
+    train = phase("train", train_phase, timing, card, args.profile)
+
+    if args.only == "all":
+        log(json.dumps(kernels_line(dw_rows, mb_rows, serving, bn_rows, train)))
+        log(json.dumps({"serving": serving}))
+    log(json.dumps({"train": train, "dw_train": dw_train}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@ needs no conversion; these functions carry weights between the two packages:
     conversions, returning numpy arrays;
   * :func:`state_dict_from_jax` — ``{"params", "batch_stats"}`` of the JAX
     package (numpy arrays) to a state_dict that
-    ``MNASNet.load_state_dict(strict=True)`` takes.
+    ``MNASNet.load_state_dict(strict=True)`` takes;
+  * :func:`params_from_jax` and :func:`params_to_jax` — any tree shaped like
+    the parameters (gradients, the optimizer's ``ms``/``mom``/``trace``, the
+    model-EMA shadow) between the JAX paths and the port's parameter names.
 
 Layout transforms:
   * dense conv weight  OIHW (O,I,k,k)  -> HWIO (k,k,I,O)      transpose(2,3,1,0)
@@ -107,49 +110,82 @@ def check_state_dict(sd: Mapping[str, Any], alpha: float) -> None:
         )
 
 
+def params_to_jax(named: Mapping[str, Any], alpha: float) -> dict:
+    """A per-parameter tree by torchvision name (numpy arrays or tensors) as
+    the JAX package's ``params`` tree, each leaf in the JAX layout."""
+    named = strip_module_prefix(named)
+    out: dict = {}
+    for torch_prefix, flax_path, kind in _layer_map(alpha):
+        w = _np(named[f"{torch_prefix}.weight"])
+        if kind == "conv":
+            _set(out, flax_path + ("kernel",), w.transpose(2, 3, 1, 0))
+        elif kind == "dwconv":
+            _set(out, flax_path, w.transpose(2, 3, 1, 0))
+        elif kind == "bn":
+            _set(out, flax_path + ("scale",), w)
+            _set(out, flax_path + ("bias",), _np(named[f"{torch_prefix}.bias"]))
+        elif kind == "linear":
+            _set(out, flax_path + ("kernel",), w.T)
+            _set(out, flax_path + ("bias",), _np(named[f"{torch_prefix}.bias"]))
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any], alpha: float) -> dict[str, np.ndarray]:
+    """A tree shaped like the JAX package's ``params`` (numpy leaves) by the
+    port's parameter names, each leaf in the torch layout."""
+    out: dict[str, np.ndarray] = {}
+    for torch_prefix, flax_path, kind in _layer_map(alpha):
+        if kind == "conv":
+            out[f"{torch_prefix}.weight"] = np.asarray(
+                _get(tree, flax_path + ("kernel",))).transpose(3, 2, 0, 1)
+        elif kind == "dwconv":
+            out[f"{torch_prefix}.weight"] = np.asarray(_get(tree, flax_path)).transpose(3, 2, 0, 1)
+        elif kind == "bn":
+            out[f"{torch_prefix}.weight"] = np.asarray(_get(tree, flax_path + ("scale",)))
+            out[f"{torch_prefix}.bias"] = np.asarray(_get(tree, flax_path + ("bias",)))
+        elif kind == "linear":
+            out[f"{torch_prefix}.weight"] = np.asarray(_get(tree, flax_path + ("kernel",))).T
+            out[f"{torch_prefix}.bias"] = np.asarray(_get(tree, flax_path + ("bias",)))
+    return out
+
+
 def torch_to_flax(state_dict: Mapping[str, Any], alpha: float) -> dict:
     """A torchvision-layout state_dict to ``{"params", "batch_stats"}`` of the
     JAX package, as numpy arrays. Strips a leading ``module.``."""
     sd = strip_module_prefix(state_dict)
     check_state_dict(sd, alpha)
-    params: dict = {}
     batch_stats: dict = {}
     for torch_prefix, flax_path, kind in _layer_map(alpha):
-        if kind in ("conv", "dwconv"):
-            w = _np(sd[f"{torch_prefix}.weight"]).transpose(2, 3, 1, 0)
-            _set(params, flax_path + ("kernel",) if kind == "conv" else flax_path, w)
-        elif kind == "bn":
-            _set(params, flax_path + ("scale",), _np(sd[f"{torch_prefix}.weight"]))
-            _set(params, flax_path + ("bias",), _np(sd[f"{torch_prefix}.bias"]))
+        if kind == "bn":
             _set(batch_stats, flax_path + ("mean",), _np(sd[f"{torch_prefix}.running_mean"]))
             _set(batch_stats, flax_path + ("var",), _np(sd[f"{torch_prefix}.running_var"]))
-        elif kind == "linear":
-            _set(params, flax_path + ("kernel",), _np(sd[f"{torch_prefix}.weight"]).T)
-            _set(params, flax_path + ("bias",), _np(sd[f"{torch_prefix}.bias"]))
-    return {"params": params, "batch_stats": batch_stats}
+    return {"params": params_to_jax(sd, alpha), "batch_stats": batch_stats}
 
 
 def flax_to_torch(variables: Mapping[str, Any], alpha: float) -> dict[str, np.ndarray]:
     """``{"params", "batch_stats"}`` of the JAX package to a torchvision-layout
     state_dict of numpy arrays."""
-    params, batch_stats = variables["params"], variables["batch_stats"]
+    named = {**params_from_jax(variables["params"], alpha),
+             **stats_from_jax(variables["batch_stats"], alpha)}
+    out: dict[str, np.ndarray] = {}
+    for torch_prefix, _, kind in _layer_map(alpha):
+        names = {"bn": ("weight", "bias", "running_mean", "running_var"),
+                 "linear": ("weight", "bias")}.get(kind, ("weight",))
+        for name in names:
+            out[f"{torch_prefix}.{name}"] = named[f"{torch_prefix}.{name}"]
+        if kind == "bn":
+            out[f"{torch_prefix}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+    return out
+
+
+def stats_from_jax(batch_stats: Mapping[str, Any], alpha: float) -> dict[str, np.ndarray]:
+    """The JAX package's ``batch_stats`` tree by the port's buffer names
+    (``running_mean``, ``running_var``)."""
     out: dict[str, np.ndarray] = {}
     for torch_prefix, flax_path, kind in _layer_map(alpha):
-        if kind == "conv":
-            w = np.asarray(_get(params, flax_path + ("kernel",)))
-            out[f"{torch_prefix}.weight"] = w.transpose(3, 2, 0, 1)
-        elif kind == "dwconv":
-            w = np.asarray(_get(params, flax_path))
-            out[f"{torch_prefix}.weight"] = w.transpose(3, 2, 0, 1)
-        elif kind == "bn":
-            out[f"{torch_prefix}.weight"] = np.asarray(_get(params, flax_path + ("scale",)))
-            out[f"{torch_prefix}.bias"] = np.asarray(_get(params, flax_path + ("bias",)))
+        if kind == "bn":
             out[f"{torch_prefix}.running_mean"] = np.asarray(_get(batch_stats, flax_path + ("mean",)))
             out[f"{torch_prefix}.running_var"] = np.asarray(_get(batch_stats, flax_path + ("var",)))
-            out[f"{torch_prefix}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
-        elif kind == "linear":
-            out[f"{torch_prefix}.weight"] = np.asarray(_get(params, flax_path + ("kernel",))).T
-            out[f"{torch_prefix}.bias"] = np.asarray(_get(params, flax_path + ("bias",)))
     return out
 
 

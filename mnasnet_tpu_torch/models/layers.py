@@ -1,4 +1,4 @@
-"""Core layers of the PyTorch MNASNet family, eval mode.
+"""Core layers of the PyTorch MNASNet family.
 
 Counterpart of ``mnasnet_tpu/models/layers.py``. Parameter and buffer names
 follow torchvision's MNASNet state_dict (``weight``, ``bias``,
@@ -10,8 +10,9 @@ memory. In that layout ``x.permute(0, 2, 3, 1)`` (:func:`nhwc`) is a
 contiguous NHWC tensor without a copy; the 1x1 convs run as a matmul over
 that view, and the kernels in ``ops/cuda`` take it as they are.
 
-Train-mode BatchNorm (batch statistics and the running-stat EMA) and the
-space-to-depth stem are training-side and are not in this package yet.
+In train mode BatchNorm normalises with batch statistics and updates its
+running statistics (:class:`BatchNorm`), and the stem may take its
+space-to-depth form (:class:`StemConv`).
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mnasnet_tpu_torch.ops.cuda.bn_bwd import STATS, batch_moments, bn_relu_train
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 
+BN_MOMENTUM = 0.9997  # EMA decay; torch momentum = 1 - 0.9997 = 3e-4
 BN_EPSILON = 1e-5
+BN_EMA = ("module", "external")
 
 
 def conv_kernel_init_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -48,17 +52,34 @@ def nchw(y: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d in eval mode, with torchvision's names and BN folding.
+    """BatchNorm2d with torchvision's names, the reference's running-stat
+    semantics and BN folding (``mnasnet_tpu/models/layers.py:150-271``).
 
-    The eval arithmetic is the reference's (``layers.py:230-235``): the
-    factors ``inv = γ·rsqrt(σ²+ε)`` and ``shift = β − μ·inv`` are computed in
-    fp32 and applied in the activation's dtype.
+    Eval mode normalises with the running statistics: the factors
+    ``inv = γ·rsqrt(σ²+ε)`` and ``shift = β − μ·inv`` are computed in fp32 and
+    applied in the activation's dtype. Train mode normalises with the batch
+    mean and *biased* variance (``stats``: ``"one_pass"`` max(E[x²]−E[x]², 0)
+    or ``"two_pass"`` E[(x−μ)²], in fp32) and updates the running variance
+    with the *Bessel-corrected* one. ``ema="module"`` updates
+    ``r = momentum·r + (1−momentum)·b`` here; ``ema="external"`` stores the raw
+    batch statistics and leaves the EMA to the train step
+    (``train/steps.py:fused_ema_stats``). The updates run under
+    ``torch.no_grad``; ``num_batches_tracked`` counts train forwards and
+    changes no arithmetic.
     """
 
-    def __init__(self, features: int, eps: float = BN_EPSILON):
+    def __init__(self, features: int, eps: float = BN_EPSILON, momentum: float = BN_MOMENTUM,
+                 stats: str = "one_pass", ema: str = "module"):
         super().__init__()
+        if stats not in STATS:
+            raise ValueError(f"unknown BN stats {stats!r}; choices: {STATS}")
+        if ema not in BN_EMA:
+            raise ValueError(f"unknown BN ema {ema!r}; choices: {BN_EMA}")
         self.num_features = features
         self.eps = eps
+        self.momentum = momentum
+        self.stats = stats
+        self.ema = ema
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -70,12 +91,38 @@ class BatchNorm(nn.Module):
         inv = self.weight * torch.rsqrt(self.running_var + self.eps)
         return inv, self.bias - self.running_mean * inv
 
+    @torch.no_grad()
+    def _update_stats(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> None:
+        n = x.numel() // x.shape[1]
+        bessel = n / max(n - 1, 1)
+        if self.ema == "external":
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var * bessel)
+        else:
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var * bessel)
+        self.num_batches_tracked += 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported yet; call .eval()")
-        inv, shift = self.folded()
+            mean, var = batch_moments(nhwc(x), self.stats)
+            self._update_stats(x, mean, var)
+            inv = self.weight * torch.rsqrt(var + self.eps)
+            shift = self.bias - mean * inv
+        else:
+            inv, shift = self.folded()
         dt = x.dtype
         return x * inv.to(dt).view(1, -1, 1, 1) + shift.to(dt).view(1, -1, 1, 1)
+
+    def relu_train_region(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN + ReLU with the region backward of
+        ``ops/cuda/bn_bwd.py`` (two CUDA kernels, or their plain versions on
+        the CPU). The forward and the running-stat updates are those of
+        ``relu(self(x))``; only the backward of the region differs."""
+        y, mean, var = bn_relu_train(nhwc(x), self.weight, self.bias, self.eps, self.stats)
+        self._update_stats(x, mean, var)
+        return nchw(y)
 
 
 class PointwiseConv(nn.Module):
@@ -95,14 +142,36 @@ class PointwiseConv(nn.Module):
 
 
 class StemConv(nn.Module):
-    """The 3x3 stride-2 RGB stem conv, bias-free (plain form only)."""
+    """The 3x3 stride-2 RGB stem conv, bias-free, with the reference's
+    space-to-depth form (``layers.py:94-147``) for training.
 
-    def __init__(self, features: int):
+    With ``s2d=True``, in train mode and at even H and W, each 2x2 pixel
+    block is packed into channels ((H, W, 3) -> (H/2, W/2, 12)) and an
+    exactly equivalent 2x2 stride-1 conv runs on it. Its kernel is the
+    (F, 3, 3, 3) parameter padded and regrouped on every call, so the
+    gradient lands on the parameter. Eval mode runs the plain conv.
+    """
+
+    def __init__(self, features: int, s2d: bool = False):
         super().__init__()
+        self.s2d = s2d
         self.weight = nn.Parameter(torch.empty(features, 3, 3, 3))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), stride=2, padding=1)
+        n, c, h, w = x.shape
+        if not (self.s2d and self.training) or h % 2 or w % 2:
+            return F.conv2d(x, self.weight.to(x.dtype), stride=2, padding=1)
+        xs = (nhwc(x).reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+              .reshape(n, h // 2, w // 2, 4 * c))
+        # Output (i, j) sums taps u, v in {-1, 0, 1} of x[2i+u, 2j+v]; in s2d
+        # space that window is rows {i-1, i} x cols {j-1, j} with
+        # u = 2A + dy - 2: pad the kernel's top-left so that (A=0, dy=0) is
+        # the zero tap, then regroup (2A + dy) -> (A, dy).
+        k = F.pad(self.weight.permute(2, 3, 1, 0), (0, 0, 0, 0, 1, 0, 1, 0))  # HWIO (4,4,C,F)
+        f = k.shape[-1]
+        k = k.reshape(2, 2, 2, 2, c, f).permute(0, 2, 1, 3, 4, 5).reshape(2, 2, 4 * c, f)
+        xs = F.pad(xs, (0, 0, 1, 0, 1, 0))  # one zero row on top, one column on the left
+        return F.conv2d(nchw(xs), k.permute(3, 2, 0, 1).to(x.dtype))
 
 
 class DepthwiseConv(nn.Module):

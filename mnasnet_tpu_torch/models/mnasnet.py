@@ -1,4 +1,4 @@
-"""MNASNet-B1 depth-multiplier family in PyTorch, eval mode.
+"""MNASNet-B1 depth-multiplier family in PyTorch.
 
 Counterpart of ``mnasnet_tpu/models/mnasnet.py``. The module tree and the
 parameter names are torchvision's (``layers.0`` .. ``layers.16``,
@@ -15,8 +15,9 @@ Macro-architecture (MnasNet-B1, input 224x224x3):
   head   Conv1x1 -> 1280, BN, ReLU; global mean; Dropout(0.2); Linear -> classes
 
 Compute runs in ``dtype`` (bf16 or fp32) with fp32 parameters and running
-stats. The rounding points are the reference's: the head BN and ReLU and the
-pooled mean run in the compute dtype, the classifier in fp32.
+stats. The head BN and ReLU and the pooled mean run in the compute dtype, as
+in the reference; the classifier runs in fp32, where the reference's
+``nn.Dense(dtype=...)`` multiplies in the compute dtype (ROADMAP Queue 3).
 
 ``dw_impl`` routes the depthwise work: ``"kernel"`` runs the hand-written
 CUDA kernels (the reference's ``"pallas"``): the fused MBConv kernel for
@@ -24,8 +25,19 @@ every block that ``mbconv_fits_smem`` admits, else the fused dw kernel;
 ``"torch"`` runs plain PyTorch ops (the reference's ``"xla"``); ``"auto"``
 is ``"kernel"`` on a CUDA tensor and ``"torch"`` elsewhere.
 
-Only the eval-mode forward is here; training (batch-stat BN, remat, the
-space-to-depth stem) waits for the training slice.
+In train mode (``model.train()``) the forward is the reference's training
+forward (``mnasnet.py:146-188, 317-350``): batch-statistic BN with the
+running-stat EMA (``bn_stats``, ``bn_ema``, ``bn_momentum``), the
+space-to-depth stem when ``stem_s2d``, and dropout before the classifier,
+drawn from the ``generator`` that ``forward`` is given. ``bn_bwd`` routes the
+backward of the BN+ReLU regions (stem, separable dw, head and each block's
+expand and dw BN) as ``dw_impl`` routes the depthwise convs: ``"kernel"``
+(the reference's ``"pallas_region"``) runs ``BatchNorm.relu_train_region``,
+whose backward is the two CUDA kernels of ``ops/cuda/bn_bwd.py``; ``"torch"``
+(the reference's ``"xla"``) leaves it to autograd; ``"auto"`` is
+``"kernel"`` on a CUDA tensor. The BNs without a ReLU stay on autograd. The
+fused MBConv kernel is inference-only and never runs in train mode.
+``remat``, ``channel_pad`` and ``pw_lowering`` are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import torch
 from torch import nn
 
 from mnasnet_tpu_torch.models.layers import (
+    BN_MOMENTUM,
     BatchNorm,
     DepthwiseConv,
     PointwiseConv,
@@ -91,36 +104,52 @@ def count_macs(alpha: float, image_size: int, num_classes: int = 1000) -> int:
     return macs
 
 
+def _bn_kw(bn_stats: str, bn_ema: str, bn_momentum: float) -> dict:
+    return {"stats": bn_stats, "ema": bn_ema, "momentum": bn_momentum}
+
+
+def _bn_relu(bn: BatchNorm, x: torch.Tensor, region: bool) -> torch.Tensor:
+    """relu(bn(x)), with the region backward when ``region``."""
+    return bn.relu_train_region(x) if region else torch.relu(bn(x))
+
+
 class InvertedResidual(nn.Module):
-    """MBConv block (torchvision's ``_InvertedResidual``), eval mode.
+    """MBConv block (torchvision's ``_InvertedResidual``).
 
     Input and output are NCHW tensors in channels_last memory.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
-                 expansion: int, dw_impl: str = "auto"):
+                 expansion: int, dw_impl: str = "auto", bn_stats: str = "one_pass",
+                 bn_ema: str = "module", bn_momentum: float = BN_MOMENTUM,
+                 bn_bwd: str = "auto"):
         super().__init__()
         mid = in_ch * expansion
         self.in_ch, self.mid_ch, self.out_ch = in_ch, mid, out_ch
         self.kernel_size = kernel_size
         self.stride = stride
         self.dw_impl = dw_impl
+        self.bn_bwd = bn_bwd
         self.apply_residual = in_ch == out_ch and stride == 1
+        kw = _bn_kw(bn_stats, bn_ema, bn_momentum)
         self.layers = nn.Sequential(
             PointwiseConv(in_ch, mid),
-            BatchNorm(mid),
+            BatchNorm(mid, **kw),
             nn.ReLU(),
             DepthwiseConv(mid, kernel_size, stride, dw_impl),
-            BatchNorm(mid),
+            BatchNorm(mid, **kw),
             nn.ReLU(),
             PointwiseConv(mid, out_ch),
-            BatchNorm(out_ch),
+            BatchNorm(out_ch, **kw),
         )
 
     def _use_fused_block(self, x: torch.Tensor, impl: str) -> bool:
-        """The single-kernel fused block (ops/cuda/mbconv.py) when the route is
-        the kernel one and the block has a shared-memory plan."""
-        return impl == "kernel" and mbconv_fits_smem(
+        """The single-kernel fused block (ops/cuda/mbconv.py): eval mode only
+        (``mnasnet.py:134``), on the kernel route, when the block has a
+        shared-memory plan."""
+        if self.training or impl != "kernel":
+            return False
+        return mbconv_fits_smem(
             x.shape[2], x.shape[3], self.in_ch, self.mid_ch, self.out_ch,
             self.kernel_size, self.stride, x.element_size())
 
@@ -135,64 +164,75 @@ class InvertedResidual(nn.Module):
                 nhwc(x), expand.matrix(), se, be, dw.kernel(), sd, bd,
                 project.matrix(), sp, bp, kernel_size=self.kernel_size,
                 stride=self.stride, residual=self.apply_residual))
-        y = torch.relu(expand_bn(expand(x)))
-        if impl == "kernel":
+        region = self.training and resolve_impl(self.bn_bwd, x) == "kernel"
+        y = _bn_relu(expand_bn, expand(x), region)
+        if not self.training and impl == "kernel":
             s, b = dw_bn.folded()
             y = nchw(depthwise_conv_bn_relu_fused(nhwc(y), dw.kernel(), s, b,
                                                   stride=self.stride, impl=impl))
         else:
-            y = torch.relu(dw_bn(dw(y)))
+            y = _bn_relu(dw_bn, dw(y), region)
         y = project_bn(project(y))  # linear bottleneck
         if self.apply_residual:
             y = y + x
         return y
 
 
-def _stack(in_ch, out_ch, kernel_size, stride, expansion, repeats, dw_impl):
+def _stack(in_ch, out_ch, kernel_size, stride, expansion, repeats, **kw):
     blocks = [InvertedResidual(in_ch if j == 0 else out_ch, out_ch, kernel_size,
-                               stride if j == 0 else 1, expansion, dw_impl)
+                               stride if j == 0 else 1, expansion, **kw)
               for j in range(repeats)]
     return nn.Sequential(*blocks)
 
 
 class MNASNet(nn.Module):
-    """MNASNet with depth multiplier ``alpha``, eval mode.
+    """MNASNet with depth multiplier ``alpha``.
 
     ``forward`` takes NCHW images (any memory format) and returns fp32 logits.
     ``seed`` seeds the ``torch.Generator`` of the weight init, which is the
     reference's (Kaiming-normal fan_out convs, Kaiming-uniform fan_out
-    classifier, zero bias, unit BN).
+    classifier, zero bias, unit BN). The module is built in eval mode.
     """
 
     def __init__(self, alpha: float, num_classes: int = 1000, dropout: float = 0.2,
-                 dtype: torch.dtype = torch.float32, dw_impl: str = "auto", seed: int = 0):
+                 dtype: torch.dtype = torch.float32, dw_impl: str = "auto", seed: int = 0,
+                 bn_stats: str = "one_pass", bn_ema: str = "module",
+                 bn_momentum: float = BN_MOMENTUM, stem_s2d: bool = False,
+                 bn_bwd: str = "auto"):
         super().__init__()
-        if dw_impl not in IMPLS:
-            raise ValueError(f"unknown dw_impl {dw_impl!r}; choices: {IMPLS}")
+        for knob, value in (("dw_impl", dw_impl), ("bn_bwd", bn_bwd)):
+            if value not in IMPLS:
+                raise ValueError(f"unknown {knob} {value!r}; choices: {IMPLS}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, not {dtype}")
         self.alpha = alpha
         self.num_classes = num_classes
         self.dtype = dtype
         self.dw_impl = dw_impl
+        self.bn_bwd = bn_bwd
+        self.bn_ema = bn_ema
+        self.bn_momentum = bn_momentum
+        kw = _bn_kw(bn_stats, bn_ema, bn_momentum)
         d = get_depths(alpha)
         stacks = []
         in_ch = d[1]
         for s, (k, stride, exp, repeats) in enumerate(STACKS):
-            stacks.append(_stack(in_ch, d[2 + s], k, stride, exp, repeats, dw_impl))
+            stacks.append(_stack(in_ch, d[2 + s], k, stride, exp, repeats, dw_impl=dw_impl,
+                                 bn_stats=bn_stats, bn_ema=bn_ema, bn_momentum=bn_momentum,
+                                 bn_bwd=bn_bwd))
             in_ch = d[2 + s]
         self.layers = nn.Sequential(
-            StemConv(d[0]),
-            BatchNorm(d[0]),
+            StemConv(d[0], s2d=stem_s2d),
+            BatchNorm(d[0], **kw),
             nn.ReLU(),
             DepthwiseConv(d[0], 3, 1, dw_impl),
-            BatchNorm(d[0]),
+            BatchNorm(d[0], **kw),
             nn.ReLU(),
             PointwiseConv(d[0], d[1]),
-            BatchNorm(d[1]),
+            BatchNorm(d[1], **kw),
             *stacks,
             PointwiseConv(d[7], 1280),
-            BatchNorm(1280),
+            BatchNorm(1280, **kw),
             nn.ReLU(),
         )
         self.classifier = nn.Sequential(nn.Dropout(p=dropout), nn.Linear(1280, num_classes))
@@ -211,27 +251,31 @@ class MNASNet(nn.Module):
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Backbone up to the 1280-wide head feature map (pre-pool), NCHW."""
-        if self.training:
-            raise NotImplementedError("the train-mode forward is not ported yet; call .eval()")
         L = self.layers
         x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
-        y = torch.relu(L[1](L[0](x)))
-        impl = resolve_impl(self.dw_impl, y)
-        if impl == "kernel":
+        region = self.training and resolve_impl(self.bn_bwd, x) == "kernel"
+        y = _bn_relu(L[1], L[0](x), region)
+        if not self.training and resolve_impl(self.dw_impl, y) == "kernel":
             s, b = L[4].folded()
             y = nchw(depthwise_conv_bn_relu_fused(nhwc(y), L[3].kernel(), s, b,
-                                                  stride=1, impl=impl))
+                                                  stride=1, impl="kernel"))
         else:
-            y = torch.relu(L[4](L[3](y)))
+            y = _bn_relu(L[4], L[3](y), region)
         y = L[7](L[6](y))
         for stack in L[8:14]:
             y = stack(y)
-        return torch.relu(L[15](L[14](y)))
+        return _bn_relu(L[15], L[14](y), region)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """fp32 logits. In train mode dropout draws from ``generator`` (the
+        default generator of the device when None)."""
         y = self.features(x).mean(dim=(2, 3))  # global average pool, compute dtype
-        y = self.classifier[0](y)
-        # The classifier runs in fp32, as in the reference.
+        p = self.classifier[0].p
+        if self.training and p > 0.0:
+            keep = torch.rand(y.shape, device=y.device, generator=generator) < 1.0 - p
+            y = torch.where(keep, y / (1.0 - p), torch.zeros_like(y))
+        # The classifier runs in fp32.
         return self.classifier[1](y.float())
 
 
@@ -288,9 +332,10 @@ def create_model(name: str, *, device="cuda", **kwargs) -> MNASNet:
     Registry names cover the reference ctor set plus 1.4; any other
     ``mnasnet<int>_<frac>`` spelling (e.g. ``mnasnet0_9``) builds that depth
     multiplier. ``kwargs`` go to :class:`MNASNet` (``num_classes``,
-    ``dropout``, ``dtype``, ``dw_impl``, ``seed``). The weights are made on the
-    CPU from ``seed`` and moved, so a seed gives the same weights on every
-    device. ``device="cuda"`` without a card raises.
+    ``dropout``, ``dtype``, ``dw_impl``, ``seed``, and the training knobs
+    ``bn_stats``, ``bn_ema``, ``bn_momentum``, ``stem_s2d``, ``bn_bwd``). The
+    weights are made on the CPU from ``seed`` and moved, so a seed gives the
+    same weights on every device. ``device="cuda"`` without a card raises.
     """
     dev = resolve_device(device)
     if name in MODEL_REGISTRY:

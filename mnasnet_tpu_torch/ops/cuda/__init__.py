@@ -2,7 +2,16 @@
 first use and bound with ``ctypes``. Each wrapper runs its plain PyTorch
 version for a CPU tensor and its kernel for a CUDA tensor."""
 
-from mnasnet_tpu_torch.ops.cuda.dw_conv import dw_conv_bn_act, dw_conv_reference  # noqa: F401
+from mnasnet_tpu_torch.ops.cuda.bn_bwd import (  # noqa: F401
+    bn_bwd_dx,
+    bn_bwd_reduce,
+    bn_relu_train,
+)
+from mnasnet_tpu_torch.ops.cuda.dw_conv import (  # noqa: F401
+    depthwise_conv_train,
+    dw_conv_bn_act,
+    dw_conv_reference,
+)
 from mnasnet_tpu_torch.ops.cuda.mbconv import (  # noqa: F401
     mbconv_fits_smem,
     mbconv_fused,

@@ -21,10 +21,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("dw_conv", "mbconv")
+SOURCES = ("dw_conv", "mbconv", "bn_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -101,3 +103,15 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
+
+
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a call of ``what`` on ``tensors``: a
+    kernel launched through ctypes returns a tensor with no ``grad_fn``, so
+    everything upstream of it would silently get no gradient. The training
+    route reaches the kernels through their ``torch.autograd.Function``s."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} launches a CUDA kernel that autograd cannot see, and an input "
+            "requires grad: call it under torch.no_grad(), or through its "
+            "autograd Function")

@@ -12,7 +12,11 @@ padding happens in shared memory, never as a padded copy in device memory.
 The source note in ``csrc/dw_conv.cu`` has the design.
 
 :func:`dw_conv_bn_act` runs :func:`dw_conv_reference` for a CPU tensor and
-the kernel for a CUDA tensor; nothing falls back from one to the other.
+the kernel for a CUDA tensor; nothing falls back from one to the other. It has
+no gradient: on a CUDA tensor that requires one it raises, and training
+reaches the kernel through :func:`depthwise_conv_train` (``_dw_conv``,
+``dw_conv.py:259-282``): the kernel with unit affine and no ReLU forward, and
+the reference's XLA backward as torch ops (``ops/depthwise.py``).
 """
 
 from __future__ import annotations
@@ -124,6 +128,7 @@ def dw_conv_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return dw_conv_reference(x, w, scale, bias, stride=stride, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"dw_conv_bn_act runs on cpu or cuda, not {x.device}")
+    _build.refuse_autograd("dw_conv_bn_act", x, w, scale, bias)
     if x.dtype not in _DTYPES:
         raise TypeError(f"the dw kernel takes bf16 or fp32, not {x.dtype}")
     if not x.is_contiguous():
@@ -152,3 +157,40 @@ def dw_conv_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 dw_conv_bn_act.launches = 0
+
+
+class _DepthwiseConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, stride):
+        x = x.contiguous()
+        c = x.shape[-1]
+        ones = torch.ones(c, dtype=torch.float32, device=x.device)
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        ctx.save_for_backward(x, kernel)
+        ctx.stride = stride
+        return dw_conv_bn_act(x, kernel, ones, zeros, stride=stride, relu=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from mnasnet_tpu_torch.ops.depthwise import dw_grad_weights, dw_transposed_dx
+
+        x, kernel = ctx.saved_tensors
+        k, s = kernel.shape[0], ctx.stride
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dw_transposed_dx(g.to(x.dtype), kernel, s, k // 2,
+                                  x.shape[1], x.shape[2]).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = dw_grad_weights(x, g, k, s, k // 2).to(kernel.dtype)
+        return dx, dw, None
+
+
+def depthwise_conv_train(x: torch.Tensor, kernel: torch.Tensor, *, stride: int) -> torch.Tensor:
+    """Differentiable depthwise conv (``depthwise_conv_pallas``,
+    ``dw_conv.py:288``): :func:`dw_conv_bn_act` with unit scale, zero bias and
+    no ReLU forward; ``dw_transposed_dx`` (dx in x's dtype, the kernel cast to
+    it) and ``dw_grad_weights`` (summed in fp32) backward.
+
+    x (N, H, W, C) NHWC; kernel (k, k, 1, C) fp32; padding k//2.
+    """
+    return _DepthwiseConv.apply(x, kernel, stride)

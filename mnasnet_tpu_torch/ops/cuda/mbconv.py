@@ -14,7 +14,8 @@ tile, and :func:`mbconv_fits_smem` (the counterpart of ``mbconv_fits_vmem``)
 says whether a block has a plan at all.
 
 :func:`mbconv_fused` runs :func:`mbconv_reference` for a CPU tensor and the
-kernel for a CUDA tensor; nothing falls back from one to the other.
+kernel for a CUDA tensor; nothing falls back from one to the other. The block
+is inference-only: on a CUDA tensor that requires a gradient it raises.
 """
 
 from __future__ import annotations
@@ -209,6 +210,7 @@ def mbconv_fused(x, we, se, be, wd, sd, bd, wp, sp, bp, *, kernel_size: int,
         return mbconv_reference(*args, kernel_size=k, stride=stride, residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"mbconv_fused runs on cpu or cuda, not {x.device}")
+    _build.refuse_autograd("mbconv_fused", *args)
     if x.dtype not in _DTYPES:
         raise TypeError(f"the MBConv kernel takes bf16 or fp32, not {x.dtype}")
     if not x.is_contiguous():

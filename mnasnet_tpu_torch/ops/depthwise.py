@@ -1,13 +1,16 @@
 """Depthwise-conv dispatch: a plain PyTorch route and the hand-written kernel.
 
-Counterpart of ``mnasnet_tpu/ops/depthwise.py`` for the eval-mode forward:
+Counterpart of ``mnasnet_tpu/ops/depthwise.py``:
 
   * ``impl="torch"``  — ``F.conv2d(groups=C)`` with the kernel cast to the
-    compute dtype, as ``_xla_depthwise`` (``depthwise.py:45``) casts it. The
-    counterpart of the reference's ``"xla"``.
+    compute dtype, as ``_xla_depthwise`` (``depthwise.py:45``) casts it, and
+    autograd's backward. The counterpart of the reference's ``"xla"``.
   * ``impl="kernel"`` — the CUDA kernel of ``ops/cuda/dw_conv.py``, the
-    counterpart of ``"pallas"``. On a CPU tensor its wrapper runs the plain
-    version of that kernel.
+    counterpart of ``"pallas"``: :func:`depthwise_conv2d` runs it through its
+    autograd Function (kernel forward, :func:`dw_transposed_dx` and
+    :func:`dw_grad_weights` backward), :func:`depthwise_conv_bn_relu_fused`
+    raw (inference). On a CPU tensor the wrapper runs the kernel's plain
+    version.
   * ``impl="auto"``   — ``"kernel"`` on a CUDA tensor, ``"torch"`` elsewhere.
     The reference's ``auto -> XLA`` was a TPU measurement; this default is to
     be re-decided from the H100 times in ``PERF.md``.
@@ -15,8 +18,7 @@ Counterpart of ``mnasnet_tpu/ops/depthwise.py`` for the eval-mode forward:
 Layout contract: x is NHWC, kernel is (k, k, 1, C) (HWIO with I == 1), the
 JAX package's layouts.
 
-The training-side routes (``taps``, ``taps2``, ``hybrid``) and the backward
-helpers (``dw_transposed_dx``, ``dw_grad_weights``) are not ported yet.
+The training-side routes ``taps``, ``taps2`` and ``hybrid`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mnasnet_tpu_torch.ops.cuda.dw_conv import dw_conv_bn_act
+from mnasnet_tpu_torch.ops.cuda.dw_conv import depthwise_conv_train, dw_conv_bn_act
 
 IMPLS = ("auto", "kernel", "torch")
 
@@ -60,11 +62,48 @@ def depthwise_conv2d(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
     k = kernel.shape[0]
     if resolve_impl(impl, x) == "kernel":
         _kernel_padding(kernel, padding)
-        c = x.shape[-1]
-        ones = torch.ones(c, dtype=torch.float32, device=x.device)
-        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
-        return dw_conv_bn_act(x, kernel, ones, zeros, stride=stride, relu=False)
+        return depthwise_conv_train(x, kernel, stride=stride)
     return _torch_depthwise(x, kernel, stride, k // 2 if padding is None else padding)
+
+
+def dw_transposed_dx(g: torch.Tensor, kernel: torch.Tensor, stride: int, padding: int,
+                     H: int, W: int) -> torch.Tensor:
+    """dL/dx of a depthwise conv (``depthwise.py:93``): the transposed conv of
+    g with the kernel cast to g's dtype; the output padding carries the stride
+    remainder so that positions past the last window start get gradient.
+    g (N, Ho, Wo, C) NHWC -> (N, H, W, C)."""
+    k = kernel.shape[0]
+    c = kernel.shape[-1]
+    w = kernel.reshape(k, k, c).permute(2, 0, 1).unsqueeze(1).to(g.dtype)
+    adj = ((H + 2 * padding - k) % stride, (W + 2 * padding - k) % stride)
+    dx = F.conv_transpose2d(g.permute(0, 3, 1, 2), w, stride=stride, padding=padding,
+                            output_padding=adj, groups=c)
+    return dx.permute(0, 2, 3, 1)[:, :H, :W, :]
+
+
+def dw_grad_weights(x: torch.Tensor, g: torch.Tensor, k: int, stride: int,
+                    padding: int) -> torch.Tensor:
+    """dL/dkernel summed in fp32 (``depthwise.py:117``):
+    dw[u, v, c] = Σ xp[n, i·s+u, j·s+v, c]·g[n, i, j, c].
+
+    The reference spells this as k² shifted elementwise reductions because
+    XLA's depthwise weight gradient was slow on its TPU. In eager PyTorch the
+    same spelling costs two full fp32 passes per tap (measured: 32 ms of
+    device time and 600 launches per mnasnet1_0@224 bs128 step on an H100,
+    PERF.md), so here it is one grouped weight-gradient convolution on the
+    fp32 casts of x and g, with TF32 off: the same exact fp32 products,
+    summed in fp32 in another order. x (N, H, W, C), g (N, Ho, Wo, C) NHWC
+    -> (k, k, 1, C) fp32."""
+    c = x.shape[-1]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        w = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2).float(), (c, 1, k, k),
+                                        g.permute(0, 3, 1, 2).float(), stride=stride,
+                                        padding=padding, groups=c)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return w.permute(2, 3, 1, 0)
 
 
 def depthwise_conv_bn_relu_fused(x: torch.Tensor, kernel: torch.Tensor,

@@ -66,6 +66,27 @@ def dw_shapes(alpha: float = 1.0, image: int = IMAGE):
     return shapes
 
 
+def train_dw_shapes(alpha: float = 1.0, image: int = IMAGE):
+    """(H, C, k, stride) of the depthwise convs of one training forward, in
+    order: the separable stem's, then each block's (17 at any alpha)."""
+    d = get_depths(alpha)
+    return [(image // 2, d[0], 3, 1)] + [(h, cmid, k, s)
+                                         for _, h, _, cmid, _, k, s in block_shapes(alpha, image)]
+
+
+def bn_region_shapes(alpha: float = 1.0, image: int = IMAGE):
+    """(name, H, C) of the BN+ReLU regions of one training forward, in order:
+    stem, separable dw, each block's expand and dw BN, head (35 at any
+    alpha)."""
+    d = get_depths(alpha)
+    out = [("stem_bn", image // 2, d[0]), ("sep_dw_bn", image // 2, d[0])]
+    hw = image // 2
+    for name, h, _, cmid, _, k, s in block_shapes(alpha, image):
+        hw = mbconv.out_size(h, k, s)
+        out += [(f"{name}.expand_bn", h, cmid), (f"{name}.dw_bn", hw, cmid)]
+    return out + [("head_bn", hw, 1280)]
+
+
 def random_block(h, cin, cmid, cout, k, s, g):
     """A block on the card with seeded weights of unit-gain scale, its
     kernel arguments and an input batch."""

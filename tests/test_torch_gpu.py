@@ -12,9 +12,26 @@ import pytest
 import torch
 
 from mnasnet_tpu_torch import create_model
+from mnasnet_tpu_torch.models.mnasnet import InvertedResidual
 from mnasnet_tpu_torch.ops.cuda import dw_conv, mbconv
-from mnasnet_tpu_torch.ops.cuda.dw_conv import dw_conv_bn_act, dw_conv_reference
+from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
+    _fwd_math,
+    bn_bwd_dx,
+    bn_bwd_dx_reference,
+    bn_bwd_reduce,
+    bn_bwd_reduce_reference,
+    bn_relu_train,
+)
+from mnasnet_tpu_torch.ops.cuda.dw_conv import (
+    depthwise_conv_train,
+    dw_conv_bn_act,
+    dw_conv_reference,
+)
 from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fused, mbconv_reference
+from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
+from mnasnet_tpu_torch.train.optim import create_optimizer
+from mnasnet_tpu_torch.train.state import TrainState
+from mnasnet_tpu_torch.train.steps import make_train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -135,3 +152,136 @@ def test_cuda_wrappers_reject(cuda):
         dw_conv_bn_act(torch.zeros(1, 16, 8, 8, device=cuda).permute(0, 2, 3, 1), w, s, b)
     with pytest.raises(ValueError, match="even"):
         dw_conv_bn_act(torch.zeros(1, 8, 8, 15, device=cuda), w[..., :15], s[:15], b[:15])
+
+
+def _bn_case(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.3).to(dtype)
+    dy = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    gamma = torch.rand(c, device=cuda, generator=g) + 0.5
+    beta = torch.rand(c, device=cuda, generator=g) - 0.5
+    y, mean, var = _fwd_math(x, gamma, beta, 1e-5, "one_pass")
+    return x, dy, y, (mean, torch.rsqrt(var + 1e-5), gamma, beta)
+
+
+# (dγ and dβ, dx) tolerances and their reasons are chip_smoke.py's.
+@pytest.mark.parametrize("dtype,tol_dx", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("shape", [(2, 7, 7, 1280), (3, 15, 15, 72), (4, 8, 8, 16),
+                                   (2, 56, 56, 144), (1, 1, 3, 2)])
+def test_bn_kernels_match_plain(cuda, dtype, tol_dx, shape):
+    x, dy, y, vecs = _bn_case(cuda, shape, dtype)
+    before = (bn_bwd_reduce.launches, bn_bwd_dx.launches)
+    dg, db = bn_bwd_reduce(x, dy, *vecs)
+    dx = bn_bwd_dx(x, dy, *vecs, dg, db)
+    torch.cuda.synchronize()
+    assert (bn_bwd_reduce.launches, bn_bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+    rdg, rdb = bn_bwd_reduce_reference(x, dy, *vecs)
+    _close(dg, rdg, 1e-4)
+    _close(db, rdb, 1e-4)
+    assert dx.dtype == dtype and dx.is_contiguous()
+    _close(dx, bn_bwd_dx_reference(x, dy, *vecs, rdg, rdb), tol_dx)
+    # Deterministic: no atomics, the same sums on every run.
+    dg2, db2 = bn_bwd_reduce(x, dy, *vecs)
+    assert torch.equal(dg, dg2) and torch.equal(db, db2)
+    assert torch.equal(dx, bn_bwd_dx(x, dy, *vecs, dg2, db2))
+    # The mask: with dy = 1, dβ counts the positive forward outputs exactly.
+    _, count = bn_bwd_reduce(x, torch.ones_like(dy), *vecs)
+    assert torch.equal(count, (y > 0).float().sum(dim=(0, 1, 2)))
+
+
+def test_bn_relu_train_on_the_kernels(cuda):
+    """The region Function against autograd of its own forward, in fp32 (in
+    bf16 autograd rounds the β cotangent to bf16 through the shift cast and
+    is no oracle; the mask-count check above holds bf16), at the tolerance
+    of tests/test_bn_bwd.py:58-60."""
+    x, dy, _, (_, _, gamma, beta) = _bn_case(cuda, (4, 14, 14, 72), torch.float32, seed=1)
+    xs = [x.detach().requires_grad_() for _ in range(2)]
+    gs = [gamma.detach().requires_grad_() for _ in range(2)]
+    bs = [beta.detach().requires_grad_() for _ in range(2)]
+    before = (bn_bwd_reduce.launches, bn_bwd_dx.launches)
+    y, _, _ = bn_relu_train(xs[0], gs[0], bs[0], 1e-5, "one_pass")
+    y.backward(dy)
+    assert (bn_bwd_reduce.launches, bn_bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+    # The same region through autograd of the plain forward.
+    _fwd_math(xs[1], gs[1], bs[1], 1e-5, "one_pass")[0].backward(dy)
+    for ours, ref in ((xs[0].grad, xs[1].grad), (gs[0].grad, gs[1].grad),
+                      (bs[0].grad, bs[1].grad)):
+        torch.testing.assert_close(ours, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-4)),
+                                       (torch.bfloat16, (2.0 ** -7, 2.0 ** -6))])
+@pytest.mark.parametrize("k,stride,hw,c", [(3, 1, 16, 32), (5, 2, 15, 24), (3, 2, 28, 48)])
+def test_dw_train_function_matches_torch_route(cuda, dtype, tol, k, stride, hw, c):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, hw, hw, c, device=cuda, generator=g).to(dtype)
+    w = torch.randn(k, k, 1, c, device=cuda, generator=g) * 0.3
+    grads = []
+    for fn in (lambda a, b: depthwise_conv_train(a, b, stride=stride),
+               lambda a, b: depthwise_conv2d(a, b, stride=stride, impl="torch")):
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = fn(xr, wr)
+        cot = torch.randn(y.shape, device=cuda, generator=torch.Generator(device=cuda)
+                          .manual_seed(4)).to(dtype)
+        grads.append(torch.autograd.grad(y, (xr, wr), cot))
+    (dx, dw), (tdx, tdw) = grads
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    _close(dx, tdx, tol[0])
+    _close(dw, tdw, tol[1])
+
+
+def test_raw_wrappers_refuse_autograd(cuda):
+    x = torch.randn(1, 8, 8, 16, device=cuda, requires_grad=True)
+    w = torch.randn(3, 3, 1, 16, device=cuda)
+    s, b = torch.ones(16, device=cuda), torch.zeros(16, device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        dw_conv_bn_act(x, w, s, b)
+    with pytest.raises(RuntimeError, match="autograd"):
+        dw_conv_bn_act(x.detach(), w.requires_grad_(), s, b)
+    with torch.no_grad():
+        dw_conv_bn_act(x, w, s, b)  # allowed: nothing is recorded
+    mb = (torch.randn(16, 48, device=cuda), s.new_ones(48), s.new_zeros(48),
+          torch.randn(3, 3, 1, 48, device=cuda), s.new_ones(48), s.new_zeros(48),
+          torch.randn(48, 16, device=cuda), s, b)
+    with pytest.raises(RuntimeError, match="autograd"):
+        mbconv_fused(x, *mb, kernel_size=3, stride=1, residual=True)
+    vecs = (s, s, s, b)
+    with pytest.raises(RuntimeError, match="autograd"):
+        bn_bwd_reduce(x, torch.ones_like(x), *vecs)
+    with pytest.raises(RuntimeError, match="autograd"):
+        bn_bwd_dx(x, torch.ones_like(x), *vecs, s, b)
+
+
+def test_fused_block_is_off_in_train_mode(cuda):
+    block = InvertedResidual(24, 24, 3, 1, 3, dw_impl="auto").to(cuda)
+    x = torch.randn(4, 24, 16, 16, device=cuda).contiguous(memory_format=torch.channels_last)
+    assert block.eval()._use_fused_block(x, "kernel")
+    assert not block.train()._use_fused_block(x, "kernel")
+    before = (mbconv_fused.launches, dw_conv_bn_act.launches, bn_bwd_reduce.launches)
+    block(x.requires_grad_()).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (mbconv_fused.launches - before[0], dw_conv_bn_act.launches - before[1],
+            bn_bwd_reduce.launches - before[2]) == (0, 1, 2)
+    assert x.grad is not None and block.layers[0].weight.grad is not None
+
+
+def test_train_step_kernel_route_matches_torch_route(cuda):
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal((8, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 8)
+    out = []
+    for route in ("kernel", "torch"):
+        model = create_model("mnasnet0_5", num_classes=10, dropout=0.0, dw_impl=route,
+                             bn_bwd=route, bn_ema="external", stem_s2d=True, seed=2)
+        tx = create_optimizer("rmsprop", 1e-4, fused="small")
+        state = TrainState.create(model, tx)
+        state, metrics = make_train_step(model, tx, 0.1)(state, images, labels)
+        out.append((float(metrics["loss"]), model.state_dict()))
+    (lk, sk), (lt, st) = out
+    assert abs(lk - lt) <= 1e-5 * abs(lt)
+    for k in st:
+        if k.endswith(("running_mean", "running_var")):
+            _close(sk[k], st[k], 1e-5)
+        elif not k.endswith("num_batches_tracked"):
+            torch.testing.assert_close(sk[k], st[k], rtol=5e-3, atol=1e-4)

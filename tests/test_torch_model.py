@@ -166,9 +166,29 @@ def test_cuda_without_card_raises():
 
 
 def test_train_mode_forward_is_not_ported():
+    """The train-mode forward is ported (tests/test_torch_train.py holds the
+    step to JAX); the reference's training knobs that are not ported yet
+    (``remat``, ``channel_pad``, ``pw_lowering``, the ``taps``/``taps2``/
+    ``hybrid`` depthwise routes) are refused, and the inference-only fused
+    block never runs in train mode."""
+    from mnasnet_tpu_torch.models.mnasnet import InvertedResidual
+
     model = create_model("mnasnet0_35", device="cpu").train()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 3, 32, 32))
+    out = model(torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(0)))
+    assert out.shape == (2, 1000) and out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert all(int(b) == 1 for n, b in model.named_buffers() if n.endswith("num_batches_tracked"))
+    for knob in (dict(remat=True), dict(channel_pad=8), dict(pw_lowering="dot")):
+        with pytest.raises(TypeError):
+            create_model("mnasnet0_35", device="cpu", **knob)
+    for impl in ("taps", "taps2", "hybrid"):
+        with pytest.raises(ValueError):
+            create_model("mnasnet0_35", device="cpu", dw_impl=impl)
+    with pytest.raises(ValueError):
+        create_model("mnasnet0_35", device="cpu", bn_bwd="pallas_region")
+    block = InvertedResidual(24, 24, 3, 1, 3, dw_impl="kernel")
+    x = torch.zeros(1, 24, 8, 8)
+    assert block.eval()._use_fused_block(x, "kernel")
+    assert not block.train()._use_fused_block(x, "kernel")
 
 
 def test_block_without_a_plan_takes_the_dw_kernel_route():

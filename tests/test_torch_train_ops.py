@@ -1,0 +1,327 @@
+"""The PyTorch port's training ops and layers against the JAX package.
+
+The same numpy inputs go through the JAX functions (the Pallas BN+ReLU
+region in interpret mode, as tests/test_bn_bwd.py runs it; the Pallas dw
+conv likewise) and through the port, whose kernel wrappers run their plain
+PyTorch versions on CPU tensors. Tolerances: fp32 at rtol = atol = 2e-4 (the
+tolerance of tests/test_bn_bwd.py:58-60 for the region's gradients), bf16
+within 2 bf16 ulps of the largest reference value.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from mnasnet_tpu.models.layers import BatchNorm as JaxBatchNorm
+from mnasnet_tpu.models.layers import StemConv as JaxStemConv
+from mnasnet_tpu.ops.depthwise import dw_grad_weights as jax_dw_grad_weights
+from mnasnet_tpu.ops.depthwise import dw_transposed_dx as jax_dw_transposed_dx
+from mnasnet_tpu.ops.pallas.bn_bwd import bn_relu_train as jax_bn_relu_train
+from mnasnet_tpu.ops.pallas.dw_conv import depthwise_conv_pallas
+from mnasnet_tpu.train.schedules import make_schedule as jax_make_schedule
+from mnasnet_tpu_torch import create_model
+from mnasnet_tpu_torch.models.layers import BatchNorm, StemConv
+from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
+    bn_bwd_dx,
+    bn_bwd_dx_reference,
+    bn_bwd_reduce,
+    bn_bwd_reduce_reference,
+    bn_relu_train,
+    plan,
+)
+from mnasnet_tpu_torch.ops.cuda.dw_conv import depthwise_conv_train
+from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d, dw_grad_weights, dw_transposed_dx
+from mnasnet_tpu_torch.train.optim import backbone_frozen_mask, rmsprop_tf, wd_mask
+from mnasnet_tpu_torch.train.schedules import make_schedule, scale_lr_for_batch
+
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is small: one intra-op thread is as
+    fast, and keeps parallel test workers from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _close(out, ref, dtype, tol=2e-4):
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+    else:
+        err = np.abs(out - ref).max()
+        assert err <= 2 * 2.0 ** -7 * np.abs(ref).max(), err
+
+
+def _bn_inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * 2.0 + 0.3).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)
+    beta = rng.uniform(-0.5, 0.5, shape[-1]).astype(np.float32)
+    cot = rng.standard_normal(shape).astype(np.float32)
+    return x, gamma, beta, cot
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stats", ["one_pass", "two_pass"])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 16), (2, 14, 14, 72)])
+def test_bn_relu_train_matches_pallas(shape, stats, dtype):
+    x, gamma, beta, cot = _bn_inputs(shape)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    xj = jnp.asarray(x).astype(jdt)
+    cotj = jnp.asarray(cot).astype(jdt)
+
+    def loss(x_, g_, b_):
+        y, _, _ = jax_bn_relu_train(x_, g_, b_, 1e-5, stats)
+        return jnp.sum((y * cotj).astype(jnp.float32))
+
+    yj, mj, vj = jax_bn_relu_train(xj, jnp.asarray(gamma), jnp.asarray(beta), 1e-5, stats)
+    gj = jax.grad(loss, argnums=(0, 1, 2))(xj, jnp.asarray(gamma), jnp.asarray(beta))
+
+    xt = _t(x).to(tdt).requires_grad_()
+    gt, bt = _t(gamma).requires_grad_(), _t(beta).requires_grad_()
+    y, mean, var = bn_relu_train(xt, gt, bt, 1e-5, stats)
+    assert y.dtype == tdt and mean.dtype == var.dtype == torch.float32
+    assert not mean.requires_grad and not var.requires_grad
+    (y.float() * _t(cot).to(tdt).float()).sum().backward()
+
+    np.testing.assert_allclose(mean.numpy(), np.asarray(mj), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(vj), rtol=1e-5, atol=1e-6)
+    _close(y.detach().float().numpy(), np.asarray(yj, np.float32), dtype)
+    for out, ref, name in zip((xt.grad, gt.grad, bt.grad), gj, ("dx", "dgamma", "dbeta")):
+        assert out.dtype == (tdt if name == "dx" else torch.float32), name
+        _close(out.float().numpy(), np.asarray(ref, np.float32), dtype)
+
+
+def test_bf16_relu_mask_count_is_exact():
+    """With dy = 1 the region's dβ is the per-channel count of unmasked
+    elements, fp32-exact: it must equal the count of positive forward
+    outputs (tests/test_bn_bwd.py:63-86). A mask recomputed in fp32 would
+    disagree at sign boundaries."""
+    rng = np.random.default_rng(0)
+    shape = (8, 8, 8, 64)
+    x = _t(rng.standard_normal(shape)).to(torch.bfloat16)
+    gamma = _t(rng.uniform(0.5, 1.5, 64))
+    beta = _t(rng.uniform(-0.5, 0.5, 64)).requires_grad_()
+    y, _, _ = bn_relu_train(x, gamma, beta, 1e-5, "two_pass")
+    y.float().sum().backward()
+    count = (y > 0).float().sum(dim=(0, 1, 2))
+    assert torch.equal(beta.grad, count)
+
+
+def test_reduce_and_dx_wrappers_take_the_plain_versions_on_cpu():
+    x, gamma, beta, cot = _bn_inputs((2, 6, 6, 24), seed=3)
+    x, dy = _t(x), _t(cot)
+    mean, var = x.mean(dim=(0, 1, 2)), x.var(dim=(0, 1, 2), unbiased=False)
+    inv = torch.rsqrt(var + 1e-5)
+    vecs = (mean, inv, _t(gamma), _t(beta))
+    before = (bn_bwd_reduce.launches, bn_bwd_dx.launches)
+    dg, db = bn_bwd_reduce(x, dy, *vecs)
+    ref = bn_bwd_reduce_reference(x, dy, *vecs)
+    assert torch.equal(dg, ref[0]) and torch.equal(db, ref[1])
+    assert torch.equal(bn_bwd_dx(x, dy, *vecs, dg, db), bn_bwd_dx_reference(x, dy, *vecs, dg, db))
+    assert (bn_bwd_reduce.launches, bn_bwd_dx.launches) == before
+    with pytest.raises(ValueError, match="dy"):
+        bn_bwd_reduce(x, dy[:1], *vecs)
+    with pytest.raises(ValueError, match="per-channel"):
+        bn_bwd_dx(x, dy, mean[:3], inv, _t(gamma), _t(beta), dg, db)
+
+
+@pytest.mark.parametrize("m,c", [(128 * 112 * 112, 48), (128 * 49, 1280), (256, 16), (10, 2)])
+def test_bn_plan(m, c):
+    tp, r, slabs = plan(m, c)
+    tiles = -(-(c // 2) // tp)
+    assert tp * r <= 256 and (tiles - 1) * tp < c // 2 <= tiles * tp
+    assert 1 <= slabs and slabs * tiles <= 8 * 132 + tiles
+    if m >= 8 * 132 * 8 * r:  # a large plane fills the grid
+        assert slabs * tiles >= 8 * 132
+
+
+# k, stride, H, C: the cases of tests/test_pallas_dw.py plus an odd size.
+DW_CASES = [(3, 1, 16, 32), (5, 1, 14, 48), (3, 2, 16, 32), (5, 2, 28, 24), (5, 2, 15, 8)]
+
+
+@pytest.mark.parametrize("k,stride,hw,c", DW_CASES)
+def test_dw_train_function_matches_pallas(k, stride, hw, c):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, hw, hw, c)).astype(np.float32)
+    w = (rng.standard_normal((k, k, 1, c)) * 0.3).astype(np.float32)
+    ho = (hw + 2 * (k // 2) - k) // stride + 1
+    cot = rng.standard_normal((2, ho, ho, c)).astype(np.float32)
+
+    def loss(x_, w_):
+        return jnp.sum(depthwise_conv_pallas(x_, w_, stride=stride, padding=k // 2) * cot)
+
+    yj = depthwise_conv_pallas(jnp.asarray(x), jnp.asarray(w), stride=stride, padding=k // 2)
+    dxj, dwj = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+
+    xt, wt = _t(x).requires_grad_(), _t(w).requires_grad_()
+    y = depthwise_conv_train(xt, wt, stride=stride)
+    (y * _t(cot)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(yj), atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dxj), atol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dwj), rtol=1e-5, atol=1e-4)
+    # The kernel route of the dispatch is this Function; the torch route's
+    # autograd gives the same gradients.
+    xr, wr = _t(x).requires_grad_(), _t(w).requires_grad_()
+    (depthwise_conv2d(xr, wr, stride=stride, impl="torch") * _t(cot)).sum().backward()
+    np.testing.assert_allclose(xr.grad.numpy(), xt.grad.numpy(), atol=1e-5)
+    np.testing.assert_allclose(wr.grad.numpy(), wt.grad.numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,stride,hw", [(3, 1, 9), (5, 2, 15), (3, 2, 16)])
+def test_dw_backward_helpers_match_jax(k, stride, hw, dtype):
+    rng = np.random.default_rng(2)
+    c = 12
+    ho = (hw + 2 * (k // 2) - k) // stride + 1
+    x = rng.standard_normal((2, hw, hw, c)).astype(np.float32)
+    w = (rng.standard_normal((k, k, 1, c)) * 0.3).astype(np.float32)
+    g = rng.standard_normal((2, ho, ho, c)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    dx_ref = jax_dw_transposed_dx(jnp.asarray(g).astype(jdt), jnp.asarray(w), stride, k // 2,
+                                  hw, hw)
+    dx = dw_transposed_dx(_t(g).to(tdt), _t(w), stride, k // 2, hw, hw)
+    assert dx.shape == dx_ref.shape and dx.dtype == tdt
+    _close(dx.float().numpy(), np.asarray(dx_ref, np.float32), dtype, tol=1e-5)
+    dw_ref = jax_dw_grad_weights(jnp.asarray(x).astype(jdt), jnp.asarray(g).astype(jdt), k,
+                                 stride, k // 2)
+    dw = dw_grad_weights(_t(x).to(tdt), _t(g).to(tdt), k, stride, k // 2)
+    assert dw.shape == (k, k, 1, c) and dw.dtype == torch.float32
+    # Both sum the same exact fp32 products, in another order.
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref), rtol=1e-5, atol=1e-4)
+
+
+def _jax_bn_apply(x, params, batch_stats, train, **kw):
+    bn = JaxBatchNorm(x.shape[-1], **kw)
+    out, mutated = bn.apply({"params": params, "batch_stats": batch_stats}, jnp.asarray(x),
+                            use_running_average=not train, mutable=["batch_stats"])
+    return np.asarray(out), jax.tree.map(np.asarray, mutated["batch_stats"])
+
+
+@pytest.mark.parametrize("ema", ["module", "external"])
+@pytest.mark.parametrize("stats", ["one_pass", "two_pass"])
+def test_batchnorm_train_stats_and_ema_match_jax(ema, stats):
+    rng = np.random.default_rng(5)
+    c = 24
+    x = (rng.standard_normal((4, 6, 6, c)) * 1.5 + 0.5).astype(np.float32)
+    p = {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+         "bias": (rng.standard_normal(c) * 0.1).astype(np.float32)}
+    s = {"mean": (rng.standard_normal(c) * 0.1).astype(np.float32),
+         "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+    kw = dict(momentum=0.9, stats=stats, ema=ema)
+    y_ref, s_ref = _jax_bn_apply(x, p, s, True, **kw)
+
+    bn = BatchNorm(c, **kw).train()
+    with torch.no_grad():
+        bn.weight.copy_(_t(p["scale"]))
+        bn.bias.copy_(_t(p["bias"]))
+        bn.running_mean.copy_(_t(s["mean"]))
+        bn.running_var.copy_(_t(s["var"]))
+    xt = _t(x).permute(0, 3, 1, 2)
+    y = bn(xt)
+    np.testing.assert_allclose(y.detach().permute(0, 2, 3, 1).numpy(), y_ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(), s_ref["mean"], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), s_ref["var"], rtol=1e-5, atol=1e-6)
+    assert int(bn.num_batches_tracked) == 1
+    # The region form updates the same statistics and gives relu of the same y.
+    bn2 = BatchNorm(c, **kw).train()
+    bn2.load_state_dict({**bn.state_dict(), "running_mean": _t(s["mean"]),
+                         "running_var": _t(s["var"]), "num_batches_tracked": torch.tensor(0)})
+    y2 = bn2.relu_train_region(xt)
+    np.testing.assert_allclose(y2.detach().permute(0, 2, 3, 1).numpy(), np.maximum(y_ref, 0),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn2.running_var.numpy(), s_ref["var"], rtol=1e-5, atol=1e-6)
+    # Eval mode normalises with the running statistics and updates nothing.
+    y_eval, _ = _jax_bn_apply(x, p, s_ref, False, **kw)
+    bn.eval()
+    before = bn.running_mean.clone()
+    np.testing.assert_allclose(bn(xt).detach().permute(0, 2, 3, 1).numpy(), y_eval,
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(bn.running_mean, before)
+
+
+def test_s2d_stem_matches_plain_and_jax():
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    kernel = (rng.standard_normal((3, 3, 3, 8)) * 0.3).astype(np.float32)  # HWIO
+    cot = rng.standard_normal((2, 8, 8, 8)).astype(np.float32)
+
+    def jax_loss(k_, s2d):
+        y = JaxStemConv(8, s2d=s2d, precision="highest").apply({"params": {"kernel": k_}},
+                                                               jnp.asarray(x), train=True)
+        return jnp.sum(y * cot), y
+
+    (_, y_ref), dk_ref = jax.value_and_grad(jax_loss, has_aux=True)(jnp.asarray(kernel), True)
+
+    outs = {}
+    for s2d in (True, False):
+        stem = StemConv(8, s2d=s2d).train()
+        with torch.no_grad():
+            stem.weight.copy_(_t(kernel).permute(3, 2, 0, 1))
+        y = stem(_t(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        (y.permute(0, 2, 3, 1) * _t(cot)).sum().backward()
+        outs[s2d] = (y.detach().permute(0, 2, 3, 1).numpy(),
+                     stem.weight.grad.permute(2, 3, 1, 0).numpy())
+    for s2d in (True, False):
+        np.testing.assert_allclose(outs[s2d][0], np.asarray(y_ref), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(outs[s2d][1], np.asarray(dk_ref), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(outs[True][0], outs[False][0], rtol=1e-5, atol=1e-5)
+
+
+def test_rmsprop_tf_first_step_by_formula():
+    model = create_model("mnasnet0_35", device="cpu", num_classes=4)
+    params = dict(model.named_parameters())
+    rng = np.random.default_rng(7)
+    grads = {n: _t(rng.standard_normal(p.shape)) for n, p in params.items()}
+    lr, decay, mom, eps, wd = 0.05, 0.9, 0.9, 1e-3, 1e-5
+    tx = rmsprop_tf(lambda count: lr * (count + 1), decay, mom, eps, wd)
+    tx.init(model)
+    updates = tx.update(grads)
+    mask = wd_mask(model)
+    for n, p in params.items():
+        g = grads[n] + wd * p.detach() if mask[n] else grads[n]
+        ms = decay * 1.0 + (1.0 - decay) * g * g  # ms starts at ones
+        expect = -(lr * g * torch.rsqrt(ms + eps))  # mom starts at zero; lr at count 0
+        torch.testing.assert_close(tx.ms[n], ms, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(updates[n], expect, rtol=1e-6, atol=1e-8)
+    assert tx.count == 1
+
+
+def test_wd_and_frozen_masks():
+    model = create_model("mnasnet0_35", device="cpu", num_classes=4)
+    mask = wd_mask(model)
+    names = [n for n, _ in model.named_parameters()]
+    assert list(mask) == names
+    decayed = {n for n, m in mask.items() if m}
+    # Every conv weight (stem, depthwise, 1x1) and the classifier weight.
+    assert "layers.0.weight" in decayed and "layers.3.weight" in decayed
+    assert "layers.8.0.layers.3.weight" in decayed and "classifier.1.weight" in decayed
+    # No BN weight or bias, nor the classifier bias.
+    assert "layers.1.weight" not in decayed and "layers.1.bias" not in decayed
+    assert "classifier.1.bias" not in decayed
+    convs = sum(1 for n, p in model.named_parameters() if p.dim() == 4)
+    assert len(decayed) == convs + 1
+    frozen = backbone_frozen_mask(model)
+    assert {n for n, f in frozen.items() if not f} == {"classifier.1.weight", "classifier.1.bias"}
+
+
+@pytest.mark.parametrize("name,warmup", [("step", 0.0), ("cosine", 1.5), ("exp", 0.0),
+                                         ("constant", 2.0), ("cosine", 0.0)])
+def test_make_schedule_matches_jax(name, warmup):
+    kw = dict(base_lr=0.4, steps_per_epoch=10, epochs=5, warmup_epochs=warmup,
+              step_decay_epochs=2.0, exp_decay_epochs=1.2)
+    ref = jax_make_schedule(name, **kw)
+    ours = make_schedule(name, **kw)
+    # The reference evaluates in fp32, the port in Python floats.
+    for count in [0, 1, 5, 9, 10, 14, 15, 16, 23, 24, 25, 39, 49, 50, 60]:
+        assert ours(count) == pytest.approx(float(ref(count)), rel=1e-5, abs=1e-9), count
+    assert scale_lr_for_batch(0.016, 128) == pytest.approx(0.008)
