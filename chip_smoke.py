@@ -5,12 +5,15 @@
     python3 chip_smoke.py --no-timing  # checks only, for a first run of new kernels
     python3 chip_smoke.py --profile DIR  # also per-kernel device time tables in DIR
     python3 chip_smoke.py --only train   # the train phases only (a new kernel's first run)
+    python3 chip_smoke.py --only kernels # the dw and mbconv phases only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
   2. build: compiles ``mnasnet_tpu_torch/csrc/*.cu`` with nvcc (all at once);
   3. dw: the fused depthwise kernel against its plain version at the 12
-     depthwise shapes of mnasnet1_0@224, batch 128, bf16 and fp32;
+     depthwise shapes of mnasnet1_0@224, batch 128, bf16 and fp32; timed,
+     also in the form one training step runs it (17 launches, unit affine,
+     no ReLU), beside cuDNN's grouped convolution;
   4. mbconv: the fused MBConv kernel against its plain version at the 16
      block shapes of mnasnet1_0@224, batch 128, bf16 and fp32;
   5. serving: ``create_model("mnasnet1_0", dtype=bf16)`` with seeded weights
@@ -38,7 +41,12 @@ Phases, in order; any failure raises and exits non-zero:
      from the same weights; images/s of both routes in bf16 and the step's
      peak memory.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
+and library call's) is the time per call from CUDA events over back-to-back
+eager calls through the counted wrapper, as the model makes them: where the
+host takes longer to issue a call than the card to run it, the host's time
+counts; "host_ms" beside it is the host's time per call alone. ``--profile``
+gives the device time of each of the port's kernels per forward and step.
 
 Tolerances (normalised by the largest magnitude of the reference):
   * kernel vs plain version, fp32: 1e-5 (dw) and 1e-4 (MBConv) — the same
@@ -99,6 +107,7 @@ from mnasnet_tpu_torch.ops.cuda.dw_conv import (
     dw_conv_reference,
     out_size,
 )
+from mnasnet_tpu_torch.ops.cuda.dw_conv import plan as dw_plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fused, mbconv_reference, plan
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.tools.tune_plans import (
@@ -109,6 +118,7 @@ from mnasnet_tpu_torch.tools.tune_plans import (
     dw_shapes,
     random_block,
     time_ms,
+    train_dw_shapes,
 )
 from mnasnet_tpu_torch.train.optim import create_optimizer
 from mnasnet_tpu_torch.train.state import TrainState
@@ -131,6 +141,9 @@ LAUNCHES_PER_STEP = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 35, "bn_bwd_dx": 35,
                      "mbconv_block": 0}
 COUNTERS = {"dw_conv_bn_act": dw_conv_bn_act, "mbconv_block": mbconv_fused,
             "bn_bwd_reduce": bn_bwd_reduce, "bn_bwd_dx": bn_bwd_dx}
+# The port's kernels by a part of their CUDA function names, for profiles.
+KERNEL_NAMES = {"dw_conv_bn_act": "dw_conv_kernel", "mbconv_block": "mbconv_",
+                "bn_bwd_reduce": "bn_reduce_", "bn_bwd_dx": "bn_dx_kernel"}
 
 
 def log(msg: str) -> None:
@@ -154,6 +167,27 @@ def rel_err(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1e-30))
 
 
+def host_ms(fn, iters: int = 50) -> float:
+    """Host time of one call of ``fn``: the wall time of issuing ``iters``
+    calls without waiting for the card, fewer than its launch queue holds.
+    Where it reaches the call's ``time_ms``, the host sets that time, not
+    the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e3
+
+
+def _dw_bytes(x, ho, c, k) -> int:
+    """Bytes the dw kernel must move: x read and y written once, the fp32
+    weights, scale and bias read once."""
+    return (x.numel() + BATCH * ho * ho * c) * x.element_size() + (k * k + 2) * c * 4
+
+
 def dw_phase(timing: bool) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -170,16 +204,18 @@ def dw_phase(timing: bool) -> list[dict]:
             if y.shape != ref.shape or y.dtype != dt or not torch.isfinite(y).all():
                 raise RuntimeError(f"dw {h}x{h}x{c} k{k} s{s} {name}: bad output")
             err = rel_err(y, ref)
+            p = dw_plan(BATCH, h, h, c, k, s, x.element_size())
             row = {"shape": f"{h}x{h}x{c} k{k} s{s}", "dtype": name,
                    "max_abs_err": float((y.float() - ref.float()).abs().max()),
-                   "rel_err": err, "tol": TOL_DW[name]}
+                   "rel_err": err, "tol": TOL_DW[name], "plan": p._asdict()}
             if err > TOL_DW[name]:
                 raise RuntimeError(f"dw {row['shape']} {name}: error {err:.3g} > {TOL_DW[name]}")
             ho = out_size(h, k, s)
-            nbytes = (x.numel() + BATCH * ho * ho * c) * x.element_size() + (k * k + 2) * c * 4
-            row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * k * k * BATCH * ho * ho * c, name)
+            row["bound_ms"], row["bound_by"] = bound(
+                _dw_bytes(x, ho, c, k), 2 * k * k * BATCH * ho * ho * c, name)
             if timing:
                 row["ms"] = time_ms(lambda: dw_conv_bn_act(x, w, scale, bias, stride=s))
+                row["host_ms"] = host_ms(lambda: dw_conv_bn_act(x, w, scale, bias, stride=s))
                 row["plain_ms"] = time_ms(lambda: dw_conv_reference(x, w, scale, bias, stride=s))
                 # One cuDNN call for the same conv and affine (no ReLU): the
                 # scale folded into the weights, the bias as the conv bias.
@@ -192,6 +228,46 @@ def dw_phase(timing: bool) -> list[dict]:
             rows.append(row)
             del x, y, ref
     return rows
+
+
+def dw_train_timing() -> dict:
+    """The dw kernel as one training step runs it: the 17 depthwise convs of
+    the forward (``train_dw_shapes``), bf16, unit scale, zero bias, no ReLU,
+    through ``dw_conv_bn_act``. Sums over the step of the kernel's time, its
+    bound, its plain version and one cuDNN call of the same conv
+    (``F.conv2d(groups=C)``, no bias)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shapes = train_dw_shapes()
+    out = {"summed_over": len(shapes), "ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+           "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for (h, c, k, s) in sorted(set(shapes)):
+        times = shapes.count((h, c, k, s))
+        x = torch.randn(BATCH, h, h, c, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(k, k, 1, c, device="cuda", generator=g) * 0.3
+        ones = torch.ones(c, device="cuda")
+        zeros = torch.zeros(c, device="cuda")
+        y = dw_conv_bn_act(x, w, ones, zeros, stride=s, relu=False)
+        ref = dw_conv_reference(x, w, ones, zeros, stride=s, relu=False)
+        err = rel_err(y, ref)
+        if err > TOL_DW["bfloat16"]:
+            raise RuntimeError(f"dw training form {h}x{h}x{c} k{k} s{s}: error {err:.3g}")
+        out["max_abs_err"] = max(out["max_abs_err"], float((y.float() - ref.float()).abs().max()))
+        ho = out_size(h, k, s)
+        out["bound_ms"] += times * bound(_dw_bytes(x, ho, c, k),
+                                         2 * k * k * BATCH * ho * ho * c, "bfloat16")[0]
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.reshape(k, k, c).permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16)
+        for key, fn in (("ms", lambda: dw_conv_bn_act(x, w, ones, zeros, stride=s, relu=False)),
+                        ("plain_ms", lambda: dw_conv_reference(x, w, ones, zeros, stride=s,
+                                                               relu=False)),
+                        ("library_ms", lambda: F.conv2d(xc, wc, None, stride=s,
+                                                        padding=k // 2, groups=c))):
+            out[key] += times * time_ms(fn, 30.0)
+        out["host_ms"] += times * host_ms(
+            lambda: dw_conv_bn_act(x, w, ones, zeros, stride=s, relu=False))
+        del x, y, ref, xc
+    log(f"[dw] training step, {out['summed_over']} launches: {out}")
+    return out
 
 
 def mbconv_phase(timing: bool) -> list[dict]:
@@ -227,6 +303,7 @@ def mbconv_phase(timing: bool) -> list[dict]:
             if timing and dt == torch.bfloat16:
                 with torch.no_grad():
                     row["ms"] = time_ms(lambda: mbconv_fused(*args, **kw))
+                    row["host_ms"] = host_ms(lambda: mbconv_fused(*args, **kw))
                     row["plain_ms"] = time_ms(lambda: mbconv_reference(*args, **kw))
                     # The port's "torch" route for the whole block, as the model runs it.
                     xc = nchw(x)
@@ -345,7 +422,8 @@ def serving_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
 def profile_forward(fn, x, path: Path) -> dict:
     """Device time by kernel over 3 calls of ``fn(x)`` (torch.profiler),
     written as a table to ``path``; returns the kernel time per call, its
-    share of the call's wall time, and the kernels with the most device time."""
+    share of the call's wall time, the device time and launches per call of
+    each of the port's kernels, and the kernels with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,8 +443,13 @@ def profile_forward(fn, x, path: Path) -> dict:
     kernels = sorted(((getattr(e, key) / 1e3 / 3, e.count // 3, e.key) for e in events
                       if getattr(e, "device_type", None) == DeviceType.CUDA), reverse=True)
     device_ms = sum(k[0] for k in kernels)
+    port = {}
+    for name, prefix in KERNEL_NAMES.items():
+        mine = [(ms, n) for ms, n, key in kernels if prefix in key]
+        if mine:
+            port[name] = {"ms": sum(m for m, _ in mine), "launches": sum(n for _, n in mine)}
     return {"device_ms_per_call": device_ms, "wall_ms_per_call": wall_ms,
-            "device_busy_share": device_ms / wall_ms,
+            "device_busy_share": device_ms / wall_ms, "port_kernels": port,
             "top_kernels": [{"ms": ms, "launches": n, "name": name[:90]}
                             for ms, n, name in kernels[:25]]}
 
@@ -594,7 +677,7 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
             "summed_over": f"{len(bf)} regions of one training step, bf16"}
 
 
-def kernels_line(dw_rows, mb_rows, serving, bn_rows, train) -> dict:
+def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -610,6 +693,11 @@ def kernels_line(dw_rows, mb_rows, serving, bn_rows, train) -> dict:
     def launches(name):
         return sum(by_path(name).values())
 
+    # The training sums cover the launches one step made in the train phase.
+    dw_per_step = by_path("dw_conv_bn_act")["train"] / TRAIN_STEPS
+    if dw_step and dw_step["summed_over"] != dw_per_step:
+        raise RuntimeError(f"the dw training sums cover {dw_step['summed_over']} launches, "
+                           f"a step made {dw_per_step}")
     bn = [_bn_entry(name, bn_rows, launches(name), f"mnasnet_tpu/ops/pallas/bn_bwd.py:{line}")
           for name, line in (("bn_bwd_reduce", 57), ("bn_bwd_dx", 86))]
     for e in bn:
@@ -619,14 +707,19 @@ def kernels_line(dw_rows, mb_rows, serving, bn_rows, train) -> dict:
          "replaces": "mnasnet_tpu/ops/pallas/dw_conv.py:56",
          "also_replaces": "mnasnet_tpu/ops/pallas/dw_conv.py:96",
          "launches": launches("dw_conv_bn_act"), "launches_by_path": by_path("dw_conv_bn_act"),
-         "max_abs_err": sep["max_abs_err"], "ms": sep.get("ms"),
+         "max_abs_err": sep["max_abs_err"], "ms": sep.get("ms"), "host_ms": sep.get("host_ms"),
          "plain_ms": sep.get("plain_ms"), "bound_ms": sep["bound_ms"],
          "bound_by": sep["bound_by"], "library_ms": sep.get("library_ms"),
+         "measured_at": "112x112x32 k3 s1, the serving path's one launch",
+         "train_step_launches": dw_per_step,
+         **{f"train_step_{key}": dw_step.get(key)
+            for key in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")},
          "shapes": dw_rows},
         {"name": "mbconv_block", "route": "cuda", "source": "mnasnet_tpu_torch/csrc/mbconv.cu",
          "replaces": "mnasnet_tpu/ops/pallas/mbconv.py:58",
          "launches": launches("mbconv_block"), "launches_by_path": by_path("mbconv_block"),
          "max_abs_err": max(r["max_abs_err"] for r in mb), "ms": total("ms"),
+         "host_ms": total("host_ms"),
          "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
          "bound_by": "bytes" if by_bytes * 2 >= total("bound_ms") else "operations",
          "library_ms": None, "torch_route_ms": total("torch_route_ms"),
@@ -641,8 +734,9 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
-    ap.add_argument("--only", choices=("all", "train"), default="all",
-                    help="'train' runs the bn, dw training and train phases only")
+    ap.add_argument("--only", choices=("all", "train", "kernels"), default="all",
+                    help="'train' runs the bn, dw training and train phases only; "
+                         "'kernels' the dw and mbconv phases only")
     args = ap.parse_args()
     timing = not args.no_timing
     if args.profile is not None:
@@ -669,16 +763,22 @@ def main() -> int:
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
         return result
 
-    if args.only == "all":
+    if args.only in ("all", "kernels"):
         dw_rows = phase("dw", dw_phase, timing)
+        dw_step = phase("dw-step", dw_train_timing) if timing else {}
         mb_rows = phase("mbconv", mbconv_phase, timing)
+    if args.only == "kernels":
+        log(json.dumps({"dw": dw_rows, "dw_step": dw_step, "mbconv": mb_rows}))
+        log(card)
+        return 0
+    if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
     bn_rows = phase("bn", bn_phase, timing)
     dw_train = phase("dw-train", dw_train_phase)
     train = phase("train", train_phase, timing, card, args.profile)
 
     if args.only == "all":
-        log(json.dumps(kernels_line(dw_rows, mb_rows, serving, bn_rows, train)))
+        log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train)))
         log(json.dumps({"serving": serving}))
     log(json.dumps({"train": train, "dw_train": dw_train}))
     log(card)

@@ -15,9 +15,10 @@ Macro-architecture (MnasNet-B1, input 224x224x3):
   head   Conv1x1 -> 1280, BN, ReLU; global mean; Dropout(0.2); Linear -> classes
 
 Compute runs in ``dtype`` (bf16 or fp32) with fp32 parameters and running
-stats. The head BN and ReLU and the pooled mean run in the compute dtype, as
-in the reference; the classifier runs in fp32, where the reference's
-``nn.Dense(dtype=...)`` multiplies in the compute dtype (ROADMAP Queue 3).
+stats. The head BN and ReLU, the pooled mean and the classifier run in the
+compute dtype, as in the reference, whose ``nn.Dense(dtype=...)`` casts its
+input, kernel and bias to that dtype, rounds the product and the bias sum to
+it, and only then casts the logits to fp32.
 
 ``dw_impl`` routes the depthwise work: ``"kernel"`` runs the hand-written
 CUDA kernels (the reference's ``"pallas"``): the fused MBConv kernel for
@@ -43,6 +44,7 @@ fused MBConv kernel is inference-only and never runs in train mode.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mnasnet_tpu_torch.models.layers import (
@@ -275,8 +277,16 @@ class MNASNet(nn.Module):
         if self.training and p > 0.0:
             keep = torch.rand(y.shape, device=y.device, generator=generator) < 1.0 - p
             y = torch.where(keep, y / (1.0 - p), torch.zeros_like(y))
-        # The classifier runs in fp32.
-        return self.classifier[1](y.float())
+        return self.classify(y)
+
+    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
+        """fp32 logits of pooled features, computed as the reference's
+        ``nn.Dense(dtype=self.dtype)``: the features, weight and bias cast to
+        the compute dtype, the product rounded to it, the bias added in it,
+        then one cast to fp32. Gradients flow through the casts."""
+        fc = self.classifier[1]
+        y = F.linear(pooled.to(self.dtype), fc.weight.to(self.dtype))
+        return (y + fc.bias.to(self.dtype)).float()
 
 
 def resolve_device(device) -> torch.device:

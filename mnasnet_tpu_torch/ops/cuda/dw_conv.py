@@ -9,7 +9,10 @@ result is stored once in x's dtype.
 On an H100 the op is memory-bound (2k² + 2 FLOP per output element against 4
 bytes moved in bf16), so the kernel reads x once and writes y once: zero
 padding happens in shared memory, never as a padded copy in device memory.
-The source note in ``csrc/dw_conv.cu`` has the design.
+The source note in ``csrc/dw_conv.cu`` has the design; :func:`plan` picks a
+block's band of output rows, its channel group, each thread's strip of
+outputs and the rows computed side by side. C must be a multiple of 8 on the card (every MNASNet width is): the
+wrapper raises for any other.
 
 :func:`dw_conv_bn_act` runs :func:`dw_conv_reference` for a CPU tensor and
 the kernel for a CUDA tensor; nothing falls back from one to the other. It has
@@ -23,53 +26,107 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from mnasnet_tpu_torch.ops.cuda import _build
 
-# Shared memory one dw block plans for: small enough for several resident
-# blocks on an SM (228 KB each), large enough for whole rows plus the halo.
-SMEM_BUDGET = 48 * 1024
-# Target channel tile; a tile is a multiple of 2 (the kernel moves pairs).
-CHANNEL_TILE = 64
+# The planner's rules (from the plan sweep of tools/tune_plans.py on an
+# H100): shared memory of one block at most, its band of output rows, the
+# threads of one step and the channel group it wants at least.
+SMEM_BUDGET = 100 * 1024
+BAND = 14
+STEP_THREADS = 256
+MIN_GROUP = 48
+# Threads of one block at most (the kernel's __launch_bounds__).
+MAX_THREADS = 512
+# Outputs per thread along W that the kernel is built for, and the output
+# rows a block may compute side by side.
+STRIPS = (7, 2)
+ROWS_SIDE_BY_SIDE = (7, 4, 2, 1)
 _DTYPES = (torch.bfloat16, torch.float32)
+
+
+class Plan(NamedTuple):
+    th: int       # output rows of one block's band
+    cg: int       # channels of one block (a multiple of 8 dividing C)
+    r: int        # outputs per thread along W
+    rp: int       # output rows computed side by side
+    threads: int  # (cg / 8) * ceil(Wo / r) * rp
+    smem: int     # shared-memory bytes of one block
 
 
 def out_size(n: int, k: int, stride: int) -> int:
     return (n + 2 * (k // 2) - k) // stride + 1
 
 
-def smem_bytes(k: int, stride: int, wo: int, th: int, cb: int, elem_bytes: int) -> int:
+def ring_cols(k: int, stride: int, wo: int, r: int) -> int:
+    """Input columns of one ring row: the strips cover ceil(Wo/r)*r outputs."""
+    return (-(-wo // r) * r - 1) * stride + k
+
+
+def ring_rows(k: int, stride: int, th: int, rp: int) -> int:
+    """Input rows of the ring: a step of rp output rows and the next step's
+    rp*stride rows, or the whole band where that is fewer."""
+    return min(k + stride * (2 * rp - 1), (th - 1) * stride + k)
+
+
+def smem_bytes(k: int, stride: int, wo: int, th: int, cg: int, r: int, rp: int,
+               elem_bytes: int) -> int:
     """Shared memory of one block; the same formula as ``dw_smem_bytes`` in
-    ``csrc/dw_conv.cu``: fp32 weights [k*k][cb] + input rows with halo."""
-    rows = (th - 1) * stride + k
-    cols = (wo - 1) * stride + k
-    return k * k * cb * 4 + rows * cols * cb * elem_bytes
+    ``csrc/dw_conv.cu``: fp32 weights [k*k][cg], scale and bias [2][cg], and
+    the ring of input rows [ring_cols][cg] in the I/O dtype."""
+    return ((k * k + 2) * cg * 4
+            + ring_rows(k, stride, th, rp) * ring_cols(k, stride, wo, r) * cg * elem_bytes)
+
+
+def make_plan(n: int, h: int, w: int, c: int, k: int, stride: int, elem_bytes: int,
+              th: int, cg: int, r: int, rp: int) -> Plan:
+    """The :class:`Plan` of explicit (th, cg, r, rp), with its thread count and
+    shared memory; raises if the kernel cannot run it."""
+    wo = out_size(w, k, stride)
+    threads = cg // 8 * -(-wo // r) * rp
+    smem = smem_bytes(k, stride, wo, th, cg, r, rp, elem_bytes)
+    if cg % 8 or c % cg or r not in STRIPS or not 1 <= rp <= th or threads > MAX_THREADS \
+            or smem > 232_448:
+        raise ValueError(f"no dw launch for th={th} cg={cg} r={r} rp={rp} at W={w} C={c} "
+                         f"k{k} s{stride}")
+    return Plan(th, cg, r, rp, threads, smem)
 
 
 @functools.lru_cache(maxsize=None)
-def plan(n: int, h: int, w: int, c: int, k: int, stride: int,
-         elem_bytes: int) -> tuple[int, int]:
-    """(TH, CB): output rows and channels of one block.
+def plan(n: int, h: int, w: int, c: int, k: int, stride: int, elem_bytes: int) -> Plan:
+    """The launch plan of one shape (C a multiple of 8).
 
-    CB splits C into near-equal even tiles of at most ``CHANNEL_TILE``. TH is
-    the tallest row tile within ``SMEM_BUDGET``, lowered until the grid has
-    four blocks per SM of an H100 (132 SMs) where the shape allows it.
+    th: ``BAND`` output rows. r: 7 outputs per thread at stride 1 where 7
+    divides the row (every row of the model at 224 px), else 2. Then the
+    most rows side by side (``ROWS_SIDE_BY_SIDE``) for which a channel group
+    of at least ``MIN_GROUP`` (or all of C) keeps a step within
+    ``STEP_THREADS`` threads and the block within ``SMEM_BUDGET``, with the
+    widest such group; where no group that wide fits (fp32 rings at k = 5 or
+    stride 2), the most rows side by side with the widest group that fits.
+    The rules come from timing every plan of the 12 depthwise shapes of
+    mnasnet1_0@224 at bs128 in bf16 on an H100
+    (``python -m mnasnet_tpu_torch.tools.tune_plans``, PERF.md).
     """
+    if c % 8:
+        raise ValueError(f"the dw kernel needs C a multiple of 8, got {c}")
     ho, wo = out_size(h, k, stride), out_size(w, k, stride)
-    tiles = -(-c // CHANNEL_TILE)
-    cb = -(-c // tiles)
-    cb += cb % 2
-    th = ho
-    while th > 1 and smem_bytes(k, stride, wo, th, cb, elem_bytes) > SMEM_BUDGET:
-        th -= 1
-    while th > 1 and n * tiles * -(-ho // th) < 4 * 132:
-        th -= 1
-    if smem_bytes(k, stride, wo, th, cb, elem_bytes) > SMEM_BUDGET * 4:
-        raise ValueError(f"a row of {wo} x {cb} channels does not fit shared memory")
-    return th, cb
+    th = min(BAND, ho)
+    r = 7 if stride == 1 and wo % 7 == 0 else 2
+    strips = -(-wo // r)
+    fits = []  # (rows side by side, the widest group that fits)
+    for rp in ROWS_SIDE_BY_SIDE:
+        groups = [g for g in range(8, c + 1, 8)
+                  if c % g == 0 and g // 8 * strips * rp <= STEP_THREADS
+                  and smem_bytes(k, stride, wo, th, g, r, rp, elem_bytes) <= SMEM_BUDGET]
+        if rp <= th and groups:
+            fits.append((rp, max(groups)))
+    wide = [(rp, g) for rp, g in fits if g >= min(MIN_GROUP, c)]
+    rp, g = (wide or fits or [(1, 8)])[0]
+    return make_plan(n, h, w, c, k, stride, elem_bytes, th, g, r, rp)
 
 
 def dw_conv_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -89,9 +146,9 @@ def dw_conv_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 _PROTOTYPES = {
-    "dw_conv_bn_act": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "dw_conv_bn_act": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
                        ctypes.c_int),
-    "dw_conv_smem_bytes": ([ctypes.c_int] * 6, ctypes.c_longlong),
+    "dw_conv_smem_bytes": ([ctypes.c_int] * 8, ctypes.c_longlong),
 }
 
 
@@ -134,25 +191,37 @@ def dw_conv_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
     n, h, wd, c = x.shape
-    if c % 2:
-        raise ValueError(f"the dw kernel needs an even channel count, got {c}")
+    if c % 8:
+        raise ValueError(f"the dw kernel needs C a multiple of 8 (one 16-byte vector "
+                         f"per thread), got {c}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
     k = w.shape[0]
     dev = x.device
     w32 = w.reshape(k, k, c).to(device=dev, dtype=torch.float32).contiguous()
     s32 = scale.to(device=dev, dtype=torch.float32).contiguous()
     b32 = bias.to(device=dev, dtype=torch.float32).contiguous()
-    th, cb = plan(n, h, wd, c, k, stride, x.element_size())
+    y = launch(x, w32, s32, b32, stride, relu, plan(n, h, wd, c, k, stride, x.element_size()))
+    dw_conv_bn_act.launches += 1
+    return y
+
+
+def launch(x, w32, s32, b32, stride: int, relu: bool, p: Plan) -> torch.Tensor:
+    """One launch of the kernel with plan ``p`` on checked, contiguous inputs
+    (w32 (k, k, C), s32 and b32 (C,) fp32, on x's device). Counts nothing:
+    the plan sweep and the timings call it."""
+    n, h, wd, c = x.shape
+    k = w32.shape[0]
     y = torch.empty((n, out_size(h, k, stride), out_size(wd, k, stride), c),
-                    dtype=x.dtype, device=dev)
+                    dtype=x.dtype, device=x.device)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dw_conv_bn_act(
             x.data_ptr(), w32.data_ptr(), s32.data_ptr(), b32.data_ptr(), y.data_ptr(),
             n, h, wd, c, k, stride, int(relu), int(x.dtype == torch.bfloat16),
-            th, cb, stream)
+            p.th, p.cg, p.r, p.rp, stream)
     _build.check(err, "dw_conv_bn_act")
-    dw_conv_bn_act.launches += 1
     return y
 
 

@@ -4,10 +4,11 @@
 
 For every MBConv block of the model at 224 px, batch 128, bf16, it times
 each tile plan of the fused MBConv kernel (output tile, chunk width, 256 or
-512 threads) that fits shared memory, checks each against the plain version,
-and reports the fastest beside the one :func:`mbconv.plan` picks. For every
-depthwise shape it times the dw kernel at several shared-memory budgets of
-:func:`dw_conv.plan`. Needs a CUDA device.
+512 threads) that the kernel can run; for every depthwise shape, each plan
+of the dw kernel (band of output rows, channel group, strip of outputs per
+thread). It checks each plan against the plain version and reports the
+fastest beside the one :func:`mbconv.plan` or :func:`dw_conv.plan` picks.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,10 +26,19 @@ BATCH = 128
 IMAGE = 224
 
 
-def time_ms(fn, target_ms: float = 100.0) -> float:
+def time_ms(fn, target_ms: float = 100.0, graph: bool = False) -> float:
     """Device time of one call of ``fn``, from CUDA events over many calls
-    after a warm-up."""
+    after a warm-up. With ``graph`` the calls replay one CUDA graph of
+    ``fn``, so that the host's launch overhead (tens of microseconds of
+    Python per call) does not leave the card idle between short kernels."""
     for _ in range(3):
+        fn()
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            fn()
+        fn = g.replay
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -110,33 +120,57 @@ def random_block(h, cin, cmid, cout, k, s, g):
     return block, args, kw
 
 
-def _launcher(args, kw, p: mbconv.Plan):
-    """A call of the MBConv kernel with plan ``p`` instead of the planner's."""
-    x, we, se, be, wd, sd, bd, wp, sp, bp = args
-    k, s = kw["kernel_size"], kw["stride"]
-    n, h, w, cin = x.shape
-    cmid, cout = we.shape[1], wp.shape[1]
-    we_c, wp_c = we.to(x.dtype).contiguous(), wp.to(x.dtype).contiguous()
-    wd_c = wd.reshape(k, k, cmid).to(x.dtype).contiguous()
-    vecs = [v.float().contiguous() for v in (se, be, sd, bd, sp, bp)]
-    y = torch.empty((n, mbconv.out_size(h, k, s), mbconv.out_size(w, k, s), cout),
-                    dtype=x.dtype, device=x.device)
-    lib = mbconv._lib()
-    stream = torch.cuda.current_stream().cuda_stream
+def _dw_candidates(n, h, c, k, s, eb):
+    """The dw plans the sweep times: both strips, every channel group that
+    divides C, bands of 7 and 14 output rows and of the whole plane, 1, 2, 4
+    and 7 rows side by side, within the thread limit and 100 KB."""
+    ho = wo = dw_conv.out_size(h, k, s)
+    out = []
+    for r in dw_conv.STRIPS:
+        for cg in range(8, c + 1, 8):
+            for th in sorted({min(ho, b) for b in (7, 14, ho)}):
+                for rp in dw_conv.ROWS_SIDE_BY_SIDE:
+                    if c % cg or rp > th or cg // 8 * -(-wo // r) * rp > dw_conv.MAX_THREADS \
+                            or dw_conv.smem_bytes(k, s, wo, th, cg, r, rp, eb) > 100 * 1024:
+                        continue
+                    out.append(dw_conv.make_plan(n, h, h, c, k, s, eb, th, cg, r, rp))
+    return out
 
-    def call():
-        err = lib.mbconv_block(
-            x.data_ptr(), we_c.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-            wd_c.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), wp_c.data_ptr(),
-            vecs[4].data_ptr(), vecs[5].data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
-            k, s, int(kw["residual"]), int(x.dtype == torch.bfloat16), p.th, p.tw, p.mc,
-            p.threads, stream)
-        if err:
-            raise RuntimeError(f"mbconv_block failed with cudaError_t {err}")
-    return call, y
+
+def sweep_dw(alpha: float) -> list[dict]:
+    """Every dw shape of the model, bf16, fused form (affine + ReLU): each
+    plan of :func:`_dw_candidates` checked against the plain version and
+    timed, beside the planner's."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for h, c, k, s in dw_shapes(alpha):
+        x = torch.randn(BATCH, h, h, c, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(k, k, c, device="cuda", generator=g) * 0.3
+        scale = torch.rand(c, device="cuda", generator=g) + 0.5
+        bias = torch.randn(c, device="cuda", generator=g) * 0.1
+        ref = dw_conv.dw_conv_reference(x, w, scale, bias, stride=s).float()
+        rows = []
+        for p in _dw_candidates(BATCH, h, c, k, s, 2):
+            y = dw_conv.launch(x, w, scale, bias, s, True, p)
+            err = float((y.float() - ref).abs().max() / ref.abs().max())
+            if err > 2.0 ** -7:
+                raise RuntimeError(f"dw plan {p} at {h}x{h}x{c} k{k} s{s}: error {err:.3g}")
+            rows.append({**p._asdict(), "err": err, "ms": time_ms(
+                lambda: dw_conv.launch(x, w, scale, bias, s, True, p), 30.0, graph=True)})
+        pp = dw_conv.plan(BATCH, h, h, c, k, s, 2)
+        picked = next(r for r in rows if (r["th"], r["cg"], r["r"], r["rp"]) == pp[:4])
+        best = min(rows, key=lambda r: r["ms"])
+        print(f"[dw] {h}x{h}x{c} k{k} s{s}: planner {picked['ms']:.4f} ms {tuple(pp[:4])}, "
+              f"fastest {best['ms']:.4f} ms {(best['th'], best['cg'], best['r'], best['rp'])} "
+              f"(th, cg, r, rp), {len(rows)} plans", flush=True)
+        out.append({"shape": [h, c, k, s], "planner": picked, "fastest": best, "plans": rows})
+    return out
 
 
 def sweep_mbconv(alpha: float) -> list[dict]:
+    """Every MBConv block of the model, bf16: each tile plan (tile, chunk
+    width, 256 or 512 threads) that the kernel can run, checked against the
+    plain version and timed, beside the planner's."""
     g = torch.Generator(device="cuda").manual_seed(2)
     out = []
     for name, h, cin, cmid, cout, k, s in block_shapes(alpha):
@@ -144,6 +178,7 @@ def sweep_mbconv(alpha: float) -> list[dict]:
         args = (args[0].to(torch.bfloat16),) + args[1:]
         with torch.no_grad():
             ref = mbconv.mbconv_reference(*args, **kw).float()
+        ops = mbconv.kernel_args(*args, kernel_size=k)
         ho = mbconv.out_size(h, k, s)
         rows = []
         for th in mbconv._edges(ho):
@@ -152,17 +187,22 @@ def sweep_mbconv(alpha: float) -> list[dict]:
                     continue
                 px = (mbconv._expanded_extent(h, ho, th, k, s)
                       * mbconv._expanded_extent(h, ho, tw, k, s))
-                for mc in (128, 64, 32, 16, 8):
-                    smem = mbconv.smem_bytes(th, tw, mc, cin, cout, k, s, 2)
-                    if mc > cmid or smem > mbconv.SMEM_LIMIT:
-                        continue
+                for mc in mbconv._TC_CHUNKS:
                     for threads in (256, 512):
-                        call, y = _launcher(args, kw, mbconv.Plan(th, tw, mc, smem, px, threads))
-                        call()
-                        err = float((y.float() - ref).abs().max() / ref.abs().max())
+                        if not mbconv.feasible(th, tw, mc, cin, cmid, cout, k, s, 2, threads):
+                            continue
+                        smem = mbconv.smem_bytes(th, tw, mc, cin, cout, k, s, 2)
+                        p = mbconv.Plan(th, tw, mc, smem, px, threads)
+
+                        def call(p=p):
+                            return mbconv.launch(*ops, stride=s, residual=kw["residual"], p=p)
+
+                        err = float((call().float() - ref).abs().max() / ref.abs().max())
+                        if err > 2.0 ** -6:
+                            raise RuntimeError(f"mbconv plan {p} of {name}: error {err:.3g}")
                         rows.append({"th": th, "tw": tw, "mc": mc, "threads": threads,
                                      "smem": smem, "expand_px": px, "err": err,
-                                     "ms": time_ms(call, target_ms=30.0)})
+                                     "ms": time_ms(call, 30.0, graph=True)})
         p = mbconv.plan(h, h, cin, cmid, cout, k, s, 2)
         picked = next(r for r in rows
                       if (r["th"], r["tw"], r["mc"], r["threads"]) == (p.th, p.tw, p.mc, p.threads))
@@ -172,33 +212,7 @@ def sweep_mbconv(alpha: float) -> list[dict]:
               f"({best['th']},{best['tw']},{best['mc']})+{best['threads']}t, "
               f"{len(rows)} plans, max err {max(r['err'] for r in rows):.3g}", flush=True)
         out.append({"block": name, "shape": [h, cin, cmid, cout, k, s], "planner": picked,
-                     "fastest": best, "plans": rows})
-    return out
-
-
-def sweep_dw(alpha: float) -> list[dict]:
-    g = torch.Generator(device="cuda").manual_seed(3)
-    budget0 = dw_conv.SMEM_BUDGET
-    out = []
-    try:
-        for h, c, k, s in dw_shapes(alpha):
-            x = torch.randn(BATCH, h, h, c, device="cuda", generator=g).to(torch.bfloat16)
-            w = torch.randn(k, k, 1, c, device="cuda", generator=g) * 0.3
-            scale = torch.rand(c, device="cuda", generator=g) + 0.5
-            bias = torch.randn(c, device="cuda", generator=g) * 0.1
-            rows = []
-            for kb in (16, 24, 32, 48, 64, 96):
-                dw_conv.SMEM_BUDGET = kb * 1024
-                dw_conv.plan.cache_clear()
-                th, cb = dw_conv.plan(BATCH, h, h, c, k, s, 2)
-                rows.append({"budget_kb": kb, "th": th, "cb": cb, "ms": time_ms(
-                    lambda: dw_conv.dw_conv_bn_act(x, w, scale, bias, stride=s), 30.0)})
-            print(f"[dw] {h}x{h}x{c} k{k} s{s}: " + ", ".join(
-                f"{r['budget_kb']} KB {r['ms']:.4f} ms" for r in rows), flush=True)
-            out.append({"shape": [h, c, k, s], "rows": rows})
-    finally:
-        dw_conv.SMEM_BUDGET = budget0
-        dw_conv.plan.cache_clear()
+                    "fastest": best, "plans": rows})
     return out
 
 
@@ -212,9 +226,11 @@ def main() -> None:
     alpha = arch_alpha(args.arch)
     result = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
               "mbconv": sweep_mbconv(alpha), "dw": sweep_dw(alpha)}
-    planner = sum(b["planner"]["ms"] for b in result["mbconv"])
-    fastest = sum(b["fastest"]["ms"] for b in result["mbconv"])
-    print(f"[mbconv] sum over blocks: planner {planner:.4f} ms, fastest plans {fastest:.4f} ms")
+    for kernel in ("mbconv", "dw"):
+        planner = sum(b["planner"]["ms"] for b in result[kernel])
+        fastest = sum(b["fastest"]["ms"] for b in result[kernel])
+        print(f"[{kernel}] sum over shapes: planner {planner:.4f} ms, "
+              f"fastest plans {fastest:.4f} ms")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result))

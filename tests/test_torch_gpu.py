@@ -100,12 +100,88 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, tol, h, cin, cmid, cout, k, st
 
 def test_smem_formulas_match_the_sources(cuda):
     dw_lib, mb_lib = dw_conv._lib(), mbconv._lib()
-    for k, s, wo, th, cb, eb in [(3, 1, 112, 4, 32, 2), (5, 2, 14, 7, 64, 4)]:
-        assert dw_lib.dw_conv_smem_bytes(k, s, wo, th, cb, eb) == \
-            dw_conv.smem_bytes(k, s, wo, th, cb, eb)
+    for args in [(3, 1, 112, 7, 32, 7, 2, 2), (5, 2, 14, 14, 64, 2, 4, 4),
+                 (5, 1, 7, 7, 192, 7, 7, 2)]:
+        assert dw_lib.dw_conv_smem_bytes(*args) == dw_conv.smem_bytes(*args)
     for args in [(16, 16, 16, 16, 24, 3, 2, 2), (7, 7, 64, 192, 320, 3, 1, 4),
-                 (14, 8, 32, 80, 80, 5, 1, 2)]:
+                 (14, 8, 32, 80, 80, 5, 1, 2), (7, 7, 48, 8, 40, 5, 1, 2),
+                 (14, 14, 80, 24, 24, 3, 1, 2), (8, 8, 16, 8, 8, 5, 2, 4)]:
         assert mb_lib.mbconv_smem_bytes(*args) == mbconv.smem_bytes(*args)
+
+
+def _dw_case(cuda, dtype, n, hw, c, k, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, hw, hw, c, device=cuda, generator=g).to(dtype)
+    w = torch.randn(k, k, c, device=cuda, generator=g) * 0.3
+    s = torch.rand(c, device=cuda, generator=g) + 0.5
+    b = torch.randn(c, device=cuda, generator=g)
+    return x, w, s, b
+
+
+# Plans that hit the dw kernel's edges: a band that does not divide Ho, a
+# step of rows side by side that does not divide the band, a strip that does
+# not divide Wo, a channel group below C, C = 8, both strips, a band loaded
+# whole and a ring that wraps at stride 2.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("hw,c,k,stride,th,cg,r,rp", [
+    (16, 32, 3, 1, 5, 16, 7, 2),    # Ho = 16: bands of 5, steps of 2; cg < C; Wo = 16
+    (15, 8, 5, 2, 3, 8, 7, 1),      # Wo = 8, Ho = 8 in bands of 3; C = 8
+    (14, 24, 5, 1, 4, 24, 2, 4),    # Wo = 14 in strips of 2; each band whole
+    (7, 48, 3, 1, 7, 16, 2, 7),     # Wo = 7 in strips of 2; the plane in one step
+    (17, 40, 3, 2, 2, 40, 2, 1),    # Wo = 9 in strips of 2, odd H at stride 2
+    (28, 16, 5, 2, 14, 16, 2, 4),   # a ring of 19 rows that wraps, stride 2
+    (14, 24, 5, 1, 14, 24, 7, 7),   # strips of 7: two to a row
+    (9, 16, 3, 1, 4, 8, 7, 2),      # Wo = 9 in strips of 7
+])
+def test_dw_kernel_plans_match_plain(cuda, dtype, tol, hw, c, k, stride, th, cg, r, rp):
+    x, w, s, b = _dw_case(cuda, dtype, 2, hw, c, k)
+    p = dw_conv.make_plan(2, hw, hw, c, k, stride, x.element_size(), th, cg, r, rp)
+    for relu in (True, False):
+        y = dw_conv.launch(x, w, s, b, stride, relu, p)
+        y2 = dw_conv.launch(x, w, s, b, stride, relu, p)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2)  # no atomics: two launches bit-identical
+        _close(y, dw_conv_reference(x, w, s, b, stride=stride, relu=relu), tol)
+
+
+def _mb_args(cuda, dtype, n, h, cin, cmid, cout, k, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device=cuda, generator=g) * scale
+
+    x = r(n, h, h, cin).to(dtype)
+    return (x, r(cin, cmid, scale=cin ** -0.5), r(cmid).abs() + 0.5, r(cmid, scale=0.1),
+            r(k, k, 1, cmid, scale=1 / k), r(cmid).abs() + 0.5, r(cmid, scale=0.1),
+            r(cmid, cout, scale=cmid ** -0.5), r(cout).abs() + 0.5, r(cout, scale=0.1))
+
+
+# Plans that hit the MBConv kernels' edges: Cin = 8 and Cmid = 24 (K padded
+# to 16), Cout = 8 and Cout = 40 (odd n-tiles), a chunk that does not divide
+# Cmid, ragged tiles with a residual, a 7x7 tile at several project items.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("h,cin,cmid,cout,k,stride,res,th,tw,mc", [
+    (15, 8, 24, 8, 5, 2, False, 8, 8, 16),
+    (20, 24, 72, 24, 3, 1, True, 8, 8, 32),
+    (13, 40, 120, 40, 5, 1, True, 7, 4, 48),
+    (7, 48, 288, 80, 3, 1, False, 7, 7, 128),
+    (12, 16, 96, 40, 5, 2, False, 4, 6, 64),
+])
+def test_mbconv_kernel_plans_match_plain(cuda, dtype, tol, h, cin, cmid, cout, k, stride, res,
+                                         th, tw, mc):
+    args = _mb_args(cuda, dtype, 2, h, cin, cmid, cout, k)
+    kw = dict(kernel_size=k, stride=stride, residual=res)
+    eb = args[0].element_size()
+    mc = mc if eb == 2 else min(mc, 64)
+    assert mbconv.feasible(th, tw, mc, cin, cmid, cout, k, stride, eb, mbconv.THREADS)
+    smem = mbconv.smem_bytes(th, tw, mc, cin, cout, k, stride, eb)
+    p = mbconv.Plan(th, tw, mc, smem, 0, mbconv.THREADS)
+    ops = mbconv.kernel_args(*args, kernel_size=k)
+    y = mbconv.launch(*ops, stride=stride, residual=res, p=p)
+    y2 = mbconv.launch(*ops, stride=stride, residual=res, p=p)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    _close(y, mbconv_reference(*args, **kw), tol)
 
 
 def test_model_kernel_route_matches_torch_route(cuda):
@@ -150,8 +226,10 @@ def test_cuda_wrappers_reject(cuda):
         dw_conv_bn_act(x, w, s, b)
     with pytest.raises(ValueError, match="contiguous"):
         dw_conv_bn_act(torch.zeros(1, 16, 8, 8, device=cuda).permute(0, 2, 3, 1), w, s, b)
-    with pytest.raises(ValueError, match="even"):
+    with pytest.raises(ValueError, match="multiple of 8"):
         dw_conv_bn_act(torch.zeros(1, 8, 8, 15, device=cuda), w[..., :15], s[:15], b[:15])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dw_conv_bn_act(torch.zeros(1, 8, 8, 12, device=cuda), w[..., :12], s[:12], b[:12])
 
 
 def _bn_case(cuda, shape, dtype, seed=0):
@@ -212,7 +290,8 @@ def test_bn_relu_train_on_the_kernels(cuda):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-4)),
                                        (torch.bfloat16, (2.0 ** -7, 2.0 ** -6))])
-@pytest.mark.parametrize("k,stride,hw,c", [(3, 1, 16, 32), (5, 2, 15, 24), (3, 2, 28, 48)])
+@pytest.mark.parametrize("k,stride,hw,c", [(3, 1, 16, 32), (5, 2, 15, 24), (3, 2, 28, 48),
+                                           (5, 2, 56, 72)])
 def test_dw_train_function_matches_torch_route(cuda, dtype, tol, k, stride, hw, c):
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(2, hw, hw, c, device=cuda, generator=g).to(dtype)

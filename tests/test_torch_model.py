@@ -111,6 +111,30 @@ def test_bf16_forward_close_to_fp32(jax_case, impl):
     assert np.abs(out.numpy() - logits["xla"]).max() <= 0.1 * np.abs(logits["xla"]).max()
 
 
+def test_bf16_classifier_rounds_as_the_reference(jax_case):
+    """The reference's classifier is ``nn.Dense(dtype=self.dtype)``: in bf16
+    it rounds the product and the bias sum to bf16 before the fp32 cast. The
+    same pooled bf16 features and weights through both heads give
+    bf16-representable logits within one bf16 ulp of the largest logit (the
+    products are summed in another order)."""
+    variables, _, _ = jax_case
+    rng = np.random.default_rng(11)
+    variables = jax.tree.map(np.array, variables)
+    variables["params"]["classifier"]["bias"] = (rng.standard_normal(8) * 0.5).astype(np.float32)
+    feats = rng.standard_normal((6, 1280)).astype(np.float32)
+    jax_model = JaxMNASNet(alpha=0.35, num_classes=8, dtype=jnp.bfloat16)
+    ref = np.asarray(jax_model.apply(
+        jax.tree.map(jnp.asarray, variables), jnp.asarray(feats, dtype=jnp.bfloat16),
+        method=lambda m, y: m.classifier(y.astype(jnp.float32)).astype(jnp.float32)))
+    port = _port(variables, dtype=torch.bfloat16)
+    with torch.no_grad():
+        out = port.classify(torch.from_numpy(feats).to(torch.bfloat16))
+    assert out.dtype == torch.float32 and out.shape == (6, 8)
+    assert torch.equal(out, out.to(torch.bfloat16).float())
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    assert np.abs(out.numpy() - ref).max() <= ulp
+
+
 @pytest.mark.parametrize("alpha", ALPHAS)
 def test_param_count_and_state_dict_keys(alpha):
     model = create_model(_arch(alpha), device="cpu")

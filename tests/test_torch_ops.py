@@ -187,10 +187,51 @@ def test_plan_counts_halo_recompute():
 def test_dw_plan_fits_budget():
     for h, c, k, s in [(112, 32, 3, 1), (112, 48, 3, 2), (7, 1152, 5, 1), (15, 8, 5, 2)]:
         for eb in (2, 4):
-            th, cb = dw_conv.plan(128, h, h, c, k, s, eb)
-            assert cb % 2 == 0 and cb <= 64 and th >= 1
+            p = dw_conv.plan(128, h, h, c, k, s, eb)
+            assert p.cg % 8 == 0 and c % p.cg == 0 and 1 <= p.rp <= p.th
+            assert p.threads == p.cg // 8 * -(-dw_conv.out_size(h, k, s) // p.r) * p.rp
             wo = dw_conv.out_size(h, k, s)
-            assert dw_conv.smem_bytes(k, s, wo, th, cb, eb) <= dw_conv.SMEM_BUDGET or th == 1
+            assert p.smem == dw_conv.smem_bytes(k, s, wo, p.th, p.cg, p.r, p.rp, eb)
+            assert p.smem <= dw_conv.SMEM_BUDGET and p.threads <= dw_conv.STEP_THREADS
+
+
+@pytest.mark.parametrize("eb", [2, 4])
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_dw_plans_of_every_alpha(alpha, eb):
+    """Every depthwise shape of the model at 224 px, batch 128, has a plan
+    the kernel can run: shared memory within the limit, 16-byte channel
+    vectors and ring rows, at most 512 threads; and at least one warp, also
+    where no channel group of ``MIN_GROUP`` fits (fp32 at k = 5)."""
+    from mnasnet_tpu_torch.tools.tune_plans import dw_shapes
+
+    shapes = dw_shapes(alpha)
+    assert len(shapes) >= 10
+    for h, c, k, s in shapes:
+        p = dw_conv.plan(128, h, h, c, k, s, eb)
+        wo = dw_conv.out_size(h, k, s)
+        assert p.smem <= mbconv.SMEM_LIMIT and 32 <= p.threads <= dw_conv.MAX_THREADS
+        assert p.cg * eb % 16 == 0 and dw_conv.ring_cols(k, s, wo, p.r) * p.cg * eb % 16 == 0
+        assert p == dw_conv.make_plan(128, h, h, c, k, s, eb, p.th, p.cg, p.r, p.rp)
+
+
+@pytest.mark.parametrize("eb", [2, 4])
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_mbconv_plans_of_every_alpha(alpha, eb):
+    """Every block at 224 px has a plan within the shared-memory limit; in
+    bf16 its ldmatrix rows are 16-byte multiples with an odd number of
+    16-byte units (no bank conflicts), its K dimensions are padded to 16 and
+    its project accumulators fit the warps' registers."""
+    for h, cin, cmid, cout, k, s in _blocks(alpha):
+        p = mbconv.plan(h, h, cin, cmid, cout, k, s, eb)
+        assert p.smem == mbconv.smem_bytes(p.th, p.tw, p.mc, cin, cout, k, s, eb)
+        assert p.smem <= mbconv.SMEM_LIMIT
+        assert mbconv.feasible(p.th, p.tw, p.mc, cin, cmid, cout, k, s, eb, p.threads)
+        if eb == 2:
+            strides = mbconv.tc_row_strides(p.mc, cin, cout)
+            assert all(st * 2 % 16 == 0 and st * 2 // 16 % 2 == 1 for st in strides)
+            assert (strides[0] - 8) % 16 == 0 and p.mc % 16 == 0 and strides[0] - 8 >= cin
+            assert mbconv.project_items(p.th, p.tw, cout) <= \
+                mbconv.ITEMS_PER_WARP * p.threads // 32
 
 
 def test_kernel_shapes_of_mnasnet1_0():
