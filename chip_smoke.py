@@ -28,7 +28,9 @@ Phases, in order; any failure raises and exits non-zero:
      must equal the count of positive forward outputs per channel); two
      launches bit-identical; and times, beside each kernel's bound, its plain
      version, one library call (``native_batch_norm_backward`` on the masked
-     g) and the torch route's autograd of the region;
+     g) and the torch route's autograd of the region; each kernel's and
+     library call's device time from CUDA-graph replays of one call
+     ("device_ms"), and each wrapper's host time per call;
   7. dw training op: the depthwise autograd Function's gradients against the
      torch route's at one stride-1 and one stride-2 shape, bf16 and fp32;
   8. train: ``make_train_step`` on the production configuration
@@ -39,7 +41,7 @@ Phases, in order; any failure raises and exits non-zero:
      and exactly 17 dw, 35 bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches
      per step; one fp32 step on the kernel route against the torch route
      from the same weights; images/s of both routes in bf16 and the step's
-     peak memory.
+     peak memory; with ``--profile``, one kernel per counted launch.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
@@ -47,6 +49,8 @@ eager calls through the counted wrapper, as the model makes them: where the
 host takes longer to issue a call than the card to run it, the host's time
 counts; "host_ms" beside it is the host's time per call alone. ``--profile``
 gives the device time of each of the port's kernels per forward and step.
+The dw kernel's training sums are also given by stride (``train_step_s1_*``,
+``train_step_s2_*``).
 
 Tolerances (normalised by the largest magnitude of the reference):
   * kernel vs plain version, fp32: 1e-5 (dw) and 1e-4 (MBConv) — the same
@@ -99,6 +103,7 @@ from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     bn_bwd_dx_reference,
     bn_bwd_reduce,
     bn_bwd_reduce_reference,
+    reduce_plan,
     relu_mask_reference,
 )
 from mnasnet_tpu_torch.ops.cuda.dw_conv import (
@@ -230,18 +235,25 @@ def dw_phase(timing: bool) -> list[dict]:
     return rows
 
 
+DW_SUMS = ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")
+
+
 def dw_train_timing() -> dict:
     """The dw kernel as one training step runs it: the 17 depthwise convs of
     the forward (``train_dw_shapes``), bf16, unit scale, zero bias, no ReLU,
     through ``dw_conv_bn_act``. Sums over the step of the kernel's time, its
-    bound, its plain version and one cuDNN call of the same conv
-    (``F.conv2d(groups=C)``, no bias)."""
+    host time, its bound, its plain version and one cuDNN call of the same
+    conv (``F.conv2d(groups=C)``, no bias); the same sums by stride under
+    ``"s1"`` (``_dw_s1_kernel``'s launches) and ``"s2"``."""
     g = torch.Generator(device="cuda").manual_seed(7)
     shapes = train_dw_shapes()
-    out = {"summed_over": len(shapes), "ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
-           "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    out = {"summed_over": len(shapes), "max_abs_err": 0.0, **dict.fromkeys(DW_SUMS, 0.0)}
+    for stride in (1, 2):
+        out[f"s{stride}"] = {"summed_over": sum(1 for sh in shapes if sh[3] == stride),
+                             **dict.fromkeys(DW_SUMS, 0.0)}
     for (h, c, k, s) in sorted(set(shapes)):
         times = shapes.count((h, c, k, s))
+        one = {}
         x = torch.randn(BATCH, h, h, c, device="cuda", generator=g).to(torch.bfloat16)
         w = torch.randn(k, k, 1, c, device="cuda", generator=g) * 0.3
         ones = torch.ones(c, device="cuda")
@@ -253,8 +265,8 @@ def dw_train_timing() -> dict:
             raise RuntimeError(f"dw training form {h}x{h}x{c} k{k} s{s}: error {err:.3g}")
         out["max_abs_err"] = max(out["max_abs_err"], float((y.float() - ref.float()).abs().max()))
         ho = out_size(h, k, s)
-        out["bound_ms"] += times * bound(_dw_bytes(x, ho, c, k),
-                                         2 * k * k * BATCH * ho * ho * c, "bfloat16")[0]
+        one["bound_ms"] = bound(_dw_bytes(x, ho, c, k), 2 * k * k * BATCH * ho * ho * c,
+                                "bfloat16")[0]
         xc = x.permute(0, 3, 1, 2)
         wc = w.reshape(k, k, c).permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16)
         for key, fn in (("ms", lambda: dw_conv_bn_act(x, w, ones, zeros, stride=s, relu=False)),
@@ -262,9 +274,11 @@ def dw_train_timing() -> dict:
                                                                relu=False)),
                         ("library_ms", lambda: F.conv2d(xc, wc, None, stride=s,
                                                         padding=k // 2, groups=c))):
-            out[key] += times * time_ms(fn, 30.0)
-        out["host_ms"] += times * host_ms(
-            lambda: dw_conv_bn_act(x, w, ones, zeros, stride=s, relu=False))
+            one[key] = time_ms(fn, 30.0)
+        one["host_ms"] = host_ms(lambda: dw_conv_bn_act(x, w, ones, zeros, stride=s, relu=False))
+        for key in DW_SUMS:
+            out[key] += times * one[key]
+            out[f"s{s}"][key] += times * one[key]
         del x, y, ref, xc
     log(f"[dw] training step, {out['summed_over']} launches: {out}")
     return out
@@ -508,18 +522,34 @@ def bn_phase(timing: bool) -> list[dict]:
                 2 * plane + 6 * c * 4, 8 * x.numel(), "float32")
             row["dx_bound_ms"], row["dx_bound_by"] = bound(
                 3 * plane + 6 * c * 4, 10 * x.numel(), "float32")
+            row["reduce_plan"] = reduce_plan(x.numel() // c, c, x.element_size())._asdict()
             if timing and dt == torch.bfloat16:
-                row["reduce_ms"] = time_ms(lambda: bn_bwd_reduce(x, dy, *vecs), 30.0)
-                row["dx_ms"] = time_ms(lambda: bn_bwd_dx(x, dy, *vecs, dg, db), 30.0)
+                def reduce_once():
+                    return bn_bwd_reduce(x, dy, *vecs)
+
+                def dx_once():
+                    return bn_bwd_dx(x, dy, *vecs, dg, db)
+
+                # Eager through the counted wrappers (the yardstick), the
+                # wrappers' host time per call, and device time from CUDA-graph
+                # replays of one call.
+                row["reduce_ms"] = time_ms(reduce_once, 30.0)
+                row["dx_ms"] = time_ms(dx_once, 30.0)
+                row["reduce_host_ms"] = host_ms(reduce_once)
+                row["dx_host_ms"] = host_ms(dx_once)
+                row["reduce_device_ms"] = time_ms(reduce_once, 30.0, graph=True)
+                row["dx_device_ms"] = time_ms(dx_once, 30.0, graph=True)
                 row["reduce_plain_ms"] = time_ms(lambda: bn_bwd_reduce_reference(x, dy, *vecs), 30.0)
                 row["dx_plain_ms"] = time_ms(
                     lambda: bn_bwd_dx_reference(x, dy, *vecs, rdg, rdb), 30.0)
                 gm = (dy * (y > 0)).contiguous()
                 try:
-                    row["reduce_library_ms"] = time_ms(lambda: _native_bn_backward(
-                        gm, x, gamma, mean, inv, [False, True, True]), 30.0)
-                    row["dx_library_ms"] = time_ms(lambda: _native_bn_backward(
-                        gm, x, gamma, mean, inv, [True, False, False]), 30.0)
+                    for kind, mask in (("reduce", [False, True, True]), ("dx", [True, False, False])):
+                        def library(mask=mask):
+                            return _native_bn_backward(gm, x, gamma, mean, inv, mask)
+
+                        row[f"{kind}_library_ms"] = time_ms(library, 30.0)
+                        row[f"{kind}_library_device_ms"] = time_ms(library, 30.0, graph=True)
                 except RuntimeError as e:
                     row["library_refused"] = str(e).splitlines()[0]
                 # The torch route: autograd of relu(BN(x)) with batch statistics.
@@ -646,9 +676,15 @@ def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
             out[f"{route}_route_ms_per_step"] = ms
             out[f"{route}_route_images_per_s"] = BATCH / ms * 1e3
             if profile_dir is not None:
-                out[f"{route}_route_profile"] = profile_forward(
-                    lambda x: stp(st, x, labels), images,
-                    profile_dir / f"profile_train_{route}_route.txt")
+                prof = profile_forward(lambda x: stp(st, x, labels), images,
+                                       profile_dir / f"profile_train_{route}_route.txt")
+                out[f"{route}_route_profile"] = prof
+                # One kernel per counted launch: the reduce is one launch.
+                seen = {name: prof["port_kernels"].get(name, {}).get("launches", 0)
+                        for name in LAUNCHES_PER_STEP}
+                if route == "kernel" and seen != LAUNCHES_PER_STEP:
+                    raise RuntimeError(f"the profile saw {seen} kernels per step, "
+                                       f"expected {LAUNCHES_PER_STEP}")
             del m, st, stp
         log(f"[train] bs{BATCH} bf16 train images/s: kernel route "
             f"{out['kernel_route_images_per_s']:.1f}, torch route "
@@ -668,11 +704,13 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
     return {"name": name, "route": "cuda", "source": "mnasnet_tpu_torch/csrc/bn_bwd.cu",
             "replaces": replaces, "launches": serving_free_launches,
             "max_abs_err": max(r[f"{kind}_max_abs_err"] for r in rows),
-            "ms": total(f"{kind}_ms"), "plain_ms": total(f"{kind}_plain_ms"),
+            "ms": total(f"{kind}_ms"), "host_ms": total(f"{kind}_host_ms"),
+            "device_ms": total(f"{kind}_device_ms"), "plain_ms": total(f"{kind}_plain_ms"),
             "bound_ms": total(f"{kind}_bound_ms"),
             "bound_by": "bytes" if all(r[f"{kind}_bound_by"] == "bytes" for r in bf)
             else "operations",
             "library_ms": total(f"{kind}_library_ms"),
+            "library_device_ms": total(f"{kind}_library_device_ms"),
             "torch_route_region_ms": total("torch_route_ms"),
             "summed_over": f"{len(bf)} regions of one training step, bf16"}
 
@@ -712,8 +750,10 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train) -> dict:
          "bound_by": sep["bound_by"], "library_ms": sep.get("library_ms"),
          "measured_at": "112x112x32 k3 s1, the serving path's one launch",
          "train_step_launches": dw_per_step,
-         **{f"train_step_{key}": dw_step.get(key)
-            for key in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")},
+         **{f"train_step_{key}": dw_step.get(key) for key in DW_SUMS},
+         # The 13 stride-1 launches (_dw_s1_kernel's) and the 4 stride-2 ones.
+         **{f"train_step_s{st}_{key}": dw_step.get(f"s{st}", {}).get(key)
+            for st in (1, 2) for key in ("summed_over", *DW_SUMS)},
          "shapes": dw_rows},
         {"name": "mbconv_block", "route": "cuda", "source": "mnasnet_tpu_torch/csrc/mbconv.cu",
          "replaces": "mnasnet_tpu/ops/pallas/mbconv.py:58",

@@ -12,7 +12,8 @@ is the ``bn_relu_train`` custom VJP as a ``torch.autograd.Function``:
 The statistics carry no gradient: they feed the running-stat EMA only. The
 backward moves five plane-sized transfers (x and dy read twice, dx written
 once) where autograd of the same forward keeps y and more; the source note in
-``csrc/bn_bwd.cu`` has the kernels' design.
+``csrc/bn_bwd.cu`` has the kernels' design. :func:`reduce_plan` plans the
+reduce's one launch, :func:`plan` the dx pass.
 
 Each kernel wrapper runs its plain PyTorch version (``*_reference``) for a CPU
 tensor and launches its kernel for a CUDA tensor, or raises; nothing falls
@@ -23,6 +24,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +40,18 @@ TARGET_BLOCKS = 8 * 132
 # Rows each thread walks at the least, so that a thread's per-channel setup
 # is spread over some work.
 MIN_ROWS_PER_THREAD = 8
+
+# The reduce (``bn_reduce_kernel``): threads of a block (kReduceThreads in the
+# source), the blocks it aims for (two per SM of an H100), the bytes of a row
+# a tile aims to span, the bytes the finishing block of a tile may read at
+# most (8 per slab and tile channel), and the shared memory of a block at
+# most. The constants were fitted to ``tools/tune_plans.py --only bn_reduce``
+# on the card (PERF.md).
+REDUCE_THREADS = 256
+REDUCE_BLOCKS = 2 * 132
+TILE_BYTES = 64
+FINISH_BYTES = 32 * 1024
+REDUCE_SMEM_LIMIT = 48 * 1024
 
 
 def batch_moments(x: torch.Tensor, stats: str) -> tuple[torch.Tensor, torch.Tensor]:
@@ -108,8 +123,75 @@ def plan(m: int, c: int) -> tuple[int, int, int]:
     return tp, r, slabs
 
 
+class ReducePlan(NamedTuple):
+    """One launch of the reduce kernel: block (tile, slab) of ``threads``
+    threads sums ``tg`` vectors of ``vec`` channels over ``rows_per_slab``
+    rows, ``lanes`` rows side by side."""
+    vec: int             # channels a thread loads as one vector
+    vec_bytes: int       # 16, 8 or 4
+    threads: int
+    tg: int              # vectors (channel groups) of a tile
+    tiles: int
+    lanes: int           # row lanes of a block: threads // tg
+    slabs: int
+    rows_per_slab: int
+    partial_floats: int  # scratch the launch writes: tiles x slabs x 2 x tile channels
+    smem: int            # the tile's factors and the table of row-lane sums, bytes
+    finish_bytes: int    # what the last block of a tile reads: 8 x slabs x tile channels
+
+
+def alignment(*ptrs: int) -> int:
+    """The largest power of two up to 16 that divides every address."""
+    low = functools.reduce(lambda a, b: a | b, ptrs, 16)
+    return low & -low
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_plan(m: int, c: int, itemsize: int, align: int = 16) -> ReducePlan:
+    """The reduce's launch for ``m`` rows of ``c`` channels of ``itemsize``
+    bytes, with x and dy aligned to ``align`` bytes.
+
+    The vector is the widest of 16, 8 and 4 bytes that holds at least two
+    elements and divides a row and the alignment. Tiles split the row's
+    vectors evenly into runs of about ``TILE_BYTES``, or into more tiles where
+    ``REDUCE_BLOCKS`` blocks would make the finish read more than
+    ``FINISH_BYTES`` (it reads 8 x slabs x tile channels, so x tiles²); slabs
+    fill the card to ``REDUCE_BLOCKS`` unless a lane would walk fewer than
+    ``MIN_ROWS_PER_THREAD`` rows, and are cut to keep the finish within
+    ``FINISH_BYTES``."""
+    if c <= 0 or c % 2 or m <= 0:
+        raise ValueError(f"the reduce needs m > 0 rows and an even channel count, got {m}, {c}")
+    vec_bytes = next((b for b in (16, 8, 4) if b // itemsize >= 2 and c % (b // itemsize) == 0
+                      and align % b == 0), None)
+    if vec_bytes is None:
+        raise ValueError(f"x and dy must be aligned to {2 * itemsize} bytes, got {align}")
+    vec = vec_bytes // itemsize
+    groups = c // vec
+    tiles = max(-(-groups // max(1, TILE_BYTES // vec_bytes)),
+                math.ceil(math.sqrt(8 * REDUCE_BLOCKS * c / FINISH_BYTES)))
+    tg = -(-groups // min(tiles, groups))
+    lanes = REDUCE_THREADS // tg
+    slabs = min(-(-REDUCE_BLOCKS // -(-groups // tg)), -(-m // (lanes * MIN_ROWS_PER_THREAD)),
+                FINISH_BYTES // (8 * tg * vec))
+    return make_reduce_plan(m, c, itemsize, vec_bytes, tg, max(1, slabs))
+
+
+def make_reduce_plan(m: int, c: int, itemsize: int, vec_bytes: int, tg: int,
+                     slabs: int) -> ReducePlan:
+    """The plan with these free choices and what follows from them; slabs
+    that would be left empty are dropped."""
+    vec = vec_bytes // itemsize
+    tiles = -(-(c // vec) // tg)
+    lanes = REDUCE_THREADS // tg
+    rows_per_slab = -(-m // slabs)
+    slabs = -(-m // rows_per_slab)
+    return ReducePlan(vec, vec_bytes, REDUCE_THREADS, tg, tiles, lanes, slabs, rows_per_slab,
+                      tiles * slabs * 2 * tg * vec, tg * vec * 16 + lanes * (2 * tg * vec + 1) * 4,
+                      8 * slabs * tg * vec)
+
+
 _PROTOTYPES = {
-    "bn_bwd_reduce": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    "bn_bwd_reduce": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                       + [ctypes.c_void_p], ctypes.c_int),
     "bn_bwd_dx": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int),
@@ -131,6 +213,8 @@ def _check(what, x, dy, vecs):
             raise ValueError(f"the per-channel vectors must be ({c},), got {tuple(v.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    if dy.device != x.device:
+        raise ValueError(f"dy must be on x's device {x.device}, not {dy.device}")
     if x.device.type == "cuda":
         _build.refuse_autograd(what, x, dy, *vecs)
         if x.dtype not in _DTYPES or dy.dtype != x.dtype:
@@ -143,38 +227,68 @@ def _check(what, x, dy, vecs):
 
 
 def _f32(vecs, dev):
-    return [v.to(device=dev, dtype=torch.float32).contiguous() for v in vecs]
+    """The vectors as contiguous fp32 on ``dev``, converting only those that
+    are not."""
+    return [v if v.dtype == torch.float32 and v.device == dev and v.is_contiguous()
+            else v.to(device=dev, dtype=torch.float32).contiguous() for v in vecs]
+
+
+# Per (device, stream): the reduce's partial sums and its tickets. Every
+# launch leaves the tickets at 0, so they are zeroed once, when made; launches
+# on one stream run in turn and may share them.
+_reduce_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(dev, stream: int, p: ReducePlan) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    got = _reduce_scratch.get(key)
+    if got is None or got[0].numel() < p.partial_floats or got[1].numel() < p.tiles:
+        floats, tickets = (got[0].numel(), got[1].numel()) if got is not None else (0, 0)
+        got = (torch.empty(max(floats, p.partial_floats), dtype=torch.float32, device=dev),
+               torch.zeros(max(tickets, p.tiles), dtype=torch.int32, device=dev))
+        _reduce_scratch[key] = got
+    return got
+
+
+def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan) -> torch.Tensor:
+    """One launch of the reduce kernel with plan ``p`` on CUDA tensors that
+    :func:`bn_bwd_reduce` has checked; the (2, C) fp32 sums (dγ, then dβ).
+    Counts nothing: the wrapper counts its launches."""
+    dev = x.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch_reduce(x, dy, mean, inv, gamma, beta, p)
+    vecs = _f32((mean, inv, gamma, beta), dev)
+    c = x.shape[-1]
+    out = torch.empty((2, c), dtype=torch.float32, device=dev)
+    lib = _lib()
+    # The raw handle of the current stream, without building a Stream object.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    partial, tickets = _scratch(dev, stream, p)
+    err = lib.bn_bwd_reduce(
+        x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in vecs), partial.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), x.numel() // c, c, p.vec_bytes, p.threads, p.tg,
+        p.slabs, int(x.dtype == torch.bfloat16), stream)
+    _build.check(err, "bn_bwd_reduce")
+    return out
 
 
 def bn_bwd_reduce(x, dy, mean, inv, gamma, beta) -> tuple[torch.Tensor, torch.Tensor]:
     """(dγ, dβ), fp32 (C,): ``Σ g·x̂`` and ``Σ g`` over N, H, W.
 
-    x, dy (N, H, W, C) bf16 or fp32, NHWC; mean, inv = rsqrt(var + eps),
-    gamma, beta (C,) fp32. A CPU tensor takes
-    :func:`bn_bwd_reduce_reference`; a CUDA tensor launches the kernel (its
-    two stages count as one launch in ``bn_bwd_reduce.launches``) or raises.
-    The sums are the same from run to run: no atomics.
+    x, dy (N, H, W, C) bf16 or fp32, NHWC, contiguous; mean, inv = rsqrt(var +
+    eps), gamma, beta (C,) fp32. A CPU tensor takes
+    :func:`bn_bwd_reduce_reference`; a CUDA tensor launches the kernel once
+    (``bn_bwd_reduce.launches`` counts it) or raises. The two results are
+    views of one (2, C) tensor. The sums are the same from run to run: their
+    order is fixed by the shape, and no float atomics.
     """
-    vecs = (mean, inv, gamma, beta)
-    _check("bn_bwd_reduce", x, dy, vecs)
+    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
     if x.device.type == "cpu":
-        return bn_bwd_reduce_reference(x, dy, *vecs)
-    n, h, w, c = x.shape
-    m = n * h * w
-    tp, r, slabs = plan(m, c)
-    dev = x.device
-    v32 = _f32(vecs, dev)
-    partial = torch.empty((2, slabs, c), dtype=torch.float32, device=dev)
-    dg = torch.empty(c, dtype=torch.float32, device=dev)
-    db = torch.empty(c, dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bn_bwd_reduce(
-            x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in v32), partial.data_ptr(),
-            dg.data_ptr(), db.data_ptr(), m, c, tp, r, slabs, int(x.dtype == torch.bfloat16),
-            stream)
-    _build.check(err, "bn_bwd_reduce")
+        return bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta)
+    c = x.shape[-1]
+    p = reduce_plan(x.numel() // c, c, x.element_size(), alignment(x.data_ptr(), dy.data_ptr()))
+    dg, db = launch_reduce(x, dy, mean, inv, gamma, beta, p).unbind()
     bn_bwd_reduce.launches += 1
     return dg, db
 

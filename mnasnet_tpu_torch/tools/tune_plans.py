@@ -1,14 +1,16 @@
 """Sweep the kernels' launch plans on the card, at the shapes of a model.
 
     python -m mnasnet_tpu_torch.tools.tune_plans [--arch mnasnet1_0] [--out tune.json]
+        [--only mbconv|dw|bn_reduce]
 
 For every MBConv block of the model at 224 px, batch 128, bf16, it times
 each tile plan of the fused MBConv kernel (output tile, chunk width, 256 or
 512 threads) that the kernel can run; for every depthwise shape, each plan
 of the dw kernel (band of output rows, channel group, strip of outputs per
-thread). It checks each plan against the plain version and reports the
-fastest beside the one :func:`mbconv.plan` or :func:`dw_conv.plan` picks.
-Needs a CUDA device.
+thread); for every BN+ReLU region, each plan of the BN backward reduce (tile
+width, slab count). It checks each plan against the plain version and
+reports the fastest beside the one :func:`mbconv.plan`, :func:`dw_conv.plan`
+or :func:`bn_bwd.reduce_plan` picks. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,25 +22,30 @@ from pathlib import Path
 import torch
 
 from mnasnet_tpu_torch.models.mnasnet import STACKS, InvertedResidual, arch_alpha, get_depths
-from mnasnet_tpu_torch.ops.cuda import dw_conv, mbconv
+from mnasnet_tpu_torch.ops.cuda import bn_bwd, dw_conv, mbconv
 
 BATCH = 128
 IMAGE = 224
+# Calls of the timed function in one CUDA graph (time_ms(graph=True)).
+GRAPH_CALLS = 8
 
 
 def time_ms(fn, target_ms: float = 100.0, graph: bool = False) -> float:
     """Device time of one call of ``fn``, from CUDA events over many calls
     after a warm-up. With ``graph`` the calls replay one CUDA graph of
-    ``fn``, so that the host's launch overhead (tens of microseconds of
-    Python per call) does not leave the card idle between short kernels."""
+    ``GRAPH_CALLS`` calls of ``fn``, so that the host's launch overhead (tens
+    of microseconds of Python per call, a few per graph replay) does not
+    leave the card idle between short kernels."""
     for _ in range(3):
         fn()
+    calls = 1
     if graph:
         torch.cuda.synchronize()
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g, capture_error_mode="relaxed"):
-            fn()
-        fn = g.replay
+            for _ in range(GRAPH_CALLS):
+                fn()
+        fn, calls = g.replay, GRAPH_CALLS
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -51,7 +58,7 @@ def time_ms(fn, target_ms: float = 100.0, graph: bool = False) -> float:
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters / calls
 
 
 def block_shapes(alpha: float = 1.0, image: int = IMAGE):
@@ -216,19 +223,87 @@ def sweep_mbconv(alpha: float) -> list[dict]:
     return out
 
 
+def _reduce_candidates(m, c, eb):
+    """The reduce plans the sweep times: the planner's; then with 16- and
+    8-byte vectors, every even split of the channel groups into tiles down to
+    32-byte runs, with one to four blocks per SM, each within the kernel's
+    limits and a finish of at most 64 KB."""
+    p0 = bn_bwd.reduce_plan(m, c, eb)
+    out = [p0]
+    for vec_bytes in (16, 8):
+        groups = c * eb // vec_bytes
+        widths = sorted({-(-groups // t) for t in range(1, groups + 1)
+                         if -(-groups // t) <= bn_bwd.REDUCE_THREADS
+                         and (-(-groups // t) * vec_bytes >= 32 or t == 1)})
+        for tg in widths:
+            tiles = -(-groups // tg)
+            for blocks in (132, 264, 396, 528):
+                slabs = max(1, min(65535, -(-blocks // tiles)))
+                p = bn_bwd.make_reduce_plan(m, c, eb, vec_bytes, tg, slabs)
+                if p.smem <= bn_bwd.REDUCE_SMEM_LIMIT and p.finish_bytes <= 64 * 1024 \
+                        and p not in out:
+                    out.append(p)
+    return out
+
+
+def sweep_bn_reduce(alpha: float) -> list[dict]:
+    """Every distinct BN+ReLU region of the training forward, bf16: each plan
+    of :func:`_reduce_candidates` checked against the plain version and timed,
+    beside the planner's; ``regions`` counts the regions of that shape."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shapes = [(h, c) for _, h, c in bn_region_shapes(alpha)]
+    out = []
+    for h, c in sorted(set(shapes), key=lambda hc: -hc[0] * hc[0] * hc[1]):
+        x = (torch.randn(BATCH, h, h, c, device="cuda", generator=g) * 2 + 0.3)
+        x = x.to(torch.bfloat16)
+        dy = torch.randn(BATCH, h, h, c, device="cuda", generator=g).to(torch.bfloat16)
+        gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+        beta = torch.rand(c, device="cuda", generator=g) - 0.5
+        _, mean, var = bn_bwd._fwd_math(x, gamma, beta, 1e-5, "one_pass")
+        vecs = (mean, torch.rsqrt(var + 1e-5), gamma, beta)
+        ref = torch.stack(bn_bwd.bn_bwd_reduce_reference(x, dy, *vecs))
+        m = BATCH * h * h
+        rows = []
+        for p in _reduce_candidates(m, c, 2):
+            got = bn_bwd.launch_reduce(x, dy, *vecs, p)
+            err = float((got - ref).abs().max() / ref.abs().max())
+            if err > 1e-4:
+                raise RuntimeError(f"reduce plan {p} at {h}x{h}x{c}: error {err:.3g}")
+            rows.append({**p._asdict(), "err": err, "ms": time_ms(
+                lambda: bn_bwd.launch_reduce(x, dy, *vecs, p), 30.0, graph=True)})
+        picked, best = rows[0], min(rows, key=lambda r: r["ms"])
+        bound_ms = 2 * x.numel() * 2 / 3.35e12 * 1e3
+        print(f"[bn_reduce] {h}x{h}x{c} x{shapes.count((h, c))}: planner {picked['ms']:.4f} ms "
+              f"(tg {picked['tg']}, slabs {picked['slabs']}), fastest {best['ms']:.4f} ms "
+              f"(tg {best['tg']}, slabs {best['slabs']}), bound {bound_ms:.4f} ms, "
+              f"{len(rows)} plans", flush=True)
+        out.append({"shape": [h, c], "regions": shapes.count((h, c)), "bound_ms": bound_ms,
+                    "planner": picked, "fastest": best, "plans": rows})
+        del x, dy, ref
+    return out
+
+
+SWEEPS = {"mbconv": sweep_mbconv, "dw": sweep_dw, "bn_reduce": sweep_bn_reduce}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mnasnet1_0")
     ap.add_argument("--out", type=Path, default=None, help="write all timings as JSON")
+    ap.add_argument("--only", choices=tuple(SWEEPS), default=None,
+                    help="sweep one kernel's plans (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_plans needs a CUDA device")
     alpha = arch_alpha(args.arch)
+    kernels = [args.only] if args.only else list(SWEEPS)
     result = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
-              "mbconv": sweep_mbconv(alpha), "dw": sweep_dw(alpha)}
-    for kernel in ("mbconv", "dw"):
-        planner = sum(b["planner"]["ms"] for b in result[kernel])
-        fastest = sum(b["fastest"]["ms"] for b in result[kernel])
+              **{k: SWEEPS[k](alpha) for k in kernels}}
+    for kernel in kernels:
+        # Over the model's shapes; the reduce's shapes weighted by their regions.
+        n = [b.get("regions", 1) for b in result[kernel]]
+        planner = sum(k * b["planner"]["ms"] for k, b in zip(n, result[kernel]))
+        fastest = sum(k * b["fastest"]["ms"] for k, b in zip(n, result[kernel]))
         print(f"[{kernel}] sum over shapes: planner {planner:.4f} ms, "
               f"fastest plans {fastest:.4f} ms")
     if args.out is not None:

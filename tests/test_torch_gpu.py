@@ -13,7 +13,7 @@ import torch
 
 from mnasnet_tpu_torch import create_model
 from mnasnet_tpu_torch.models.mnasnet import InvertedResidual
-from mnasnet_tpu_torch.ops.cuda import dw_conv, mbconv
+from mnasnet_tpu_torch.ops.cuda import bn_bwd, dw_conv, mbconv
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     _fwd_math,
     bn_bwd_dx,
@@ -21,6 +21,7 @@ from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     bn_bwd_reduce,
     bn_bwd_reduce_reference,
     bn_relu_train,
+    relu_mask_reference,
 )
 from mnasnet_tpu_torch.ops.cuda.dw_conv import (
     depthwise_conv_train,
@@ -243,10 +244,13 @@ def _bn_case(cuda, shape, dtype, seed=0):
     return x, dy, y, (mean, torch.rsqrt(var + 1e-5), gamma, beta)
 
 
-# (dγ and dβ, dx) tolerances and their reasons are chip_smoke.py's.
+# (dγ and dβ, dx) tolerances and their reasons are chip_smoke.py's. C = 8, 12
+# and 6 reach the reduce's 16-, 8- and 4-byte vectors in bf16, C = 4 and 6
+# its 16- and 8-byte vectors in fp32.
 @pytest.mark.parametrize("dtype,tol_dx", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)])
 @pytest.mark.parametrize("shape", [(2, 7, 7, 1280), (3, 15, 15, 72), (4, 8, 8, 16),
-                                   (2, 56, 56, 144), (1, 1, 3, 2)])
+                                   (2, 56, 56, 144), (1, 1, 3, 2), (3, 9, 9, 8), (2, 5, 5, 12),
+                                   (3, 5, 5, 6), (4, 6, 6, 4)])
 def test_bn_kernels_match_plain(cuda, dtype, tol_dx, shape):
     x, dy, y, vecs = _bn_case(cuda, shape, dtype)
     before = (bn_bwd_reduce.launches, bn_bwd_dx.launches)
@@ -266,6 +270,78 @@ def test_bn_kernels_match_plain(cuda, dtype, tol_dx, shape):
     # The mask: with dy = 1, dβ counts the positive forward outputs exactly.
     _, count = bn_bwd_reduce(x, torch.ones_like(dy), *vecs)
     assert torch.equal(count, (y > 0).float().sum(dim=(0, 1, 2)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_reduce_at_an_unaligned_offset(cuda, dtype):
+    """A contiguous input that starts 300 (bf16) or 600 (fp32) bytes into its
+    storage: the reduce takes the widest vector the address allows."""
+    x, dy, y, vecs = _bn_case(cuda, (3, 5, 5, 6), dtype, seed=2)
+    x, dy, y = x[1:], dy[1:], y[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 and dy.data_ptr() % 16
+    _, mean, var = _fwd_math(x, vecs[2], vecs[3], 1e-5, "one_pass")
+    vecs = (mean, torch.rsqrt(var + 1e-5), vecs[2], vecs[3])
+    dg, db = bn_bwd_reduce(x, dy, *vecs)
+    rdg, rdb = bn_bwd_reduce_reference(x, dy, *vecs)
+    _close(dg, rdg, 1e-4)
+    _close(db, rdb, 1e-4)
+    _, count = bn_bwd_reduce(x, torch.ones_like(dy), *vecs)
+    assert torch.equal(count, (relu_mask_reference(x, *vecs)).float().sum(dim=(0, 1, 2)))
+
+
+def test_bn_reduce_back_to_back_shapes(cuda):
+    """Launches over different shapes in a row, each bit-identical to a
+    second launch of its own: every launch leaves its tickets at 0."""
+    cases = [_bn_case(cuda, shape, dtype, seed=i) for i, (shape, dtype) in enumerate([
+        ((2, 28, 28, 120), torch.bfloat16), ((4, 7, 7, 1152), torch.bfloat16),
+        ((3, 5, 5, 6), torch.float32), ((2, 56, 56, 48), torch.bfloat16),
+        ((2, 14, 14, 480), torch.float32)])]
+    first = [bn_bwd_reduce(x, dy, *vecs) for x, dy, _, vecs in cases]
+    second = [bn_bwd_reduce(x, dy, *vecs) for x, dy, _, vecs in cases]
+    torch.cuda.synchronize()
+    for (x, dy, _, vecs), (dg, db), (dg2, db2) in zip(cases, first, second):
+        assert torch.equal(dg, dg2) and torch.equal(db, db2)
+        rdg, rdb = bn_bwd_reduce_reference(x, dy, *vecs)
+        _close(dg, rdg, 1e-4)
+        _close(db, rdb, 1e-4)
+
+
+def test_bn_reduce_in_a_cuda_graph(cuda):
+    """One reduce captured in a CUDA graph and replayed twice gives the eager
+    sums, bit for bit."""
+    x, dy, _, vecs = _bn_case(cuda, (4, 14, 14, 240), torch.bfloat16, seed=3)
+    dg, db = bn_bwd_reduce(x, dy, *vecs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gdg, gdb = bn_bwd_reduce(x, dy, *vecs)
+    for _ in range(2):
+        gdg.zero_()
+        gdb.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(gdg, dg) and torch.equal(gdb, db)
+
+
+# Plans that hit the reduce's edges: one slab (the only block finishes),
+# a ragged last tile, slabs of a few rows that the lanes do not divide, many
+# slabs against few channels, and two lanes per block with wide tiles.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tg,slabs", [
+    ((2, 9, 9, 72), 9, 1), ((2, 9, 9, 72), 4, 7), ((3, 7, 7, 40), 2, 147),
+    ((2, 28, 28, 16), 1, 200), ((1, 4, 4, 2048), 128, 3),
+])
+def test_bn_reduce_plans_match_plain(cuda, dtype, shape, tg, slabs):
+    x, dy, _, vecs = _bn_case(cuda, shape, dtype, seed=4)
+    m, c = x.numel() // shape[-1], shape[-1]
+    p = bn_bwd.make_reduce_plan(m, c, x.element_size(), 16, tg, slabs)
+    out = bn_bwd.launch_reduce(x, dy, *vecs, p)
+    out2 = bn_bwd.launch_reduce(x, dy, *vecs, p)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    rdg, rdb = bn_bwd_reduce_reference(x, dy, *vecs)
+    _close(out[0], rdg, 1e-4)
+    _close(out[1], rdb, 1e-4)
 
 
 def test_bn_relu_train_on_the_kernels(cuda):

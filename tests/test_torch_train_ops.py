@@ -8,6 +8,9 @@ tolerance of tests/test_bn_bwd.py:58-60 for the region's gradients), bf16
 within 2 bf16 ulps of the largest reference value.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -24,13 +27,22 @@ from mnasnet_tpu.ops.pallas.dw_conv import depthwise_conv_pallas
 from mnasnet_tpu.train.schedules import make_schedule as jax_make_schedule
 from mnasnet_tpu_torch import create_model
 from mnasnet_tpu_torch.models.layers import BatchNorm, StemConv
+from mnasnet_tpu_torch.ops.cuda import _build
+from mnasnet_tpu_torch.ops.cuda import bn_bwd as bn_bwd_mod
+from mnasnet_tpu_torch.ops.cuda import dw_conv as dw_conv_mod
+from mnasnet_tpu_torch.ops.cuda import mbconv as mbconv_mod
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
+    FINISH_BYTES,
+    MIN_ROWS_PER_THREAD,
+    REDUCE_SMEM_LIMIT,
+    alignment,
     bn_bwd_dx,
     bn_bwd_dx_reference,
     bn_bwd_reduce,
     bn_bwd_reduce_reference,
     bn_relu_train,
     plan,
+    reduce_plan,
 )
 from mnasnet_tpu_torch.ops.cuda.dw_conv import depthwise_conv_train
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d, dw_grad_weights, dw_transposed_dx
@@ -143,6 +155,105 @@ def test_bn_plan(m, c):
     assert 1 <= slabs and slabs * tiles <= 8 * 132 + tiles
     if m >= 8 * 132 * 8 * r:  # a large plane fills the grid
         assert slabs * tiles >= 8 * 132
+
+
+def _check_reduce_plan(m, c, itemsize, align=16):
+    """The launch the reduce kernel makes from ``reduce_plan(m, c, itemsize,
+    align)``, walked as ``bn_reduce_kernel`` walks it (csrc/bn_bwd.cu)."""
+    p = reduce_plan(m, c, itemsize, align)
+    # The vector: 16, 8 or 4 bytes, at least two elements, dividing C and
+    # the alignment.
+    assert p.vec_bytes in (16, 8, 4) and p.vec_bytes == p.vec * itemsize and p.vec >= 2
+    assert c % p.vec == 0 and align % p.vec_bytes == 0
+    wider = [b for b in (16, 8, 4) if b > p.vec_bytes and b // itemsize >= 2]
+    assert not any(c % (b // itemsize) == 0 and align % b == 0 for b in wider)
+    # Every channel group in exactly one (tile, group) of a block.
+    groups = c // p.vec
+    owned = [t * p.tg + g for t in range(p.tiles) for g in range(p.tg) if t * p.tg + g < groups]
+    assert sorted(owned) == list(range(groups))
+    assert (p.tiles - 1) * p.tg < groups  # no empty tile
+    # Every row in exactly one slab, no slab empty.
+    assert p.rows_per_slab * (p.slabs - 1) < m <= p.rows_per_slab * p.slabs
+    # Grid and block limits (the C entry point refuses what breaks them).
+    assert p.threads % 32 == 0 and p.threads <= 256 and 1 <= p.tg <= p.threads
+    assert p.lanes == p.threads // p.tg >= 1
+    assert p.tiles < 2 ** 31 and 1 <= p.slabs <= 65535
+    assert p.smem == p.tg * p.vec * 16 + p.lanes * (2 * p.tg * p.vec + 1) * 4 <= REDUCE_SMEM_LIMIT
+    # The scratch holds every partial row a block writes: [tiles][slabs][2][tg * vec].
+    last = ((p.tiles - 1) * p.slabs + p.slabs - 1) * 2 * p.tg * p.vec + 2 * p.tg * p.vec
+    assert p.partial_floats >= last
+    # The finish reads the tile's partials: 2 x slabs x tile channels fp32.
+    assert p.finish_bytes == 2 * p.slabs * p.tg * p.vec * 4 <= FINISH_BYTES
+    return p
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("alpha", [0.35, 0.5, 0.75, 1.0, 1.3, 1.4])
+def test_reduce_plans_of_every_alpha(alpha, itemsize):
+    """Every BN+ReLU region of the training forward at 224 px, batch 128:
+    16-byte vectors (every C of the family is a multiple of 8) and a grid
+    that fills the card within the finish's bound."""
+    from mnasnet_tpu_torch.tools.tune_plans import bn_region_shapes
+
+    regions = bn_region_shapes(alpha)
+    assert len(regions) == 35
+    for _, h, c in regions:
+        p = _check_reduce_plan(128 * h * h, c, itemsize)
+        assert p.vec_bytes == 16
+        # A block per SM at least, unless the region is too small to give
+        # each lane MIN_ROWS_PER_THREAD rows.
+        assert p.tiles * p.slabs >= 132 or p.rows_per_slab <= p.lanes * MIN_ROWS_PER_THREAD
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("align", [16, 8, 4])
+@pytest.mark.parametrize("m", [1, 10, 256])
+@pytest.mark.parametrize("c", [2, 6, 12, 72])
+def test_reduce_plans_of_small_shapes(c, m, align, itemsize):
+    if align < 2 * itemsize:
+        with pytest.raises(ValueError, match="aligned"):
+            reduce_plan(m, c, itemsize, align)
+    else:
+        _check_reduce_plan(m, c, itemsize, align)
+
+
+def test_alignment_of_addresses():
+    assert alignment(0) == 16 and alignment(4096, 32) == 16
+    assert alignment(4096, 4104) == 8 and alignment(300) == 4 and alignment(16, 2) == 2
+
+
+def _c_signatures(source):
+    """{name: (return type, [parameter types])} of the functions in the
+    ``extern "C"`` block of a CUDA source."""
+    text = re.sub(r"//[^\n]*", "", source.split('extern "C" {', 1)[1])
+    text = re.sub(r"#ifdef.*?#endif", "", text, flags=re.S)
+    out = {}
+    for ret, name, params in re.findall(r"(int|long long)\s+(\w+)\(([^)]*)\)\s*\{", text):
+        types = [re.sub(r"\s*\b\w+$", "", p.strip()) for p in params.split(",")]
+        out[name] = (ret, types)
+    return out
+
+
+_CTYPES_OF = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("module,fn", [
+    (bn_bwd_mod, "bn_bwd_reduce"), (bn_bwd_mod, "bn_bwd_dx"),
+    (dw_conv_mod, "dw_conv_bn_act"), (dw_conv_mod, "dw_conv_smem_bytes"),
+    (mbconv_mod, "mbconv_block"), (mbconv_mod, "mbconv_smem_bytes"),
+])
+def test_prototypes_match_the_sources(module, fn):
+    """The ctypes prototypes pass each argument as the C entry point takes it:
+    every pointer (and the stream) as c_void_p, never as a 32-bit int."""
+    name = module.__name__.rsplit(".", 1)[1]
+    source = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    ret, params = _c_signatures(source)[fn]
+    argtypes, restype = module._PROTOTYPES[fn]
+    assert restype is _CTYPES_OF[ret]
+    expect = [ctypes.c_void_p if t.endswith("*") else _CTYPES_OF[t.replace("const ", "")]
+              for t in params]
+    assert argtypes == expect
+    assert set(module._PROTOTYPES) == set(_c_signatures(source))
 
 
 # k, stride, H, C: the cases of tests/test_pallas_dw.py plus an odd size.
