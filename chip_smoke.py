@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile DIR  # also per-kernel device time tables in DIR
     python3 chip_smoke.py --only train   # the train phases only (a new kernel's first run)
     python3 chip_smoke.py --only kernels # the dw and mbconv phases only
+    python3 chip_smoke.py --only trainer # the training harness phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -41,7 +42,24 @@ Phases, in order; any failure raises and exits non-zero:
      and exactly 17 dw, 35 bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches
      per step; one fp32 step on the kernel route against the torch route
      from the same weights; images/s of both routes in bf16 and the step's
-     peak memory; with ``--profile``, one kernel per counted launch.
+     peak memory; with ``--profile``, one kernel per counted launch;
+  9. trainer: the training harness, ``python -m mnasnet_tpu_torch.train``'s
+     ``main(argv)`` in this process on the same production configuration
+     (batch 128, bf16, 224 px, mnasnet1_0): (a) one epoch over a seeded
+     ImageFolder of JPEGs (384 train images, 3 steps; 160 val images, a
+     full batch and a padded tail of 32) with ``--bn-recalibrate 2`` and the
+     ``native-fast`` decoder, checking 17 dw / 35 + 35 BN / 0 MBConv launches
+     per train step, 1 dw and 16 MBConv launches per validation forward
+     (before and after recalibration), 17 dw and nothing else per
+     recalibration forward, finite losses, the checkpoints ``0/``, ``1/`` and
+     ``best/``, and that ``python -m mnasnet_tpu_torch.eval DIR --resume OUT
+     --best`` prints the acc1 the trainer printed for that checkpoint; (b)
+     two ``--deterministic`` synthetic runs of 4 steps, one stopped by
+     SIGTERM after step 2 and resumed: the final parameters, BN buffers,
+     optimizer state and dropout generator bitwise equal to the
+     uninterrupted run's; (c) images/s of 9 steps of ``Trainer.train_epoch``
+     on synthetic data with the data path included, the loaders' batches/s
+     with no model, the CPU count and the workers.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
@@ -72,6 +90,8 @@ Tolerances (normalised by the largest magnitude of the reference):
     elementwise count outside rtol 5e-3 / atol 1e-4 is printed: at random
     init a 1e-7 forward difference can flip a ReLU mask and move single
     gradient elements by more);
+  * trainer: launches and checkpoints exactly, the eval CLI's acc1 equal to
+    the trainer's as printed (3 decimals), the resumed run bit for bit;
   * whole model, bf16: max |kernel route - torch route| <= 0.25 of the
     largest logit, and the kernel route's relative RMS error against the fp32
     reference at most 1.25x the torch route's plus 0.01. Random weights make
@@ -82,7 +102,12 @@ Tolerances (normalised by the largest magnitude of the reference):
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -94,7 +119,10 @@ import torch.nn.functional as F
 from PIL import Image
 
 from mnasnet_tpu_torch import create_model
-from mnasnet_tpu_torch.data.transforms import eval_transform
+from mnasnet_tpu_torch.data import native_decoder
+from mnasnet_tpu_torch.data.dataset import ImageFolderDataset, SyntheticDataset
+from mnasnet_tpu_torch.data.pipeline import DataLoader, prefetch_to_device
+from mnasnet_tpu_torch.data.transforms import eval_transform, train_transform
 from mnasnet_tpu_torch.models.layers import BatchNorm, nchw
 from mnasnet_tpu_torch.ops.cuda import _build
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
@@ -125,9 +153,12 @@ from mnasnet_tpu_torch.tools.tune_plans import (
     time_ms,
     train_dw_shapes,
 )
+from mnasnet_tpu_torch.train import __main__ as train_cli
+from mnasnet_tpu_torch.train import bn_recal
 from mnasnet_tpu_torch.train.optim import create_optimizer
 from mnasnet_tpu_torch.train.state import TrainState
 from mnasnet_tpu_torch.train.steps import make_predict_fn, make_train_step
+from mnasnet_tpu_torch.train.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor-core rate
@@ -149,6 +180,14 @@ COUNTERS = {"dw_conv_bn_act": dw_conv_bn_act, "mbconv_block": mbconv_fused,
 # The port's kernels by a part of their CUDA function names, for profiles.
 KERNEL_NAMES = {"dw_conv_bn_act": "dw_conv_kernel", "mbconv_block": "mbconv_",
                 "bn_bwd_reduce": "bn_reduce_", "bn_bwd_dx": "bn_dx_kernel"}
+REPO = Path(__file__).resolve().parent
+# The trainer phase's ImageFolder: classes, train and val images per class.
+FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_VAL = 8, 48, 20
+LAUNCHES_PER_VAL_FORWARD = {"dw_conv_bn_act": 1, "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
+                            "mbconv_block": 16}
+LAUNCHES_PER_RECAL_FORWARD = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
+                              "mbconv_block": 0}
+THROUGHPUT_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -694,6 +733,293 @@ def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
     return out
 
 
+def counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _scaled(per: dict, n: int) -> dict:
+    return {k: v * n for k, v in per.items()}
+
+
+@contextlib.contextmanager
+def _patched(obj, name, wrapper):
+    orig = getattr(obj, name)
+    setattr(obj, name, wrapper(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+@contextlib.contextmanager
+def recorded_calls(calls: list):
+    """Record, for each call of ``Trainer.train_epoch``, ``Trainer.validate``
+    and ``recalibrate_bn`` made inside, the kernel launches it made and the
+    steps or batches it ran."""
+    def record(kind):
+        def wrapper(orig):
+            def call(*a, **kw):
+                before, t0 = counts(), time.perf_counter()
+                out = orig(*a, **kw)
+                torch.cuda.synchronize()
+                row = {"kind": kind, "launches": _delta(before, counts()),
+                       "s": time.perf_counter() - t0}
+                if kind == "train_epoch":
+                    row["steps"] = out.step
+                    row["loss"] = a[0].epoch_train_stats["loss"]
+                elif kind == "validate":
+                    row["forwards"] = a[2].steps_per_epoch()
+                else:
+                    row["forwards"] = kw["num_batches"]
+                calls.append(row)
+                return out
+            return call
+        return wrapper
+
+    with _patched(Trainer, "train_epoch", record("train_epoch")), \
+            _patched(Trainer, "validate", record("validate")), \
+            _patched(bn_recal, "recalibrate_bn", record("recalibrate_bn")):
+        yield
+
+
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def run_cli(argv: list) -> str:
+    """``python -m mnasnet_tpu_torch.train`` in this process; its stdout is
+    shown and returned."""
+    log(f"[trainer] train CLI: {' '.join(argv)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        train_cli.main(argv)
+    return buf.getvalue()
+
+
+def write_image_folder(root: Path) -> Path:
+    """A seeded ImageFolder of JPEGs: smooth random images of 256-400 px a
+    side, ``FOLDER_CLASSES`` classes, under ``train/`` and ``val/``."""
+    rng = np.random.default_rng(0)
+    for split, per_class in (("train", FOLDER_TRAIN), ("val", FOLDER_VAL)):
+        for c in range(FOLDER_CLASSES):
+            d = root / split / f"class_{c}"
+            d.mkdir(parents=True)
+            for i in range(per_class):
+                w, h = (int(v) for v in rng.integers(256, 401, 2))
+                small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3)).astype(np.uint8)
+                img = Image.fromarray(small).resize((w, h), Image.Resampling.BILINEAR)
+                img.save(d / f"{i}.jpg", quality=90)
+    return root
+
+
+def _final_payload(out: Path) -> dict:
+    from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    key = CheckpointManager(str(out)).latest_epoch()
+    return torch.load(out / str(key) / "checkpoint.pt", map_location="cpu", weights_only=True)
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def folder_run(work: Path, workers: int) -> dict:
+    """(a): one epoch over an ImageFolder, BN recalibration, the eval CLI."""
+    data = write_image_folder(work / "data")
+    out = work / "folder_run"
+    calls: list = []
+    for fn in COUNTERS.values():  # the main path: counts set to 0 just before
+        fn.launches = 0
+    with recorded_calls(calls):
+        text = run_cli([str(data), "--arch", "mnasnet1_0", "--batch-size", str(BATCH),
+                        "--epochs", "1", "--bn-recalibrate", "2", "--workers", str(workers),
+                        "--num-classes", str(FOLDER_CLASSES), "--seed", "0",
+                        "--print-freq", "1", "--decoder", "native-fast",
+                        "--output-dir", str(out)])
+    torch.cuda.synchronize()
+    launches = counts()
+    res = {"launches": launches, "calls": calls}
+    log(f"[trainer] ImageFolder run: launches {launches}; calls {json.dumps(calls)}")
+    kinds = [c["kind"] for c in calls]
+    if kinds != ["train_epoch", "validate", "recalibrate_bn", "validate"]:
+        raise RuntimeError(f"unexpected call sequence {kinds}")
+    train, val0, recal, val1 = calls
+    spe = FOLDER_CLASSES * FOLDER_TRAIN // BATCH
+    val_batches = -(-FOLDER_CLASSES * FOLDER_VAL // BATCH)  # the tail padded
+    if train["steps"] != spe or train["launches"] != _scaled(LAUNCHES_PER_STEP, spe):
+        raise RuntimeError(f"train epoch: {train}; expected {spe} steps of {LAUNCHES_PER_STEP}")
+    if not np.isfinite(train["loss"]):
+        raise RuntimeError(f"train epoch loss not finite: {train['loss']}")
+    for val in (val0, val1):
+        if val["forwards"] != val_batches \
+                or val["launches"] != _scaled(LAUNCHES_PER_VAL_FORWARD, val_batches):
+            raise RuntimeError(f"validation: {val}; expected {val_batches} forwards of "
+                               f"{LAUNCHES_PER_VAL_FORWARD}")
+    if recal["launches"] != _scaled(LAUNCHES_PER_RECAL_FORWARD, 2):
+        raise RuntimeError(f"recalibration: {recal}; expected 2 forwards of "
+                           f"{LAUNCHES_PER_RECAL_FORWARD}")
+    if sum(launches.values()) != sum(sum(c["launches"].values()) for c in calls):
+        raise RuntimeError("kernel launches outside the recorded calls")
+    present = sorted(os.listdir(out))
+    if not {"0", "1", "best"} <= set(present):
+        raise RuntimeError(f"checkpoints {present}; expected 0/, 1/ (recalibrated) and best/")
+    from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    best = CheckpointManager(str(out)).best_epoch()
+    printed = {0: [ln for ln in text.splitlines() if ln.startswith("epoch 0: acc1=")],
+               1: [ln for ln in text.splitlines() if ln.startswith("bn-recalibrated: acc1=")]}
+    acc1 = printed[best][0].split("acc1=")[1].split(" ")[0]
+    res["printed"] = {k: v[0] for k, v in printed.items()}
+    res["best_epoch"] = best
+    r = subprocess.run([sys.executable, "-m", "mnasnet_tpu_torch.eval", str(data), "--resume",
+                        str(out), "--best", "--dtype", "bfloat16", "-b", str(BATCH),
+                        "--workers", str(workers)], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    log(f"[trainer] eval CLI, rc {r.returncode}:\n{r.stdout[-600:]}{r.stderr[-2000:]}")
+    scored = [ln for ln in r.stdout.splitlines() if ln.startswith(" * Acc@1 ")]
+    res["eval_cli"] = scored[0] if scored else None
+    if r.returncode != 0 or not scored or scored[0].split()[2] != acc1:
+        raise RuntimeError(f"the eval CLI printed {scored} for best/ (key {best}); the "
+                           f"trainer printed acc1={acc1}")
+    return res
+
+
+def preempt_runs(work: Path, workers: int) -> dict:
+    """(b): SIGTERM after step 2 of a --deterministic run, then --resume;
+    bitwise against the uninterrupted run."""
+    argv = ["--synthetic", "--synthetic-size", str(4 * BATCH), "--batch-size", str(BATCH),
+            "--deterministic", "--epochs", "1", "--workers", str(workers), "--print-freq", "1"]
+    ref, pre = work / "ref", work / "preempted"
+    run_cli([*argv, "--output-dir", str(ref)])
+
+    def with_sigterm(orig):
+        def call(self, state, loader, epoch, step_callback=None, step_callback_freq=0,
+                 start_step=0):
+            return orig(self, state, loader, epoch, start_step=start_step,
+                        step_callback=lambda s, g: os.kill(os.getpid(), signal.SIGTERM),
+                        step_callback_freq=2)
+        return call
+
+    with _patched(Trainer, "train_epoch", with_sigterm):
+        text = run_cli([*argv, "--output-dir", str(pre)])
+    if "preempted at global step 2" not in text or not (pre / "preempt" / "2").is_dir():
+        raise RuntimeError("the SIGTERM run did not stop at global step 2 with a checkpoint")
+    text = run_cli([*argv, "--output-dir", str(pre), "--resume", str(pre)])
+    if "resumed from preemption checkpoint: epoch 0 step 2" not in text:
+        raise RuntimeError("the resumed run did not start at step 2")
+    a, b = _final_payload(ref), _final_payload(pre)
+    same = {k: _tree_equal(a[k], b[k]) for k in ("model", "optimizer", "train_state")}
+    log(f"[trainer] SIGTERM after step 2 and resume vs uninterrupted, bitwise: {same}")
+    if not all(same.values()) or a["train_state"]["step"] != 4:
+        raise RuntimeError(f"the resumed run differs from the uninterrupted one: {same}")
+    return {"bitwise_equal": same, "steps": a["train_state"]["step"]}
+
+
+def throughput(work: Path, workers: int, card: str) -> dict:
+    """(c): images/s of Trainer.train_epoch on synthetic data with the data
+    path included (steps 2..10 of 10), and the loaders alone."""
+    model = create_model("mnasnet1_0", dtype=torch.bfloat16, bn_ema="external", stem_s2d=True)
+    tx = create_optimizer("rmsprop", TRAIN_LR, fused="small")
+    trainer = Trainer(model, tx, label_smoothing=0.1, compute_dtype=torch.bfloat16,
+                      print_freq=THROUGHPUT_STEPS)
+    state = trainer.create_state(0)
+    loader = DataLoader(SyntheticDataset(THROUGHPUT_STEPS * BATCH, IMAGE, 1000, seed=0), BATCH,
+                        lambda img, rng: train_transform(img, IMAGE, rng), shuffle=True,
+                        drop_last=True, workers=workers)
+    marks = {}
+
+    def mark(state, gstep):
+        if gstep in (0, THROUGHPUT_STEPS - 1):
+            torch.cuda.synchronize()
+            marks[gstep] = time.perf_counter()
+
+    trainer.train_epoch(state, loader, 0, step_callback=mark, step_callback_freq=1)
+    steps = THROUGHPUT_STEPS - 1
+    out = {"steps_timed": steps,
+           "images_per_s_with_data": steps * BATCH / (marks[steps] - marks[0]),
+           "cpu_count": os.cpu_count(), "workers": workers}
+
+    def loader_rate(batches) -> float:
+        t0 = None
+        n = 0
+        for i, (x, _) in enumerate(batches):
+            torch.cuda.synchronize()
+            if i == 0:
+                t0 = time.perf_counter()
+            else:
+                n += 1
+        return n / (time.perf_counter() - t0)
+
+    out["synthetic_loader_batches_per_s"] = loader_rate(
+        prefetch_to_device(loader.epoch(1), device="cuda", dtype=torch.bfloat16))
+    # The host batches alone (decode, augment, collate): what the cast, the
+    # pinned copy and the transfer add is the difference.
+    out["synthetic_host_batches_per_s"] = loader_rate(loader.epoch(2))
+    jpeg = DataLoader(ImageFolderDataset(str(work / "data" / "train")), BATCH,
+                      lambda img, rng: train_transform(img, IMAGE, rng), shuffle=True,
+                      drop_last=True, workers=workers, bytes_transform=(
+                          (lambda d, rng: native_decoder.decode_train(d, IMAGE, rng))
+                          if native_decoder.available() else None))
+
+    def epochs(n):
+        for e in range(n):
+            yield from jpeg.epoch(e)
+
+    out["jpeg_loader_batches_per_s"] = loader_rate(
+        prefetch_to_device(epochs(3), device="cuda", dtype=torch.bfloat16))
+    out["jpeg_decoder"] = "native-fast" if native_decoder.available() else "PIL"
+    log(f"[trainer] throughput with the data path: {out['images_per_s_with_data']:.1f} "
+        f"images/s over {steps} steps of bs{BATCH}; loaders alone: synthetic "
+        f"{out['synthetic_loader_batches_per_s']:.2f} batches/s (host batches alone "
+        f"{out['synthetic_host_batches_per_s']:.2f}), JPEG "
+        f"({out['jpeg_decoder']}) {out['jpeg_loader_batches_per_s']:.2f} batches/s; "
+        f"{workers} workers, {os.cpu_count()} CPUs, on {card}")
+    del model, tx, trainer, state
+    return out
+
+
+def trainer_phase(timing: bool, card: str, fixed_batch: dict | None) -> dict:
+    workers = min(os.cpu_count() or 1, 16)
+    decoder = ("native-fast" if native_decoder.available()
+               else f"PIL: native decoder unavailable ({native_decoder.unavailable_reason})")
+    log(f"[trainer] JPEG decoder: {decoder}; {workers} workers, {os.cpu_count()} CPUs")
+    work = REPO / "build" / "chip_smoke_trainer"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        out = {"decoder": decoder, **folder_run(work, workers)}
+        out["folder_run_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["preempt"] = preempt_runs(work, workers)
+        out["preempt_s"] = time.perf_counter() - t0
+        if timing:
+            out["throughput"] = throughput(work, workers, card)
+            out["throughput"]["fixed_batch_images_per_s"] = (fixed_batch or {}).get(
+                "kernel_route_images_per_s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def _bn_entry(name, rows, serving_free_launches, replaces):
     bf = [r for r in rows if r["dtype"] == "bfloat16"]
     kind = "reduce" if name == "bn_bwd_reduce" else "dx"
@@ -715,7 +1041,7 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
             "summed_over": f"{len(bf)} regions of one training step, bf16"}
 
 
-def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train) -> dict:
+def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -723,7 +1049,8 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train) -> dict:
         return sum(r[key] for r in mb) if all(key in r for r in mb) else None
 
     by_bytes = sum(r["bound_ms"] for r in mb if r["bound_by"] == "bytes")
-    paths = {"serving": serving["launches"], "train": train["launches"]}
+    paths = {"serving": serving["launches"], "train": train["launches"],
+             "trainer": trainer["launches"]}
 
     def by_path(name):
         return {p: launches.get(name, 0) for p, launches in paths.items()}
@@ -774,9 +1101,10 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
-    ap.add_argument("--only", choices=("all", "train", "kernels"), default="all",
+    ap.add_argument("--only", choices=("all", "train", "kernels", "trainer"), default="all",
                     help="'train' runs the bn, dw training and train phases only; "
-                         "'kernels' the dw and mbconv phases only")
+                         "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
+                         "phase only")
     args = ap.parse_args()
     timing = not args.no_timing
     if args.profile is not None:
@@ -788,6 +1116,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The trainer phase's --deterministic runs need cuBLAS's fixed workspace
+    # from the first cuBLAS call of this process on.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
@@ -811,6 +1142,10 @@ def main() -> int:
         log(json.dumps({"dw": dw_rows, "dw_step": dw_step, "mbconv": mb_rows}))
         log(card)
         return 0
+    if args.only == "trainer":
+        log(json.dumps({"trainer": phase("trainer", trainer_phase, timing, card, None)}))
+        log(card)
+        return 0
     if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
     bn_rows = phase("bn", bn_phase, timing)
@@ -818,8 +1153,11 @@ def main() -> int:
     train = phase("train", train_phase, timing, card, args.profile)
 
     if args.only == "all":
-        log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train)))
+        trainer = phase("trainer", trainer_phase, timing, card, train)
+        log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train,
+                                    trainer)))
         log(json.dumps({"serving": serving}))
+        log(json.dumps({"trainer": trainer}))
     log(json.dumps({"train": train, "dw_train": dw_train}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

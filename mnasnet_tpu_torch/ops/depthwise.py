@@ -29,6 +29,10 @@ import torch.nn.functional as F
 from mnasnet_tpu_torch.ops.cuda.dw_conv import depthwise_conv_train, dw_conv_bn_act
 
 IMPLS = ("auto", "kernel", "torch")
+# The CLIs' --fused-kernels values: the port's routes and the reference's
+# spellings of them.
+CLI_IMPLS = {"auto": "auto", "kernel": "kernel", "torch": "torch", "pallas": "kernel",
+             "xla": "torch"}
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:

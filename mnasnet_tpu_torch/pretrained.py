@@ -36,22 +36,16 @@ def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
     return strip_module_prefix(sd)
 
 
-def load_pretrained(arch: str, path: str, *, device="cuda", seed: int = 0,
-                    **model_kwargs) -> MNASNet:
-    """The model ``arch`` (a registry name) with the weights in ``path``, in
-    eval mode on ``device``.
+def load_weights(model: MNASNet, sd: dict[str, torch.Tensor]) -> int:
+    """Load a torchvision-layout state_dict into ``model`` in place (strict).
 
-    Transfer learning: when ``model_kwargs['num_classes']`` differs from the
-    checkpoint's classifier width, the backbone loads from the checkpoint and
-    the classifier keeps its fresh init from ``seed``. ``num_batches_tracked``
-    buffers missing from a file (they do not affect eval) are taken as 0.
-    """
-    if arch not in MODEL_REGISTRY:
-        raise ValueError(f"unknown arch {arch!r}; choices: {sorted(MODEL_REGISTRY)}")
-    dev = resolve_device(device)
-    model = create_model(arch, device="cpu", seed=seed, **model_kwargs)
-    sd = load_state_dict_file(path)
+    Transfer learning: when the checkpoint's classifier width differs from
+    ``model.num_classes``, the backbone loads from the checkpoint and the
+    classifier keeps the model's own. ``num_batches_tracked`` buffers missing
+    from a file (they do not affect eval) are taken as 0. Returns the
+    checkpoint's classifier width."""
     check_state_dict(sd, model.alpha)
+    sd = dict(sd)
     sd.pop("_version", None)
     own = model.state_dict()
     for k, v in own.items():
@@ -62,4 +56,17 @@ def load_pretrained(arch: str, path: str, *, device="cuda", seed: int = 0,
         for k in ("classifier.1.weight", "classifier.1.bias"):
             sd[k] = own[k]
     model.load_state_dict(sd, strict=True)
+    return ckpt_classes
+
+
+def load_pretrained(arch: str, path: str, *, device="cuda", seed: int = 0,
+                    **model_kwargs) -> MNASNet:
+    """The model ``arch`` (a registry name) with the weights in ``path``, in
+    eval mode on ``device``; see :func:`load_weights` for transfer learning,
+    where the classifier keeps its fresh init from ``seed``."""
+    if arch not in MODEL_REGISTRY:
+        raise ValueError(f"unknown arch {arch!r}; choices: {sorted(MODEL_REGISTRY)}")
+    dev = resolve_device(device)
+    model = create_model(arch, device="cpu", seed=seed, **model_kwargs)
+    load_weights(model, load_state_dict_file(path))
     return model.to(dev)

@@ -28,6 +28,11 @@ Every per-element formula is the reference's, in its order of operations:
     the post-update parameters, ``e −= (1 − d)·(e − p)`` with
     ``d = min(decay, (1+n)/(10+n))``; :func:`get_ema_params` reads it.
 
+Each transformation saves and restores its state by parameter name with
+``state_dict()`` / ``load_state_dict()`` (CPU tensors and plain numbers, so
+``torch.load(weights_only=True)`` reads them back): ``count``, ``ms``,
+``mom``, ``trace``, the EMA shadow, and a wrapper's ``inner`` state.
+
 ``fused`` picks how the arithmetic is issued, not what it is: ``True`` runs
 every formula as ``torch._foreach_*`` ops over all parameters at once,
 ``"small"`` over the 1-D (per-channel) parameters only, as the reference's
@@ -92,10 +97,48 @@ class _Transform:
     def update(self, grads: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         raise NotImplementedError
 
+    # The state saved by state_dict(): plain numbers, and dicts of tensors by
+    # parameter name, by attribute; a wrapper's inner state goes under "inner".
+    _SCALARS: tuple[str, ...] = ()
+    _TENSORS: tuple[str, ...] = ()
+
+    def _fields(self) -> set[str]:
+        return {*self._SCALARS, *self._TENSORS, *(("inner",) if hasattr(self, "inner") else ())}
+
+    def state_dict(self) -> dict:
+        out: dict = {f: getattr(self, f) for f in self._SCALARS}
+        for f in self._TENSORS:
+            out[f] = {n: t.detach().cpu().clone() for n, t in getattr(self, f).items()}
+        if hasattr(self, "inner"):
+            out["inner"] = self.inner.state_dict()
+        return out
+
+    def load_state_dict(self, state: Mapping) -> None:
+        """Copy a :meth:`state_dict` into the bound state, in place (the
+        tensors stay on the parameters' device); raises if a field or a
+        parameter name is missing or extra."""
+        if set(state) != self._fields():
+            raise ValueError(f"{type(self).__name__} state has fields {sorted(state)}, "
+                             f"expected {sorted(self._fields())}")
+        with torch.no_grad():
+            for f in self._TENSORS:
+                mine, saved = getattr(self, f), state[f]
+                if set(saved) != set(mine):
+                    raise ValueError(f"{type(self).__name__}.{f}: parameter names differ: "
+                                     f"{sorted(set(saved) ^ set(mine))[:4]}")
+                for n, t in mine.items():
+                    t.copy_(saved[n])
+        for f in self._SCALARS:
+            setattr(self, f, int(state[f]))
+        if hasattr(self, "inner"):
+            self.inner.load_state_dict(state["inner"])
+
 
 class _Core(_Transform):
     """Shared part of :class:`RmsPropTF` and :class:`SGD`: the masked coupled
     weight decay and the grouping of the per-element math by ``fused``."""
+
+    _SCALARS = ("count",)
 
     def __init__(self, learning_rate: ScalarOrSchedule, weight_decay: float, mask: Mask,
                  fused: bool | str):
@@ -148,6 +191,8 @@ class RmsPropTF(_Core):
     """TF-semantics RMSProp with coupled masked weight decay; see the module
     docstring. State: ``count``, ``ms`` and ``mom`` by parameter name."""
 
+    _TENSORS = ("ms", "mom")
+
     def __init__(self, learning_rate, decay=0.9, momentum=0.9, eps=1e-3, weight_decay=1e-5,
                  mask: Mask = wd_mask, fused: bool | str = False):
         super().__init__(learning_rate, weight_decay, mask, fused)
@@ -178,6 +223,8 @@ class SGD(_Core):
     """SGD with (optionally Nesterov) momentum and coupled masked weight
     decay (optax ``trace`` then ``scale_by_learning_rate``). State:
     ``count`` and ``trace`` by parameter name."""
+
+    _TENSORS = ("trace",)
 
     def __init__(self, learning_rate, momentum=0.9, weight_decay=1e-5, nesterov=False,
                  mask: Mask = wd_mask, fused: bool | str = False):
@@ -241,6 +288,9 @@ class ModelEma(_Transform):
     """:func:`with_model_ema`: the inner transformation, then the moving
     average of the post-update parameters. State: ``count`` and the shadow
     ``ema_params`` by parameter name."""
+
+    _SCALARS = ("count",)
+    _TENSORS = ("ema_params",)
 
     def __init__(self, inner: _Transform, decay: float, warmup: bool):
         self.inner = inner

@@ -440,3 +440,87 @@ def test_train_step_kernel_route_matches_torch_route(cuda):
             _close(sk[k], st[k], 1e-5)
         elif not k.endswith("num_batches_tracked"):
             torch.testing.assert_close(sk[k], st[k], rtol=5e-3, atol=1e-4)
+
+
+def test_prefetch_to_device_on_the_card(cuda):
+    """The side-stream copy delivers the CPU cast's values, on the card, to a
+    consumer stream that may use them at once; an early exit stops it."""
+    import threading
+
+    from mnasnet_tpu_torch.data.pipeline import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [((rng.standard_normal((16, 32, 32, 3)) * 3).astype(np.float32),
+                rng.integers(-1, 10, 16).astype(np.int32)) for _ in range(6)]
+    ref = list(prefetch_to_device(iter(batches), device="cpu", dtype=torch.bfloat16))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):  # the consumer on a stream of its own
+        got = [(x, y, x.float().sum(), y.sum()) for x, y in
+               prefetch_to_device(iter(batches), device=cuda, dtype=torch.bfloat16)]
+    torch.cuda.synchronize()
+    assert len(got) == len(ref)
+    for (x, y, xs, ys), (rx, ry) in zip(got, ref):
+        assert x.is_cuda and x.dtype == torch.bfloat16 and y.dtype == torch.int32
+        assert torch.equal(x.cpu(), rx) and torch.equal(y.cpu(), ry)
+        # The sums the consumer's stream took saw the copied values.
+        assert torch.equal(xs, rx.to(cuda).float().sum()) and int(ys) == int(ry.sum())
+
+    before = {t.ident for t in threading.enumerate()}
+    it = prefetch_to_device(iter(batches * 10), device=cuda)
+    next(it)
+    it.close()
+    assert not ({t.ident for t in threading.enumerate()} - before)
+
+
+def test_trainer_stop_and_resume_is_bitwise_on_the_card(cuda, tmp_path, monkeypatch):
+    """Trainer.train_epoch with the kernels under deterministic algorithms:
+    stopped after step 2, checkpointed, restored and resumed, the same bits
+    as the uninterrupted run; 17 dw, 35 + 35 BN and no MBConv launches a
+    step."""
+    from mnasnet_tpu_torch.data.dataset import SyntheticDataset
+    from mnasnet_tpu_torch.data.pipeline import DataLoader
+    from mnasnet_tpu_torch.data.transforms import train_transform
+    from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
+    from mnasnet_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    loader = DataLoader(SyntheticDataset(64, 64, 10, seed=0), 16,
+                        lambda img, rng: train_transform(img, 64, rng), shuffle=True,
+                        drop_last=True, workers=2)
+
+    def fresh():
+        model = create_model("mnasnet0_35", num_classes=10, dtype=torch.bfloat16,
+                             bn_ema="external", stem_s2d=True, bn_stats="two_pass")
+        tx = create_optimizer("rmsprop", 1e-3, fused="small", model_ema=0.9)
+        trainer = Trainer(model, tx, compute_dtype=torch.bfloat16, print_freq=1000)
+        return model, tx, trainer, trainer.create_state(0)
+
+    previous = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ma, txa, ta, sa = fresh()
+        before = dw_conv_bn_act.launches, bn_bwd_reduce.launches, bn_bwd_dx.launches, \
+            mbconv_fused.launches
+        sa = ta.train_epoch(sa, loader, 0)
+        after = dw_conv_bn_act.launches, bn_bwd_reduce.launches, bn_bwd_dx.launches, \
+            mbconv_fused.launches
+        assert [b - a for a, b in zip(before, after)] == [17 * 4, 35 * 4, 35 * 4, 0]
+
+        mb, txb, tb, sb = fresh()
+        sb = tb.train_epoch(sb, loader, 0, step_callback=lambda s, g: tb.request_stop(),
+                            step_callback_freq=2)
+        assert tb.next_global_step == 2
+        CheckpointManager(str(tmp_path)).save(2, mb, txb, sb, 0.0, 0.0)
+        mc, txc, tc, sc = fresh()
+        CheckpointManager(str(tmp_path)).restore(mc, txc, sc)
+        sc = tc.train_epoch(sc, loader, 0, start_step=2)
+    finally:
+        torch.use_deterministic_algorithms(previous)
+    for a, c in ((ma.state_dict(), mc.state_dict()),
+                 (txa.state_dict()["ema_params"], txc.state_dict()["ema_params"]),
+                 (txa.state_dict()["inner"]["mom"], txc.state_dict()["inner"]["mom"])):
+        assert a.keys() == c.keys()
+        for k in a:
+            assert torch.equal(a[k], c[k]), k
+    assert sa.state_dict()["step"] == sc.state_dict()["step"] == 4
+    assert torch.equal(sa.generator.get_state(), sc.generator.get_state())

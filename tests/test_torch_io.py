@@ -185,7 +185,7 @@ def test_eval_cli_image(tmp_path):
     probs = [float(line.split(": ")[1]) for line in lines]
     assert probs == sorted(probs, reverse=True)
     r = _run(["-m", "mnasnet_tpu_torch.eval", str(tmp_path), "--device", "cpu"])
-    assert r.returncode != 0 and "input-pipeline slice" in r.stderr
+    assert r.returncode != 0 and "need --pretrained or --resume" in r.stderr
 
 
 def test_package_imports_neither_jax_nor_reference():
