@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only train   # the train phases only (a new kernel's first run)
     python3 chip_smoke.py --only kernels # the dw and mbconv phases only
     python3 chip_smoke.py --only trainer # the training harness phase only
+    python3 chip_smoke.py --only dist    # the data-parallel phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -59,7 +60,32 @@ Phases, in order; any failure raises and exits non-zero:
      optimizer state and dropout generator bitwise equal to the
      uninterrupted run's; (c) images/s of 9 steps of ``Trainer.train_epoch``
      on synthetic data with the data path included, the loaders' batches/s
-     with no model, the CPU count and the workers.
+     with no model, the CPU count and the workers;
+ 10. dist: data-parallel training on the same production configuration.
+     (a) NCCL at world size 1: ``python -m torch.distributed.run --standalone
+     --nproc_per_node 1 chip_smoke.py --dist-worker OUT ARGV`` runs the
+     train CLI's ``main(ARGV)`` (``--synthetic``, bf16, ``--fused-kernels
+     kernel``, 12 steps of 128) in the process torchrun starts, with its
+     environment; every step must make exactly 17 / 35 / 35 / 0 launches and,
+     from the second on, exactly the collectives ``Trainer.
+     collectives_per_step`` predicts (the first adds the epoch's stop flag
+     and one check of each of the 5 BN plane sizes); images/s of steps 2-12
+     (2-9 with ``--profile``) beside the trainer phase's; with ``--profile``
+     the collectives' host time and NCCL's device time per step from a trace
+     of steps 10-11; before the CLI run, ms per step of the sync-BN step
+     against the one-process step on the fixed batch, in turns, the
+     collectives' cost at world 1. (b) two ranks on the one card
+     over gloo (both on cuda:0; gloo carries CUDA tensors for all_reduce and
+     broadcast, the only collectives of the port), fp32, TF32 off, kernel
+     route, 64 images a rank of the train phase's fixed batch: the sync-BN
+     step against the one-process step on the 128 (dropout on), the local-BN
+     step against the one-process ``grad_accum=2`` step; each rank must make
+     17 / 35 / 35 / 0 launches per step, and the two ranks must end with the
+     same state, bit for bit. Gloo is only the way to two ranks on one card,
+     never a stand-in for a failed NCCL run. On a machine with N cards both
+     parts run over NCCL at world N instead, one card a rank: (a) at 128
+     images a rank, (b) with the 128 split N ways and local BN against
+     ``grad_accum=N``.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
@@ -92,6 +118,15 @@ Tolerances (normalised by the largest magnitude of the reference):
     gradient elements by more);
   * trainer: launches and checkpoints exactly, the eval CLI's acc1 equal to
     the trainer's as printed (3 decimals), the resumed run bit for bit;
+  * dist: launches and collectives exactly; the ranks against one process:
+    loss within 1e-5 relative, the step's BN moments within 1e-5 (each mean
+    in units of its channel's standard deviation, each variance relative),
+    the update within 1e-2 relative RMS (the fp32 kernel-vs-torch step's
+    bound) or 4 times the one-process step's own move when its images
+    change by one ulp, whichever is larger: the same math with the moments'
+    and the gradients' sums taken in another order, a rounding that the
+    batch-statistic BN backward amplifies at random init as it amplifies
+    that one-ulp change (measured: 8.4e-3 against an own move of 9.5e-3);
   * whole model, bf16: max |kernel route - torch route| <= 0.25 of the
     largest logit, and the kernel route's relative RMS error against the fp32
     reference at most 1.25x the torch route's plus 0.01. Random weights make
@@ -123,7 +158,7 @@ from mnasnet_tpu_torch.data import native_decoder
 from mnasnet_tpu_torch.data.dataset import ImageFolderDataset, SyntheticDataset
 from mnasnet_tpu_torch.data.pipeline import DataLoader, prefetch_to_device
 from mnasnet_tpu_torch.data.transforms import eval_transform, train_transform
-from mnasnet_tpu_torch.models.layers import BatchNorm, nchw
+from mnasnet_tpu_torch.models.layers import BatchNorm, nchw, set_replicas
 from mnasnet_tpu_torch.ops.cuda import _build
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     _fwd_math,
@@ -143,6 +178,7 @@ from mnasnet_tpu_torch.ops.cuda.dw_conv import (
 from mnasnet_tpu_torch.ops.cuda.dw_conv import plan as dw_plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fused, mbconv_reference, plan
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
+from mnasnet_tpu_torch.parallel import close, init_distributed
 from mnasnet_tpu_torch.tools.tune_plans import (
     BATCH,
     IMAGE,
@@ -157,7 +193,12 @@ from mnasnet_tpu_torch.train import __main__ as train_cli
 from mnasnet_tpu_torch.train import bn_recal
 from mnasnet_tpu_torch.train.optim import create_optimizer
 from mnasnet_tpu_torch.train.state import TrainState
-from mnasnet_tpu_torch.train.steps import make_predict_fn, make_train_step
+from mnasnet_tpu_torch.train.steps import (
+    make_local_bn_train_step,
+    make_predict_fn,
+    make_train_step,
+    step_collectives,
+)
 from mnasnet_tpu_torch.train.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
@@ -188,6 +229,14 @@ LAUNCHES_PER_VAL_FORWARD = {"dw_conv_bn_act": 1, "bn_bwd_reduce": 0, "bn_bwd_dx"
 LAUNCHES_PER_RECAL_FORWARD = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
                               "mbconv_block": 0}
 THROUGHPUT_STEPS = 10
+DIST_STEPS = 12
+# The torchrun run's profiled window, steps 10 and 11 of 12 (the profiler
+# stops before the last step): starting and stopping it takes seconds and
+# leaves the process slower, so the images/s are those of the steps before.
+DIST_PROFILE_STEPS = (DIST_STEPS - 3, DIST_STEPS - 1)
+# The BN planes of mnasnet1_0@224 (112², 56², 28², 14², 7²): sync-BN checks
+# each size once, on the first step.
+BN_PLANE_SIZES = 5
 
 
 def log(msg: str) -> None:
@@ -635,6 +684,15 @@ def dw_train_phase() -> list[dict]:
     return rows
 
 
+def train_batch():
+    """The train phase's batch: 128x224x224x3 images and labels, seeded on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.randn(BATCH, IMAGE, IMAGE, 3, device="cuda", generator=g)
+    labels = torch.randint(0, 1000, (BATCH,), device="cuda", generator=g)
+    return images, labels
+
+
 def _train_setup(dtype, route, seed=0):
     kw = {} if route == "auto" else {"dw_impl": route, "bn_bwd": route}
     model = create_model("mnasnet1_0", dtype=dtype, bn_ema="external", stem_s2d=True,
@@ -653,9 +711,7 @@ def _stats(model):
 
 
 def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
-    g = torch.Generator(device="cuda").manual_seed(5)
-    images = torch.randn(BATCH, IMAGE, IMAGE, 3, device="cuda", generator=g)
-    labels = torch.randint(0, 1000, (BATCH,), device="cuda", generator=g)
+    images, labels = train_batch()
     model, state, step = _train_setup(torch.bfloat16, "auto")
 
     # The main path: counts set to 0 just before, read just after.
@@ -996,6 +1052,304 @@ def throughput(work: Path, workers: int, card: str) -> dict:
     return out
 
 
+def _step_kind(kind, replicas=None):
+    """fp32 production model (seed 1, kernel route) and its step: "sync",
+    "local" (with ``replicas``), "one" or "accum<K>" (one process). The BN
+    EMA's decay is 0, so that the running statistics after the step are the
+    step's batch moments, which the comparison reads."""
+    model = create_model("mnasnet1_0", dtype=torch.float32, bn_ema="external", stem_s2d=True,
+                         seed=1, dw_impl="kernel", bn_bwd="kernel", bn_momentum=0.0)
+    tx = create_optimizer("rmsprop", TRAIN_LR, fused="small")
+    state = TrainState.create(model, tx, seed=1)
+    if kind == "sync":
+        set_replicas(model, replicas)
+        step = make_train_step(model, tx, 0.1, replicas=replicas)
+    elif kind == "local":
+        step = make_local_bn_train_step(model, tx, 0.1, replicas)
+    else:
+        step = make_train_step(model, tx, 0.1, grad_accum=int(kind[5:]) if kind != "one" else 1)
+    return model, state, step
+
+
+def _one_step(kind, images, labels, replicas=None) -> dict:
+    model, state, step = _step_kind(kind, replicas)
+    p0 = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    for fn in COUNTERS.values():  # counts set to 0 just before the step
+        fn.launches = 0
+    before = replicas.collectives if replicas is not None else 0
+    state, metrics = step(state, images, labels)
+    torch.cuda.synchronize()
+    return {"launches": counts(), "loss": float(metrics["loss"]),
+            "collectives": (replicas.collectives if replicas is not None else 0) - before,
+            "p0": p0, "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.cpu() for n, b in model.named_buffers()
+                      if n.endswith(("mean", "var"))}}
+
+
+def dist_rank(rank: int, world: int, backend: str, rendezvous: str, out_dir: str) -> None:
+    """(b), one of ``world`` ranks: one sync-BN and one local-BN fp32 step on
+    this rank's share of the train phase's batch; over gloo every rank is
+    on cuda:0, over NCCL on its own card. The results go to ``rank<R>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    replicas = init_distributed(f"file://{rendezvous}", world, rank, backend, device)
+    try:
+        images, labels = train_batch()
+        rows = slice(rank * BATCH // world, (rank + 1) * BATCH // world)
+        out = {kind: _one_step(kind, images[rows], labels[rows], replicas)
+               for kind in ("sync", "local")}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        close(replicas)
+
+
+def _update_rel_rms(ours: dict, ref: dict) -> float:
+    """|Δp_ours − Δp_ref| / |Δp_ref| over all parameters."""
+    p0, pa, pb = ref["p0"], ours["params"], ref["params"]
+    num = sum(float(((pa[n] - pb[n]) ** 2).sum()) for n in pb)
+    den = sum(float(((pb[n] - p0[n]) ** 2).sum()) for n in pb)
+    return (num / den) ** 0.5
+
+
+def _moments_diff(ours: dict, ref: dict) -> float:
+    """The largest difference of the step's BN moments, each channel's mean
+    in units of its standard deviation and its variance relative to itself
+    (a mean near 0 has no relative error to speak of)."""
+    worst = 0.0
+    for n, v in ref.items():
+        if n.endswith("running_var"):
+            m = n[:-len("var")] + "mean"
+            sd = v.clamp(min=1e-12).sqrt()
+            worst = max(worst, float(((ours[m] - ref[m]).abs() / sd).max()),
+                        float(((ours[n] - v).abs() / v.clamp(min=1e-12)).max()))
+    return worst
+
+
+def _vs_one_process(ours: dict, ref: dict, moved: dict) -> dict:
+    """``ours`` against the one-process step ``ref``; ``moved`` is that step
+    on images moved by one ulp, whose update differs from ``ref``'s by the
+    step's own sensitivity to rounding."""
+    return {"loss": ours["loss"], "loss_one_process": ref["loss"],
+            "loss_rel_diff": abs(ours["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "update_rel_rms_diff": _update_rel_rms(ours, ref),
+            "one_ulp_update_rel_rms_diff": _update_rel_rms(moved, ref),
+            "moments_max_diff": _moments_diff(ours["stats"], ref["stats"]),
+            "bitwise": all(torch.equal(ours["params"][n], ref["params"][n])
+                           for n in ref["params"])
+            and all(torch.equal(ours["stats"][n], ref["stats"][n]) for n in ref["stats"])}
+
+
+def ranks_vs_one_process(work: Path, world: int, backend: str) -> dict:
+    """(b): ``world`` ranks against one process: the sync-BN step against the
+    step on the whole batch, the local-BN step against ``grad_accum=world``."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(dist_rank, args=(world, backend, str(work / "rendezvous"), str(work)),
+                       nprocs=world, start_method="spawn")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(world)]
+    images, labels = train_batch()
+    out = {"world": world, "backend": backend, "launches": ranks[0]["sync"]["launches"]}
+    where = "cuda:0" if backend == "gloo" else "one card each"
+    for kind, ref_kind in (("sync", "one"), ("local", f"accum{world}")):
+        mine = [r[kind] for r in ranks]
+        a = mine[0]
+        replicated = all(b["loss"] == a["loss"] and all(
+            torch.equal(a[f][n], b[f][n]) for f in ("params", "stats") for n in a[f])
+            for b in mine[1:])
+        nudged = images * (1 + 2.0 ** -23 * torch.randint(
+            0, 2, images.shape, device=images.device, generator=torch.Generator(
+                device=images.device).manual_seed(12)).mul(2).sub(1))
+        cmp = _vs_one_process(a, _one_step(ref_kind, images, labels),
+                              _one_step(ref_kind, nudged, labels))
+        model = create_model("mnasnet1_0", device="cpu", bn_bwd="kernel")
+        predicted = step_collectives(model, sync_bn=kind == "sync") + (
+            BN_PLANE_SIZES if kind == "sync" else 0)
+        row = {**cmp, "ranks_bitwise_equal": replicated,
+               "launches": [b["launches"] for b in mine],
+               "collectives": [b["collectives"] for b in mine],
+               "collectives_predicted": predicted, "against": ref_kind}
+        out[kind] = row
+        log(f"[dist] {backend}, {world} ranks on {where}, {kind} step vs one process "
+            f"({ref_kind}): {json.dumps(row)}")
+        if not replicated:
+            raise RuntimeError(f"the ranks' {kind} steps ended in different states")
+        if any(b["launches"] != LAUNCHES_PER_STEP for b in mine):
+            raise RuntimeError(f"{kind}: launches per rank {row['launches']}, expected "
+                               f"{LAUNCHES_PER_STEP}")
+        if row["collectives"] != [predicted] * world:
+            raise RuntimeError(f"{kind}: collectives {row['collectives']}, predicted {predicted}")
+        if cmp["loss_rel_diff"] > 1e-5 or cmp["moments_max_diff"] > 1e-5 \
+                or cmp["update_rel_rms_diff"] > max(1e-2, 4 * cmp["one_ulp_update_rel_rms_diff"]):
+            raise RuntimeError(f"{kind} over {world} ranks disagrees with one process: {cmp}")
+    return out
+
+
+def dist_worker(out: Path, argv: list) -> int:
+    """(a), in each process torchrun starts: at world 1 first the fixed-batch
+    cost of the collectives (:func:`collectives_cost`), then the train CLI's
+    ``main(argv)``, recording each step's launches and collectives and the
+    images/s of the steps after the first (before the profiled window, when
+    there is one); the record goes to ``out/rank<R>.json``."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    # Before the CLI run, whose profiler would slow the process.
+    record: dict = {"argv": argv, "fixed_batch": collectives_cost() if world == 1 else None}
+    steps = []
+    marks = {}
+    last = (DIST_PROFILE_STEPS[0] if "--profile-steps" in argv else DIST_STEPS) - 1
+    before: dict = {}
+
+    def with_record(orig):
+        def call(self, state, loader, epoch, step_callback=None, step_callback_freq=0,
+                 start_step=0):
+            record["collectives_per_step"] = self.collectives_per_step()
+            record["replicas"] = repr(self.replicas)
+            before.update(launches=counts(), collectives=self.replicas.collectives)
+
+            def mark(state, gstep):
+                c, k = self.replicas.collectives, counts()
+                steps.append({"launches": _delta(before["launches"], k),
+                              "collectives": c - before["collectives"]})
+                before.update(launches=k, collectives=c)
+                if gstep in (0, last):
+                    torch.cuda.synchronize()
+                    marks[gstep] = time.perf_counter()
+
+            return orig(self, state, loader, epoch, step_callback=mark, step_callback_freq=1,
+                        start_step=start_step)
+        return call
+
+    for fn in COUNTERS.values():  # the main path: counts set to 0 just before
+        fn.launches = 0
+    with _patched(Trainer, "train_epoch", with_record):
+        train_cli.main(argv)
+    torch.cuda.synchronize()
+    record.update(steps=steps, launches=counts(), steps_timed=last, world=world,
+                  images_per_s=last * BATCH * world / (marks[last] - marks[0]))
+    (out / f"rank{os.environ.get('RANK', 0)}.json").write_text(json.dumps(record))
+    return 0
+
+
+def collectives_cost() -> dict:
+    """At world 1 under torchrun: ms per step on the train phase's fixed batch
+    (bf16, production configuration) of the one-process step ("plain"), the
+    sync-BN step ("sync") and the sync-BN step with ``dist.all_reduce`` made
+    a no-op ("sync_no_collective": at world 1 a sum over one rank is the
+    identity, so the result is the same), in turns. sync − plain is what
+    the collectives cost the step; sync_no_collective − plain is the part
+    of it that is the port's own code around them (sums, copies, Python)."""
+    import torch.distributed as dist
+
+    replicas = init_distributed()  # torchrun's environment, a new group
+    try:
+        images, labels = train_batch()
+        order = ("plain", "sync", "sync_no_collective", "sync_no_collective", "sync", "plain")
+        ms: dict = {kind: [] for kind in order}
+        for kind in order:
+            model = create_model("mnasnet1_0", dtype=torch.bfloat16, bn_ema="external",
+                                 stem_s2d=True)
+            tx = create_optimizer("rmsprop", TRAIN_LR, fused="small")
+            state = TrainState.create(model, tx)
+            group = None if kind == "plain" else replicas
+            set_replicas(model, group)
+            step = make_train_step(model, tx, 0.1, replicas=group)
+            no_op = (lambda *a, **kw: None) if kind == "sync_no_collective" else dist.all_reduce
+            with _patched(dist, "all_reduce", lambda orig: no_op):
+                ms[kind].append(time_ms(lambda: step(state, images, labels), target_ms=1000.0))
+            del model, tx, state, step
+        return {"ms_per_step": ms, "collectives_per_step": step_collectives(
+            create_model("mnasnet1_0", device="cpu", bn_bwd="kernel"))}
+    finally:
+        close(replicas)
+
+
+def _collective_ms_per_step(trace: Path, steps: int) -> dict:
+    """The profiled window per step: the device time of NCCL's kernels and
+    of every kernel, and the host time of the all-reduce and broadcast calls
+    (the ``nccl:*`` and ``c10d::*`` ops the profiler records)."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [e for e in kernels if "nccl" in e.get("name", "").lower()]
+    host = [e for e in events if e.get("cat") == "cpu_op"
+            and e.get("name", "").startswith(("nccl:", "c10d::allreduce", "c10d::broadcast"))]
+    return {"nccl_kernel_ms_per_step": sum(e["dur"] for e in nccl) / 1e3 / steps,
+            "nccl_kernels_per_step": len(nccl) / steps,
+            "collective_ops_per_step": len(host) / steps,
+            "collective_host_ms_per_step": sum(e["dur"] for e in host) / 1e3 / steps,
+            "collective_op_names": sorted({e["name"] for e in host}),
+            "device_ms_per_step": sum(e["dur"] for e in kernels) / 1e3 / steps,
+            "profiled_steps": steps}
+
+
+def nccl_torchrun(work: Path, profile_dir: Path | None, nproc: int) -> dict:
+    """(a): torchrun, ``nproc`` processes (one card each), NCCL, the train
+    CLI at 128 images a process."""
+    out = work / "nccl"
+    out.mkdir()
+    argv = ["--synthetic", "--synthetic-size", str(DIST_STEPS * BATCH * nproc), "--batch-size",
+            str(BATCH * nproc), "--epochs", "1", "--fused-kernels", "kernel", "--dtype",
+            "bfloat16", "--workers", str(max(1, min((os.cpu_count() or 1) // nproc, 16))),
+            "--print-freq", "1", "--seed", "0", "--output-dir", str(work / "run")]
+    if profile_dir is not None:
+        argv += ["--profile-steps", "{}:{}".format(*DIST_PROFILE_STEPS)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), str(REPO / "chip_smoke.py"), "--dist-worker", str(out), *argv]
+    log(f"[dist] {' '.join(cmd)}")
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600, env=env)
+    log(f"[dist] torchrun rc {r.returncode}:\n{r.stdout[-2500:]}{r.stderr[-4000:]}")
+    if r.returncode != 0:
+        raise RuntimeError(f"the torchrun NCCL run failed with rc {r.returncode}")
+    res = json.loads((out / "rank0.json").read_text())
+    per_step = res.pop("steps")
+    predicted = res["collectives_per_step"]
+    res["launches_per_step"] = [s["launches"] for s in per_step]
+    res["collectives_by_step"] = [s["collectives"] for s in per_step]
+    first = predicted + 1 + BN_PLANE_SIZES
+    for r in range(nproc):
+        steps = json.loads((out / f"rank{r}.json").read_text())["steps"]
+        if len(steps) != DIST_STEPS:
+            raise RuntimeError(f"rank {r}: {len(steps)} steps recorded, expected {DIST_STEPS}")
+        if any(s["launches"] != LAUNCHES_PER_STEP for s in steps):
+            raise RuntimeError(f"rank {r}: launches per step "
+                               f"{[s['launches'] for s in steps]}, expected {LAUNCHES_PER_STEP}")
+        if [s["collectives"] for s in steps] != [first] + [predicted] * (DIST_STEPS - 1):
+            raise RuntimeError(f"rank {r}: collectives per step "
+                               f"{[s['collectives'] for s in steps]}, predicted {first} then "
+                               f"{predicted}")
+    if profile_dir is not None:
+        shutil.copy(work / "run" / "profile" / "kernels.txt",
+                    profile_dir / f"profile_dist_nccl_world{nproc}.txt")
+        res["profile"] = _collective_ms_per_step(work / "run" / "profile" / "trace.json",
+                                                 DIST_PROFILE_STEPS[1] - DIST_PROFILE_STEPS[0])
+    return res
+
+
+def dist_phase(timing: bool, card: str, trainer: dict | None,
+               profile_dir: Path | None) -> dict:
+    """(a) and (b). With one card: NCCL at world 1, then two gloo ranks on
+    the card; with N cards: NCCL at world N for both, one card a rank."""
+    nproc = torch.cuda.device_count()
+    work = REPO / "build" / "chip_smoke_dist"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "ranks").mkdir(parents=True)
+    try:
+        nccl = nccl_torchrun(work, profile_dir, nproc)
+        with_data = ((trainer or {}).get("throughput") or {}).get("images_per_s_with_data")
+        log(f"[dist] NCCL world {nproc} through torchrun: launches per step "
+            f"{nccl['launches_per_step'][-1]}, collectives per step "
+            f"{nccl['collectives_by_step']} (predicted {nccl['collectives_per_step']} from "
+            f"step 2), {nccl['images_per_s']:.1f} images/s with the data path against "
+            f"{with_data if with_data is None else round(with_data, 1)} in the trainer phase "
+            f"(one process, no group), on {card}; fixed batch "
+            f"{json.dumps(nccl.get('fixed_batch'))}; profile {json.dumps(nccl.get('profile'))}")
+        ranks = (ranks_vs_one_process(work / "ranks", 2, "gloo") if nproc == 1
+                 else ranks_vs_one_process(work / "ranks", nproc, "nccl"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"nccl": nccl, "ranks": ranks, "trainer_images_per_s_with_data": with_data}
+
+
 def trainer_phase(timing: bool, card: str, fixed_batch: dict | None) -> dict:
     workers = min(os.cpu_count() or 1, 16)
     decoder = ("native-fast" if native_decoder.available()
@@ -1041,7 +1395,7 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
             "summed_over": f"{len(bf)} regions of one training step, bf16"}
 
 
-def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer) -> dict:
+def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer, dist) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -1050,7 +1404,8 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer) ->
 
     by_bytes = sum(r["bound_ms"] for r in mb if r["bound_by"] == "bytes")
     paths = {"serving": serving["launches"], "train": train["launches"],
-             "trainer": trainer["launches"]}
+             "trainer": trainer["launches"], "dist_torchrun": dist["nccl"]["launches"],
+             "dist_ranks_rank0": dist["ranks"]["launches"]}
 
     def by_path(name):
         return {p: launches.get(name, 0) for p, launches in paths.items()}
@@ -1101,10 +1456,13 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
-    ap.add_argument("--only", choices=("all", "train", "kernels", "trainer"), default="all",
+    ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist"),
+                    default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
-                         "phase only")
+                         "phase only; 'dist' the data-parallel phase only")
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     args = ap.parse_args()
     timing = not args.no_timing
     if args.profile is not None:
@@ -1146,6 +1504,10 @@ def main() -> int:
         log(json.dumps({"trainer": phase("trainer", trainer_phase, timing, card, None)}))
         log(card)
         return 0
+    if args.only == "dist":
+        log(json.dumps({"dist": phase("dist", dist_phase, timing, card, None, args.profile)}))
+        log(card)
+        return 0
     if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
     bn_rows = phase("bn", bn_phase, timing)
@@ -1154,10 +1516,12 @@ def main() -> int:
 
     if args.only == "all":
         trainer = phase("trainer", trainer_phase, timing, card, train)
+        dist = phase("dist", dist_phase, timing, card, trainer, args.profile)
         log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train,
-                                    trainer)))
+                                    trainer, dist)))
         log(json.dumps({"serving": serving}))
         log(json.dumps({"trainer": trainer}))
+        log(json.dumps({"dist": dist}))
     log(json.dumps({"train": train, "dw_train": dw_train}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

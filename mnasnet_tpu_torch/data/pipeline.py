@@ -44,6 +44,11 @@ class DataLoader:
     augmentation does not depend on worker scheduling. ``bytes_transform``,
     when set and the dataset has ``load_bytes``, decodes raw JPEG bytes (the
     native decoder) and falls back to the PIL ``transform`` per image.
+
+    ``shard_id``/``num_shards`` take one replica's shard (``shard_indices``).
+    Without ``drop_last`` the shards are wrap-padded to one length; those
+    duplicates carry label -1, as the tail's padding does, so that sums over
+    all shards count each sample once.
     """
 
     def __init__(
@@ -129,19 +134,24 @@ class DataLoader:
         n_full = len(indices) // bs
         ends = n_full * bs
         batches = [indices[i * bs:(i + 1) * bs] for i in range(n_full)]
-        n_valid_tail = None
-        if not self.drop_last and ends < len(indices):
-            # Pad the tail batch by wrapping, so every batch has one shape;
-            # padded positions get label -1, which loss and metrics mask.
-            tail = indices[ends:]
-            n_valid_tail = len(tail)
-            pad = np.resize(indices[: max(1, ends)] if ends else tail, bs - len(tail))
-            batches.append(np.concatenate([tail, pad]))
-
-        last = len(batches) - 1
+        # The samples of this shard that are not shard_indices' wrap-padding,
+        # which ends the shard: its positions in the epoch's order are
+        # shard_id, shard_id + num_shards, ... and those past the dataset's
+        # length are the padding.
+        n_real = len(indices)
+        if not self.drop_last:
+            n_real = len(range(self.shard_id, len(self.dataset), self.num_shards))
+            if ends < len(indices):
+                # Pad the tail batch by wrapping, so every batch has one shape;
+                # padded positions get label -1, which loss and metrics mask.
+                tail = indices[ends:]
+                pad = np.resize(indices[: max(1, ends)] if ends else tail, bs - len(tail))
+                batches.append(np.concatenate([tail, pad]))
 
         def valid(bi: int) -> Optional[int]:
-            return n_valid_tail if bi == last and n_valid_tail is not None else None
+            """The real samples of batch ``bi``, or None when all are."""
+            v = n_real - bi * bs
+            return v if v < bs else None
 
         if not 0 <= start_step <= len(batches):
             raise ValueError(f"start_step {start_step} out of range for an epoch of "

@@ -10,7 +10,9 @@ over the real samples of a padded tail. ``--resume`` reads the model's
 weights from a training checkpoint without rebuilding its optimizer. JPEGs
 are decoded as the train CLI's validation decodes them (``--decoder``,
 default ``native-fast``), so a checkpoint scores here what the trainer
-printed for it.
+printed for it. Launched by ``torchrun`` on several processes, each scores
+its shard of DATA_DIR at ``--batch-size / world`` and rank 0 prints the
+counts summed over all shards, as the root ``eval.py:100-125`` does.
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ def main(argv=None):
 
     from mnasnet_tpu_torch.data.dataset import ImageFolderDataset
     from mnasnet_tpu_torch.data.pipeline import DataLoader
+    from mnasnet_tpu_torch.parallel import close, init_distributed
     from mnasnet_tpu_torch.train.trainer import run_validation
 
     bytes_tf = None
@@ -102,12 +105,21 @@ def main(argv=None):
                   f"({native_decoder.unavailable_reason})", flush=True)
     val_root = os.path.join(args.data, "val")
     ds = ImageFolderDataset(val_root if os.path.isdir(val_root) else args.data)
-    loader = DataLoader(ds, args.batch_size, lambda img: eval_transform(img, args.image_size),
-                        shuffle=False, drop_last=False, workers=args.workers, augment=False,
-                        bytes_transform=bytes_tf)
-    # Eval only: no Trainer, no optimizer, no TrainState.
-    run_validation(make_eval_step(model), loader, device=next(model.parameters()).device,
-                   compute_dtype=_DTYPES[args.dtype])
+    # torchrun's processes each score a shard; one process scores it all.
+    replicas = init_distributed(device=args.device)
+    try:
+        world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
+        if replicas is not None:
+            model.to(replicas.device)
+        loader = DataLoader(ds, args.batch_size // world,
+                            lambda img: eval_transform(img, args.image_size), shuffle=False,
+                            drop_last=False, workers=args.workers, augment=False,
+                            shard_id=rank, num_shards=world, bytes_transform=bytes_tf)
+        # Eval only: no Trainer, no optimizer, no TrainState.
+        run_validation(make_eval_step(model), loader, device=next(model.parameters()).device,
+                       compute_dtype=_DTYPES[args.dtype], verbose=rank == 0, replicas=replicas)
+    finally:
+        close(replicas)
 
 
 if __name__ == "__main__":

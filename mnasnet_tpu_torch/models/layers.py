@@ -12,7 +12,9 @@ that view, and the kernels in ``ops/cuda`` take it as they are.
 
 In train mode BatchNorm normalises with batch statistics and updates its
 running statistics (:class:`BatchNorm`), and the stem may take its
-space-to-depth form (:class:`StemConv`).
+space-to-depth form (:class:`StemConv`). A BatchNorm that holds a replica
+handle (:func:`set_replicas`) takes the statistics of the global batch over
+the data-parallel replicas: sync-BN.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import STATS, batch_moments, bn_relu_train
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
+from mnasnet_tpu_torch.parallel.dist import Replicas, global_rows
 
 BN_MOMENTUM = 0.9997  # EMA decay; torch momentum = 1 - 0.9997 = 3e-4
 BN_EPSILON = 1e-5
@@ -66,6 +69,11 @@ class BatchNorm(nn.Module):
     (``train/steps.py:fused_ema_stats``). The updates run under
     ``torch.no_grad``; ``num_batches_tracked`` counts train forwards and
     changes no arithmetic.
+
+    ``replicas`` (None: this process's batch alone) makes it sync-BN
+    (``mnasnet_tpu/models/layers.py:13-16``): the moments are summed over the
+    replicas with a differentiable all-reduce, and Bessel's correction takes
+    the global count. The handle is not part of the state_dict.
     """
 
     def __init__(self, features: int, eps: float = BN_EPSILON, momentum: float = BN_MOMENTUM,
@@ -85,6 +93,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.replicas: Replicas | None = None
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Inference-time folded (scale, bias) in fp32: ``y = x*scale + bias``."""
@@ -93,7 +102,7 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def _update_stats(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> None:
-        n = x.numel() // x.shape[1]
+        n = global_rows(x.numel() // x.shape[1], self.replicas)
         bessel = n / max(n - 1, 1)
         if self.ema == "external":
             self.running_mean.copy_(mean)
@@ -106,7 +115,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = batch_moments(nhwc(x), self.stats)
+            mean, var = batch_moments(nhwc(x), self.stats, self.replicas)
             self._update_stats(x, mean, var)
             inv = self.weight * torch.rsqrt(var + self.eps)
             shift = self.bias - mean * inv
@@ -120,9 +129,29 @@ class BatchNorm(nn.Module):
         ``ops/cuda/bn_bwd.py`` (two CUDA kernels, or their plain versions on
         the CPU). The forward and the running-stat updates are those of
         ``relu(self(x))``; only the backward of the region differs."""
-        y, mean, var = bn_relu_train(nhwc(x), self.weight, self.bias, self.eps, self.stats)
+        y, mean, var = bn_relu_train(nhwc(x), self.weight, self.bias, self.eps, self.stats,
+                                     self.replicas)
         self._update_stats(x, mean, var)
         return nchw(y)
+
+
+def set_replicas(module: nn.Module, replicas: Replicas | None) -> Replicas | None:
+    """Give every :class:`BatchNorm` in ``module`` the replica handle (sync-BN;
+    None: per-replica statistics); returns the handle they held before."""
+    previous = replicas_of(module)
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.replicas = replicas
+    return previous
+
+
+def replicas_of(module: nn.Module) -> Replicas | None:
+    """The replica handle the BatchNorms of ``module`` hold; raises when they
+    hold different ones."""
+    handles = {id(m.replicas): m.replicas for m in module.modules() if isinstance(m, BatchNorm)}
+    if len(handles) > 1:
+        raise ValueError("the BatchNorms of the module hold different replica handles")
+    return next(iter(handles.values()), None)
 
 
 class PointwiseConv(nn.Module):

@@ -30,7 +30,9 @@ In train mode (``model.train()``) the forward is the reference's training
 forward (``mnasnet.py:146-188, 317-350``): batch-statistic BN with the
 running-stat EMA (``bn_stats``, ``bn_ema``, ``bn_momentum``), the
 space-to-depth stem when ``stem_s2d``, and dropout before the classifier,
-drawn from the ``generator`` that ``forward`` is given. ``bn_bwd`` routes the
+drawn from the ``generator`` that ``forward`` is given, or given as a mask
+(:meth:`MNASNet.dropout_keep`: a train step draws one mask for its whole
+global batch and hands each shard its rows). ``bn_bwd`` routes the
 backward of the BN+ReLU regions (stem, separable dw, head and each block's
 expand and dw BN) as ``dw_impl`` routes the depthwise convs: ``"kernel"``
 (the reference's ``"pallas_region"``) runs ``BatchNorm.relu_train_region``,
@@ -268,14 +270,27 @@ class MNASNet(nn.Module):
             y = stack(y)
         return _bn_relu(L[15], L[14](y), region)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """fp32 logits. In train mode dropout draws from ``generator`` (the
-        default generator of the device when None)."""
+    def dropout_keep(self, rows: int, generator: torch.Generator | None,
+                     device) -> torch.Tensor | None:
+        """The train-mode dropout mask of ``rows`` pooled feature rows (bool,
+        true where a feature is kept), drawn from ``generator``; None when
+        the model has no dropout."""
+        p = self.classifier[0].p
+        if p <= 0.0:
+            return None
+        width = self.classifier[1].in_features
+        return torch.rand((rows, width), device=device, generator=generator) < 1.0 - p
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        """fp32 logits. In train mode dropout keeps the features where
+        ``keep`` is true, or draws that mask from ``generator`` (the default
+        generator of the device when None) when ``keep`` is None."""
         y = self.features(x).mean(dim=(2, 3))  # global average pool, compute dtype
         p = self.classifier[0].p
         if self.training and p > 0.0:
-            keep = torch.rand(y.shape, device=y.device, generator=generator) < 1.0 - p
+            if keep is None:
+                keep = self.dropout_keep(y.shape[0], generator, y.device)
             y = torch.where(keep, y / (1.0 - p), torch.zeros_like(y))
         return self.classify(y)
 

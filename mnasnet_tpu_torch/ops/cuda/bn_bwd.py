@@ -15,6 +15,12 @@ once) where autograd of the same forward keeps y and more; the source note in
 ``csrc/bn_bwd.cu`` has the kernels' design. :func:`reduce_plan` plans the
 reduce's one launch, :func:`plan` the dx pass.
 
+Sync-BN (``replicas``, a :class:`~mnasnet_tpu_torch.parallel.Replicas`):
+the moments are those of the global batch, summed over the replicas
+(:func:`batch_moments`), and the backward sums the reduce's (2, C) output
+over them, in place, between its launch and the dx kernel's, which then
+divides by the global count (:func:`bn_bwd`). The kernels are the same.
+
 Each kernel wrapper runs its plain PyTorch version (``*_reference``) for a CPU
 tensor and launches its kernel for a CUDA tensor, or raises; nothing falls
 back from one to the other. A launch adds one to the wrapper's ``launches``.
@@ -30,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from mnasnet_tpu_torch.ops.cuda import _build
+from mnasnet_tpu_torch.parallel.dist import Replicas, all_reduce_sum, all_reduce_sum_, global_rows
 
 _DTYPES = (torch.bfloat16, torch.float32)
 STATS = ("one_pass", "two_pass")
@@ -54,15 +61,30 @@ FINISH_BYTES = 32 * 1024
 REDUCE_SMEM_LIMIT = 48 * 1024
 
 
-def batch_moments(x: torch.Tensor, stats: str) -> tuple[torch.Tensor, torch.Tensor]:
+def batch_moments(x: torch.Tensor, stats: str, replicas: Replicas | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 per-channel mean and biased variance of NHWC ``x`` (channels last).
 
     ``stats="one_pass"``: ``max(E[x²] − E[x]², 0)``; ``"two_pass"``:
-    ``E[(x − μ)²]`` (``mnasnet_tpu/models/layers.py:206-213``)."""
+    ``E[(x − μ)²]`` (``mnasnet_tpu/models/layers.py:206-213``). With
+    ``replicas`` the expectations run over the global batch: ``one_pass``
+    sums the (2, C) ``[Σx, Σx²]`` over the replicas in one collective,
+    ``two_pass`` sums Σx and then Σ(x − μ)², and both divide by the global
+    count (:func:`~mnasnet_tpu_torch.parallel.global_rows`). The sums are
+    differentiable (the backward sums the gradient over the replicas)."""
     if stats not in STATS:
         raise ValueError(f"unknown BN stats {stats!r}; choices: {STATS}")
     x32 = x.float()
     axes = tuple(range(x.dim() - 1))
+    if replicas is not None:
+        n = global_rows(x.numel() // x.shape[-1], replicas)
+        if stats == "one_pass":
+            s = all_reduce_sum(torch.stack([x32.sum(dim=axes), x32.square().sum(dim=axes)]),
+                               replicas) / n
+            mean = s[0]
+            return mean, torch.clamp_min(s[1] - mean.square(), 0.0)
+        mean = all_reduce_sum(x32.sum(dim=axes), replicas) / n
+        return mean, all_reduce_sum((x32 - mean).square().sum(dim=axes), replicas) / n
     mean = x32.mean(dim=axes)
     if stats == "one_pass":
         var = torch.clamp_min(x32.square().mean(dim=axes) - mean.square(), 0.0)
@@ -71,10 +93,10 @@ def batch_moments(x: torch.Tensor, stats: str) -> tuple[torch.Tensor, torch.Tens
     return mean, var
 
 
-def _fwd_math(x, gamma, beta, eps: float, stats: str):
+def _fwd_math(x, gamma, beta, eps: float, stats: str, replicas: Replicas | None = None):
     """``_fwd_math`` of ``bn_bwd.py:185``: factors in fp32, applied in x's
     dtype as two ops (one rounding after the multiply, one after the add)."""
-    mean, var = batch_moments(x, stats)
+    mean, var = batch_moments(x, stats, replicas)
     inv = gamma * torch.rsqrt(var + eps)
     shift = beta - mean * inv
     y = torch.relu(x * inv.to(x.dtype) + shift.to(x.dtype))
@@ -97,9 +119,9 @@ def bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta):
     return (g * xhat).sum(dim=axes), g.sum(dim=axes)
 
 
-def bn_bwd_dx_reference(x, dy, mean, inv, gamma, beta, dg, db):
+def bn_bwd_dx_reference(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None):
     """Plain PyTorch version of the dx kernel: dx in x's dtype."""
-    inv_n = 1.0 / (x.numel() // x.shape[-1])
+    inv_n = 1.0 / (n or x.numel() // x.shape[-1])
     xhat = (x.float() - mean) * inv
     g = dy.float() * relu_mask_reference(x, mean, inv, gamma, beta).float()
     dx = (gamma * inv) * (g - inv_n * db - xhat * (inv_n * dg))
@@ -273,6 +295,19 @@ def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan) -> torch.Tensor:
     return out
 
 
+def _reduce(x, dy, mean, inv, gamma, beta) -> torch.Tensor:
+    """The (2, C) fp32 sums (dγ, then dβ) of :func:`bn_bwd_reduce`, as one
+    tensor: the reference on the CPU, one counted launch on the card."""
+    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
+    if x.device.type == "cpu":
+        return torch.stack(bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta))
+    c = x.shape[-1]
+    p = reduce_plan(x.numel() // c, c, x.element_size(), alignment(x.data_ptr(), dy.data_ptr()))
+    out = launch_reduce(x, dy, mean, inv, gamma, beta, p)
+    bn_bwd_reduce.launches += 1
+    return out
+
+
 def bn_bwd_reduce(x, dy, mean, inv, gamma, beta) -> tuple[torch.Tensor, torch.Tensor]:
     """(dγ, dβ), fp32 (C,): ``Σ g·x̂`` and ``Σ g`` over N, H, W.
 
@@ -283,21 +318,16 @@ def bn_bwd_reduce(x, dy, mean, inv, gamma, beta) -> tuple[torch.Tensor, torch.Te
     views of one (2, C) tensor. The sums are the same from run to run: their
     order is fixed by the shape, and no float atomics.
     """
-    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
-    if x.device.type == "cpu":
-        return bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta)
-    c = x.shape[-1]
-    p = reduce_plan(x.numel() // c, c, x.element_size(), alignment(x.data_ptr(), dy.data_ptr()))
-    dg, db = launch_reduce(x, dy, mean, inv, gamma, beta, p).unbind()
-    bn_bwd_reduce.launches += 1
+    dg, db = _reduce(x, dy, mean, inv, gamma, beta).unbind()
     return dg, db
 
 
 bn_bwd_reduce.launches = 0
 
 
-def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db) -> torch.Tensor:
-    """dx = γ·inv·(g − dβ/n − x̂·dγ/n) in x's dtype, n = N·H·W.
+def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None) -> torch.Tensor:
+    """dx = γ·inv·(g − dβ/n − x̂·dγ/n) in x's dtype, n = N·H·W unless given
+    (sync-BN: the count over all replicas, with dγ and dβ their sums).
 
     The inputs of :func:`bn_bwd_reduce` plus its (dγ, dβ). A CPU tensor
     takes :func:`bn_bwd_dx_reference`; a CUDA tensor launches the kernel
@@ -305,10 +335,12 @@ def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db) -> torch.Tensor:
     """
     vecs = (mean, inv, gamma, beta, dg, db)
     _check("bn_bwd_dx", x, dy, vecs)
+    if n is not None and n <= 0:
+        raise ValueError(f"bn_bwd_dx needs a positive count, got n={n}")
     if x.device.type == "cpu":
-        return bn_bwd_dx_reference(x, dy, *vecs)
-    n, h, w, c = x.shape
-    m = n * h * w
+        return bn_bwd_dx_reference(x, dy, *vecs, n)
+    c = x.shape[-1]
+    m = x.numel() // c
     tp, r, slabs = plan(m, c)
     dev = x.device
     v32 = _f32(vecs, dev)
@@ -318,7 +350,7 @@ def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bn_bwd_dx(
             x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in v32), dx.data_ptr(),
-            m, c, 1.0 / m, tp, r, slabs, int(x.dtype == torch.bfloat16), stream)
+            m, c, 1.0 / (n or m), tp, r, slabs, int(x.dtype == torch.bfloat16), stream)
     _build.check(err, "bn_bwd_dx")
     bn_bwd_dx.launches += 1
     return dx
@@ -327,39 +359,55 @@ def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db) -> torch.Tensor:
 bn_bwd_dx.launches = 0
 
 
-def bn_bwd(x, dy, mean, var, gamma, beta, eps: float):
+def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None = None):
     """(dx, dγ, dβ) of y = relu((x − mean)·rsqrt(var + eps)·γ + β), mean and
-    var the batch statistics of x (``_bn_bwd_pallas``, ``bn_bwd.py:129``)."""
+    var the batch statistics of x (``_bn_bwd_pallas``, ``bn_bwd.py:129``).
+
+    With ``replicas`` (sync-BN: mean and var are the global batch's) the
+    reduce's (2, C) output is summed over the replicas in place, one
+    collective, before the dx kernel runs with those global sums and the
+    global count. The dγ and dβ returned are this replica's own sums, the
+    gradient of its share of the loss, as for any other parameter: the step
+    sums the gradients over the replicas."""
     inv = torch.rsqrt(var + eps)  # the forward's own rsqrt(var + eps)
     dy = dy.to(x.dtype).contiguous()
-    dg, db = bn_bwd_reduce(x, dy, mean, inv, gamma, beta)
-    dx = bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db)
+    sums = _reduce(x, dy, mean, inv, gamma, beta)
+    own, n = sums, None
+    if replicas is not None:
+        own = sums.clone()
+        all_reduce_sum_([sums], replicas)
+        n = global_rows(x.numel() // x.shape[-1], replicas)
+    dx = bn_bwd_dx(x, dy, mean, inv, gamma, beta, *sums.unbind(), n)
+    dg, db = own.unbind()
     return dx, dg.to(gamma.dtype), db.to(beta.dtype)
 
 
 class _BNReluTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, stats):
+    def forward(ctx, x, gamma, beta, eps, stats, replicas):
         x = x.contiguous()
-        y, mean, var = _fwd_math(x, gamma, beta, eps, stats)
+        y, mean, var = _fwd_math(x, gamma, beta, eps, stats, replicas)
         ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.eps = eps
+        ctx.replicas = replicas
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, gamma, beta, mean, var = ctx.saved_tensors
-        dx, dgamma, dbeta = bn_bwd(x, dy, mean, var, gamma, beta, ctx.eps)
-        return dx, dgamma, dbeta, None, None
+        dx, dgamma, dbeta = bn_bwd(x, dy, mean, var, gamma, beta, ctx.eps, ctx.replicas)
+        return dx, dgamma, dbeta, None, None, None
 
 
 def bn_relu_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                  eps: float = 1e-5, stats: str = "one_pass"):
+                  eps: float = 1e-5, stats: str = "one_pass",
+                  replicas: Replicas | None = None):
     """Training-mode BN (batch statistics) + ReLU with the region backward.
 
     x (N, H, W, C) NHWC in the compute dtype; gamma, beta (C,) fp32. Returns
     (y, mean, biased_var); the caller applies the EMA and Bessel's correction
     to the statistics (``models/layers.py``, ``BatchNorm.relu_train_region``).
+    ``replicas``: sync-BN over them (:func:`batch_moments`, :func:`bn_bwd`).
     """
-    return _BNReluTrain.apply(x, gamma, beta, eps, stats)
+    return _BNReluTrain.apply(x, gamma, beta, eps, stats, replicas)

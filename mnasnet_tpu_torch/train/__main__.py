@@ -1,15 +1,23 @@
-"""ImageNet training CLI of the PyTorch port: the root ``train.py`` on one GPU.
+"""ImageNet training CLI of the PyTorch port: the root ``train.py``.
 
     python -m mnasnet_tpu_torch.train DATA_DIR --arch mnasnet1_0 --batch-size 256 ...
     python -m mnasnet_tpu_torch.train --synthetic --arch mnasnet0_5 --image-size 64 ...
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m mnasnet_tpu_torch.train DATA_DIR --batch-size 1024 ...
 
 The flags, defaults and printed lines are the root ``train.py``'s, plus
 ``--device`` (default ``cuda``; ``--device cpu`` trains on the CPU with the
 kernels' plain versions). ``--fused-kernels`` takes ``auto|kernel|torch``
 and the reference's spellings (``pallas`` = ``kernel``, ``xla`` = ``torch``);
-it routes both the depthwise convs and the BN+ReLU backward. Flags whose
-modules are not ported (multi-process and multi-GPU training, local BN,
-multi-slice meshes, rematerialisation, the XLA compilation cache) exit
+it routes both the depthwise convs and the BN+ReLU backward.
+
+Data parallelism: one process per GPU, launched by ``torchrun`` (its
+environment is read) or by hand with ``--dist-url URL --world-size W --rank
+R`` on each process; ``--batch-size`` is the global batch and each replica
+takes ``--batch-size / W`` of it from its shard of the data. Sync-BN is the
+default and ``--no-sync-bn`` keeps per-replica statistics. Rank 0 prints and
+writes the checkpoints; every rank prints its own decoder-fallback count.
+``--remat`` and ``--compilation-cache``, whose modules are not ported, exit
 non-zero and say so.
 """
 
@@ -49,14 +57,17 @@ def parse_args(argv=None):
                         "--pretrained (reference boolean form) looks for "
                         "$MNASNET_PRETRAINED_DIR/<arch>.pth")
     p.add_argument("--seed", type=int, default=None)
-    # Reference CLI compatibility: one process on one GPU is all that is
-    # ported, so these only validate.
     p.add_argument("--world-size", type=int, default=-1,
-                   help="[compat] -1 or 1: multi-process training is not ported")
-    p.add_argument("--rank", type=int, default=-1, help="[compat] -1 or 0")
+                   help="number of processes; with --dist-url the processes to start the "
+                        "group with, else checked against torchrun's (-1: any)")
+    p.add_argument("--rank", type=int, default=-1,
+                   help="this process's rank; with --dist-url required, else checked "
+                        "against torchrun's (-1: any)")
     p.add_argument("--dist-url", default=None,
-                   help="[compat] only meaningful with --world-size > 1 (not ported)")
-    p.add_argument("--dist-backend", default="nccl", help="[compat] ignored")
+                   help="rendezvous of the process group (tcp://host:port, file:///path, "
+                        "env://) when not launched by torchrun; needs --world-size > 1")
+    p.add_argument("--dist-backend", default=None,
+                   help="nccl (default on a GPU) or gloo (default on the CPU)")
     p.add_argument("--gpu", type=int, default=None, help="[compat] ignored; see --device")
     p.add_argument("--multiprocessing-distributed", action="store_true",
                    help="[compat] ignored")
@@ -103,10 +114,12 @@ def parse_args(argv=None):
     p.add_argument("--save-freq-steps", type=int, default=0,
                    help="also checkpoint every N steps (0 = epoch-only)")
     p.add_argument("--mesh-dcn", type=int, default=1,
-                   help="not ported (multi-node): values > 1 exit non-zero")
+                   help="nodes (slices) of a multi-node run; must divide the world size and "
+                        "needs sync-BN. NCCL reduces within a node before it crosses "
+                        "nodes, so it adds no code path")
     p.add_argument("--sync-bn", action=argparse.BooleanOptionalAction, default=True,
-                   help="global BN statistics (on one GPU: the batch's); --no-sync-bn "
-                        "(per-replica BN) is not ported and exits non-zero")
+                   help="global BN statistics over all replicas (default); --no-sync-bn "
+                        "normalises each replica with its own shard's statistics")
     p.add_argument("--scale-lr", action=argparse.BooleanOptionalAction, default=None,
                    help="linear batch-size LR scaling (lr * batch/256); default: applied "
                         "only to the optimizer-default LR, never to an explicit --lr")
@@ -154,13 +167,6 @@ def refuse_unported(args) -> None:
     """Exit non-zero, naming the missing module, for a flag whose module is
     not ported yet; never ignore one silently."""
     missing = []
-    if args.world_size not in (-1, 1) or args.rank not in (-1, 0):
-        missing.append(f"--world-size {args.world_size} / --rank {args.rank}: multi-process "
-                       "training (DDP over NCCL, the sharded loader)")
-    if not args.sync_bn:
-        missing.append("--no-sync-bn: per-replica BN (make_local_bn_train_step)")
-    if args.mesh_dcn > 1:
-        missing.append(f"--mesh-dcn {args.mesh_dcn}: multi-node data parallelism")
     if args.remat:
         missing.append("--remat: rematerialised MBConv blocks")
     if args.compilation_cache is not None:
@@ -168,6 +174,36 @@ def refuse_unported(args) -> None:
                        "in the port yet")
     if missing:
         raise SystemExit("not ported yet in mnasnet_tpu_torch: " + "; ".join(missing))
+
+
+def check_topology(args, world: int) -> None:
+    """The reference's refusals of a data-parallel layout (``train.py:424-430``)
+    at world size ``world``: ``--mesh-dcn`` needs sync-BN and must divide the
+    world; ``--grad-accum`` already uses per-microbatch BN statistics and is
+    refused with ``--no-sync-bn``; the global batch must split evenly."""
+    if args.mesh_dcn < 1:
+        raise SystemExit(f"--mesh-dcn {args.mesh_dcn} invalid (>= 1)")
+    if args.mesh_dcn > 1 and not args.sync_bn:
+        raise SystemExit("--mesh-dcn requires --sync-bn (local BN shards only over the "
+                         "replicas of one node)")
+    if args.grad_accum > 1 and not args.sync_bn:
+        raise SystemExit("--grad-accum already uses per-microbatch BN; drop --no-sync-bn")
+    if world % args.mesh_dcn:
+        raise SystemExit(f"--mesh-dcn {args.mesh_dcn} does not divide the world size {world}")
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} (the global batch) does not split "
+                         f"over {world} processes")
+
+
+def check_world(args, replicas) -> None:
+    """``--world-size`` and ``--rank`` against the process group, as
+    ``train.py:310-317`` checks them against JAX's processes."""
+    world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
+    if args.world_size not in (-1, world):
+        raise SystemExit(f"--world-size {args.world_size} != the process group's {world}; "
+                         "launch with torchrun, or give every process --dist-url and --rank")
+    if args.rank not in (-1, rank):
+        raise SystemExit(f"--rank {args.rank} != this process's rank {rank} in the group")
 
 
 def _check_preempt_meta(pre_dir: str, spe: int) -> None:
@@ -213,38 +249,64 @@ def _set_deterministic(device) -> None:
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
+    # The layout as declared, before any process joins a group.
+    declared = args.world_size if args.world_size > 0 else int(os.environ.get("WORLD_SIZE", 1))
+    check_topology(args, declared)
 
     import torch
 
     from mnasnet_tpu_torch.models.mnasnet import resolve_device
+    from mnasnet_tpu_torch.parallel import close, init_distributed
 
     device = resolve_device(args.device)
+    try:
+        replicas = init_distributed(args.dist_url, args.world_size, args.rank,
+                                    args.dist_backend, device)
+    except ValueError as e:  # a layout the flags leave incomplete
+        raise SystemExit(str(e)) from e
     prev_deterministic = torch.are_deterministic_algorithms_enabled()
     prev_benchmark = torch.backends.cudnn.benchmark
     prev_sigterm = signal.getsignal(signal.SIGTERM)
     try:
+        check_world(args, replicas)
+        if replicas is not None:
+            check_topology(args, replicas.world)
+            device = replicas.device
         if args.deterministic:
             _set_deterministic(device)
-        _train(args, device)
+        _train(args, device, replicas)
     finally:
         torch.use_deterministic_algorithms(prev_deterministic)
         torch.backends.cudnn.benchmark = prev_benchmark
         signal.signal(signal.SIGTERM, prev_sigterm)
+        close(replicas)
 
 
-def _train(args, device):
+def _train(args, device, replicas):
     import torch
 
     from mnasnet_tpu_torch import create_model
     from mnasnet_tpu_torch.data.dataset import ImageFolderDataset, SyntheticDataset
     from mnasnet_tpu_torch.data.pipeline import DataLoader
     from mnasnet_tpu_torch.data.transforms import eval_transform, train_transform
+    from mnasnet_tpu_torch.parallel import ReplicaMismatch, broadcast_seed, broadcast_state_
     from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
     from mnasnet_tpu_torch.train.optim import create_optimizer, get_ema_params
     from mnasnet_tpu_torch.train.schedules import make_schedule, scale_lr_for_batch
     from mnasnet_tpu_torch.train.trainer import Trainer, swapped_params
 
+    world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
+    is_main = rank == 0
+
+    def say(*a, **kw):
+        """print on rank 0 only: every replica runs the same run."""
+        if is_main:
+            print(*a, **kw)
+
     seed = args.seed if args.seed is not None else int(time.time()) % (2**31)
+    # Processes can read different seconds; the shuffle, the augmentation
+    # and the dropout masks need one seed everywhere.
+    seed = broadcast_seed(seed, replicas)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     impl = CLI_IMPLS[args.fused_kernels]
     model = create_model(
@@ -279,19 +341,22 @@ def _train(args, device):
             def val_bytes_tf(data):
                 return native_decoder.decode_eval(data, args.image_size, fast=fast)
         else:
-            print("warning: native decoder unavailable, using PIL "
-                  f"({native_decoder.unavailable_reason})", flush=True)
+            say("warning: native decoder unavailable, using PIL "
+                f"({native_decoder.unavailable_reason})", flush=True)
 
+    # --batch-size is the global batch (train.py:362): each replica loads its
+    # shard's share of it.
+    host_batch = args.batch_size // world
     train_loader = DataLoader(
-        train_ds, args.batch_size,
+        train_ds, host_batch,
         lambda img, rng: train_transform(img, args.image_size, rng),
         shuffle=True, drop_last=True, seed=seed, workers=args.workers,
-        bytes_transform=train_bytes_tf,
+        shard_id=rank, num_shards=world, bytes_transform=train_bytes_tf,
     )
     val_loader = DataLoader(
-        val_ds, args.batch_size, lambda img: eval_transform(img, args.image_size),
+        val_ds, host_batch, lambda img: eval_transform(img, args.image_size),
         shuffle=False, drop_last=False, seed=seed, workers=args.workers, augment=False,
-        bytes_transform=val_bytes_tf,
+        shard_id=rank, num_shards=world, bytes_transform=val_bytes_tf,
     )
 
     # ---- optimizer + schedule --------------------------------------------
@@ -312,8 +377,8 @@ def _train(args, device):
         from mnasnet_tpu_torch.train.optim import backbone_frozen_mask
 
         frozen_mask = backbone_frozen_mask
-        print("=> --freeze-backbone: only the classifier head trains "
-              "(BN running stats still update)")
+        say("=> --freeze-backbone: only the classifier head trains "
+            "(BN running stats still update)")
     tx = create_optimizer(
         args.optimizer, schedule, momentum=args.momentum, weight_decay=args.weight_decay,
         fused="small" if args.fused_updates else False,
@@ -321,13 +386,13 @@ def _train(args, device):
     )
 
     writer = None
-    if args.tensorboard:
+    if args.tensorboard and is_main:
         from torch.utils.tensorboard import SummaryWriter
 
         writer = SummaryWriter(args.tensorboard)
 
     step_tracer = None
-    if args.profile_steps:
+    if args.profile_steps and is_main:
         from mnasnet_tpu_torch.utils.profiling import StepTracer, parse_profile_steps
 
         lo, hi = parse_profile_steps(args.profile_steps)
@@ -337,8 +402,8 @@ def _train(args, device):
         if not args.fused_updates:
             raise SystemExit("--grad-accum requires --fused-updates "
                              "(external BN EMA: one EMA per optimizer update)")
-        if args.batch_size % args.grad_accum:
-            raise SystemExit(f"--batch-size {args.batch_size} not divisible "
+        if host_batch % args.grad_accum:
+            raise SystemExit(f"the per-process batch {host_batch} not divisible "
                              f"by --grad-accum {args.grad_accum}")
     elif args.grad_accum == 0:
         # Auto. The reference accumulates only on a TPU, where it measured a
@@ -348,6 +413,16 @@ def _train(args, device):
     elif args.grad_accum < 0:
         raise SystemExit(f"--grad-accum {args.grad_accum} invalid (0 = auto, >=1 explicit)")
 
+    trainer = Trainer(
+        model, tx, device=device, label_smoothing=args.label_smoothing, compute_dtype=dtype,
+        schedule=schedule, print_freq=args.print_freq, writer=writer,
+        step_tracer=step_tracer, grad_accum=args.grad_accum, replicas=replicas,
+        sync_bn=args.sync_bn,
+    )
+    # Before the pretrained load, as train.py:460,502-505: the load replaces
+    # the weights and BN statistics only, so a model-EMA shadow starts from
+    # the init.
+    state = trainer.create_state(seed)
     if args.pretrained:
         from mnasnet_tpu_torch.pretrained import load_state_dict_file, load_weights
 
@@ -367,26 +442,21 @@ def _train(args, device):
         except ValueError as e:
             raise SystemExit(f"--pretrained: {e}")
         if ckpt_classes != args.num_classes:
-            print(f"=> checkpoint classifier has {ckpt_classes} classes, model has "
-                  f"{args.num_classes}: transfer-learning load (backbone from checkpoint, "
-                  "classifier freshly initialized)")
-        print(f"=> loaded pretrained weights from {args.pretrained}")
+            say(f"=> checkpoint classifier has {ckpt_classes} classes, model has "
+                f"{args.num_classes}: transfer-learning load (backbone from checkpoint, "
+                "classifier freshly initialized)")
+        say(f"=> loaded pretrained weights from {args.pretrained}")
 
-    trainer = Trainer(
-        model, tx, device=device, label_smoothing=args.label_smoothing, compute_dtype=dtype,
-        schedule=schedule, print_freq=args.print_freq, writer=writer,
-        step_tracer=step_tracer, grad_accum=args.grad_accum,
-    )
-    # After the pretrained load, so that a model-EMA shadow starts from the
-    # loaded weights.
-    state = trainer.create_state(seed)
+    # Every replica starts from rank 0's state (a --pretrained file read on
+    # each rank, the init from the shared seed).
+    broadcast_state_(model, tx, replicas)
 
-    mgr = CheckpointManager(os.path.abspath(args.output_dir))
+    mgr = CheckpointManager(os.path.abspath(args.output_dir), replicas=replicas)
     best_acc1, start_epoch, start_step = 0.0, args.start_epoch, 0
     restored_any = False
     if args.resume:
         rmgr = (mgr if os.path.abspath(args.resume) == os.path.abspath(args.output_dir)
-                else CheckpointManager(os.path.abspath(args.resume)))
+                else CheckpointManager(os.path.abspath(args.resume), replicas=replicas))
         try:
             start_epoch, best_acc1 = rmgr.restore(model, tx, state)
             restored_any = True
@@ -395,6 +465,8 @@ def _train(args, device):
             # its first epoch (only preempt/ exists); the check below still
             # refuses when preempt/ is missing too.
             pass
+        except ReplicaMismatch:
+            raise
         except (ValueError, KeyError, RuntimeError) as e:
             raise SystemExit(
                 f"--resume: checkpoint structure does not match the current flags "
@@ -402,14 +474,15 @@ def _train(args, device):
                 f"{args.model_ema}, freeze-backbone={args.freeze_backbone}). Re-run with "
                 f"the flags the checkpoint was written with. Original error: {e}") from e
         else:
-            print(f"=> resumed from epoch {start_epoch - 1} (best acc1 {best_acc1:.3f})")
+            say(f"=> resumed from epoch {start_epoch - 1} (best acc1 {best_acc1:.3f})")
         # A preemption checkpoint newer than the last completed epoch wins:
         # resume mid-epoch at the exact step (the loader skips the consumed
         # batches without decoding them).
         pre_dir = os.path.join(os.path.abspath(args.resume), "preempt")
         if os.path.isdir(pre_dir):
             spe = train_loader.steps_per_epoch()
-            pmgr = CheckpointManager(pre_dir, max_to_keep=1, track_best=False)
+            pmgr = CheckpointManager(pre_dir, max_to_keep=1, track_best=False,
+                                     replicas=replicas)
             gstep = pmgr.latest_epoch()  # key = next global step to run
             # >= (not >): a preemption before the first step writes key 0.
             # Mid-epoch keys have gstep % spe != 0, so a stale entry from an
@@ -420,8 +493,8 @@ def _train(args, device):
                 _, best_acc1 = pmgr.restore(model, tx, state, epoch=gstep)
                 restored_any = True
                 start_epoch, start_step = divmod(gstep, spe)
-                print(f"=> resumed from preemption checkpoint: epoch {start_epoch} "
-                      f"step {start_step} (global step {gstep})")
+                say(f"=> resumed from preemption checkpoint: epoch {start_epoch} "
+                    f"step {start_step} (global step {gstep})")
         if not restored_any:
             raise SystemExit(
                 f"--resume {args.resume}: no checkpoint found (neither an epoch checkpoint "
@@ -446,7 +519,7 @@ def _train(args, device):
     step_cb, step_mgr = None, None
     if args.save_freq_steps > 0:
         step_mgr = CheckpointManager(os.path.abspath(os.path.join(args.output_dir, "steps")),
-                                     max_to_keep=2, track_best=False)
+                                     max_to_keep=2, track_best=False, replicas=replicas)
 
         def step_cb(state, global_step):
             step_mgr.save(global_step, model, tx, state, acc1=0.0, best_acc1=best_acc1)
@@ -464,25 +537,27 @@ def _train(args, device):
                 # Write the normal epoch checkpoint and skip validation (the
                 # grace window is for saving, not scoring).
                 mgr.save(epoch, model, tx, state, acc1=0.0, best_acc1=best_acc1, wait=True)
-                print(f"=> preempted at the epoch-{epoch} boundary; epoch checkpoint "
-                      f"saved (validate skipped). Continue with: --resume {args.output_dir}",
-                      flush=True)
+                say(f"=> preempted at the epoch-{epoch} boundary; epoch checkpoint "
+                    f"saved (validate skipped). Continue with: --resume {args.output_dir}",
+                    flush=True)
             else:
                 # Keyed by the next global step to run.
                 pdir = os.path.join(os.path.abspath(args.output_dir), "preempt")
-                pmgr = CheckpointManager(pdir, max_to_keep=1, track_best=False)
+                pmgr = CheckpointManager(pdir, max_to_keep=1, track_best=False,
+                                         replicas=replicas)
                 pmgr.save(trainer.next_global_step, model, tx, state, acc1=0.0,
                           best_acc1=best_acc1, wait=True)
-                # Pins steps_per_epoch, so that a mid-epoch resume with another
-                # batch size or dataset is refused. Written to a temporary file
-                # and renamed: a kill mid-write leaves no torn meta.json.
-                meta_path = os.path.join(pdir, "meta.json")
-                with open(meta_path + ".tmp", "w") as f:
-                    json.dump({"steps_per_epoch": spe, "global_batch": args.batch_size}, f)
-                os.replace(meta_path + ".tmp", meta_path)
-                print(f"=> preempted at global step {trainer.next_global_step}; checkpoint "
-                      f"saved to {pdir}. Continue with: --resume {args.output_dir}",
-                      flush=True)
+                if is_main:
+                    # Pins steps_per_epoch, so that a mid-epoch resume with another
+                    # batch size or dataset is refused. Written to a temporary file
+                    # and renamed: a kill mid-write leaves no torn meta.json.
+                    meta_path = os.path.join(pdir, "meta.json")
+                    with open(meta_path + ".tmp", "w") as f:
+                        json.dump({"steps_per_epoch": spe, "global_batch": args.batch_size}, f)
+                    os.replace(meta_path + ".tmp", meta_path)
+                say(f"=> preempted at global step {trainer.next_global_step}; checkpoint "
+                    f"saved to {pdir}. Continue with: --resume {args.output_dir}",
+                    flush=True)
             break
         acc1, acc5, _ = trainer.validate(state, val_loader)
         ema_note = ""
@@ -496,15 +571,15 @@ def _train(args, device):
         is_best = acc1 > best_acc1
         best_acc1 = max(acc1, best_acc1)
         mgr.save(epoch, model, tx, state, acc1, best_acc1, is_best=is_best)
-        print(f"epoch {epoch}: acc1={acc1:.3f}{ema_note} acc5={acc5:.3f} "
-              f"best={best_acc1:.3f}{' *' if is_best else ''} "
-              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        say(f"epoch {epoch}: acc1={acc1:.3f}{ema_note} acc5={acc5:.3f} "
+            f"best={best_acc1:.3f}{' *' if is_best else ''} "
+            f"({time.perf_counter() - t0:.1f}s)", flush=True)
         # The exact decoder-fallback counts (the per-image warning only
-        # samples occurrences).
+        # samples occurrences), by every rank: each decodes its own shard.
         fb = train_loader.fallback_count + val_loader.fallback_count
         if fb:
-            print(f"[rank 0] decoder-fallbacks: {fb} (train {train_loader.fallback_count}, "
-                  f"val {val_loader.fallback_count})", flush=True)
+            print(f"[rank {rank}] decoder-fallbacks: {fb} (train "
+                  f"{train_loader.fallback_count}, val {val_loader.fallback_count})", flush=True)
     if args.bn_recalibrate and not trainer.stopped_early:
         # Exact running-stat refresh with frozen weights, then re-validate and
         # save as the post-training checkpoint (key = --epochs, one past the
@@ -517,14 +592,14 @@ def _train(args, device):
         ema = get_ema_params(tx) if args.model_ema else None
         with swapped_params(model, ema):
             recalibrate_bn(model, train_loader, num_batches=args.bn_recalibrate,
-                           compute_dtype=dtype)
+                           compute_dtype=dtype, verbose=is_main, replicas=replicas)
             acc1, acc5, _ = trainer.validate(state, val_loader)
         ema_note = " (ema weights, ema-paired stats)" if ema is not None else ""
         is_best = acc1 > best_acc1
         best_acc1 = max(acc1, best_acc1)
         mgr.save(args.epochs, model, tx, state, acc1, best_acc1, is_best=is_best)
-        print(f"bn-recalibrated: acc1={acc1:.3f}{ema_note} acc5={acc5:.3f} "
-              f"best={best_acc1:.3f}{' *' if is_best else ''}", flush=True)
+        say(f"bn-recalibrated: acc1={acc1:.3f}{ema_note} acc5={acc5:.3f} "
+            f"best={best_acc1:.3f}{' *' if is_best else ''}", flush=True)
     # Shared shutdown for the normal end and the preemption break.
     mgr.wait()
     if step_mgr is not None:

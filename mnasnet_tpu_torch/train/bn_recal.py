@@ -20,6 +20,12 @@ from re-correcting over N*n elements).
 Feed it a ``drop_last`` loader: a padded tail batch would fold its
 wrap-padding duplicates into the statistics, and BN has no validity mask.
 :func:`recalibrate_bn` refuses other loaders.
+
+Replicas: the per-batch moments are those of the global batch, over every
+replica's shard, in both BN modes of training, as the reference's recal is a
+program over the whole mesh (``mnasnet_tpu/train/bn_recal.py:13,117-141``):
+the BatchNorms hold the replica handle for the pass, so every replica pools
+the same statistics.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch
 from torch import nn
 
 from mnasnet_tpu_torch.data.pipeline import prefetch_to_device
-from mnasnet_tpu_torch.models.layers import BatchNorm
+from mnasnet_tpu_torch.models.layers import BatchNorm, set_replicas
+from mnasnet_tpu_torch.parallel.dist import Replicas
 
 
 def _combine(sum_s: dict, sum_sq: dict, n: int) -> dict:
@@ -82,11 +89,14 @@ def make_recal_step(model: nn.Module):
 
 
 def recalibrate_bn(model: nn.Module, loader, *, num_batches: Optional[int] = None,
-                   compute_dtype: torch.dtype = torch.float32, verbose: bool = True) -> dict:
+                   compute_dtype: torch.dtype = torch.float32, verbose: bool = True,
+                   replicas: Optional[Replicas] = None) -> dict:
     """Replace the model's BN running statistics with exact pooled statistics
     over ``loader`` (at most ``num_batches`` batches; None = one epoch).
     Weights are untouched, and so is ``num_batches_tracked``. Returns the new
-    statistics by buffer name; they are also in the model."""
+    statistics by buffer name; they are also in the model. With
+    ``replicas`` the loader is this replica's shard and each batch's moments
+    are the global batch's; the BatchNorms' own handle is restored after."""
     if not getattr(loader, "drop_last", True):
         raise ValueError(
             "recalibrate_bn needs a drop_last loader: a wrap-padded tail batch would fold "
@@ -99,15 +109,20 @@ def recalibrate_bn(model: nn.Module, loader, *, num_batches: Optional[int] = Non
     sum_s: dict = {}
     sum_sq: dict = {}
     n = 0
-    for images, _labels in prefetch_to_device(loader.epoch(0), device=dev, dtype=compute_dtype):
-        raw = step(images)
-        for name, v in raw.items():
-            sum_s[name] = sum_s[name] + v if name in sum_s else v
-            if name.endswith("running_mean"):
-                sum_sq[name] = sum_sq[name] + v * v if name in sum_sq else v * v
-        n += 1
-        if num_batches is not None and n >= num_batches:
-            break
+    own = set_replicas(model, replicas)
+    try:
+        for images, _labels in prefetch_to_device(loader.epoch(0), device=dev,
+                                                  dtype=compute_dtype):
+            raw = step(images)
+            for name, v in raw.items():
+                sum_s[name] = sum_s[name] + v if name in sum_s else v
+                if name.endswith("running_mean"):
+                    sum_sq[name] = sum_sq[name] + v * v if name in sum_sq else v * v
+            n += 1
+            if num_batches is not None and n >= num_batches:
+                break
+    finally:
+        set_replicas(model, own)
     if n == 0:
         raise ValueError("recalibrate_bn: loader yielded no batches")
     new_stats = _combine(sum_s, sum_sq, n)

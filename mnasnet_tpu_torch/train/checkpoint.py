@@ -20,6 +20,13 @@ Two retention policies, kept apart as in the reference:
 One manager keeping the best N would resume an interrupted run from an old
 high-water mark instead of its latest epoch. Saves are synchronous;
 ``wait`` and ``close`` exist for the reference's interface.
+
+Replicas (``replicas``): the state is the same on every replica, so rank 0
+alone writes, and every rank waits at a barrier after each save, so that no
+rank reads or deletes a key before it is complete. Every rank restores from
+the shared directory, and the restored state is then checked against rank
+0's by a broadcast. The files do not depend on the world size: a checkpoint
+written by W replicas restores at any other W.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mnasnet_tpu_torch.parallel.dist import Replicas, assert_replicated, barrier, state_tensors
 from mnasnet_tpu_torch.train.state import TrainState
 
 FILE = "checkpoint.pt"
@@ -51,9 +59,11 @@ def find_ema_params(opt_state: dict) -> Optional[dict]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3, track_best: bool = True):
+    def __init__(self, directory: str, max_to_keep: int = 3, track_best: bool = True,
+                 replicas: Optional[Replicas] = None):
         self.directory = directory
         self.max_to_keep = max_to_keep
+        self.replicas = replicas
         self._best = (CheckpointManager(os.path.join(directory, "best"), 1, track_best=False)
                       if track_best else None)
 
@@ -91,16 +101,20 @@ class CheckpointManager:
     # --------------------------------------------------------------- save
     def save(self, epoch: int, model: nn.Module, tx, state: TrainState, acc1: float,
              best_acc1: float, wait: bool = False, is_best: bool = False) -> None:
-        """Save under key ``epoch``; also as ``best/`` when ``is_best``."""
-        payload = {
-            "model": _cpu(model.state_dict()),
-            "optimizer": tx.state_dict(),
-            "train_state": state.state_dict(),
-            "meta": {"epoch": int(epoch), "best_acc1": float(best_acc1), "acc1": float(acc1)},
-        }
-        self._write(epoch, payload)
-        if is_best and self._best is not None:
-            self._best._write(epoch, payload)
+        """Save under key ``epoch``; also as ``best/`` when ``is_best``. With
+        replicas rank 0 writes and every rank returns after the write."""
+        if self.replicas is None or self.replicas.rank == 0:
+            payload = {
+                "model": _cpu(model.state_dict()),
+                "optimizer": tx.state_dict(),
+                "train_state": state.state_dict(),
+                "meta": {"epoch": int(epoch), "best_acc1": float(best_acc1),
+                         "acc1": float(acc1)},
+            }
+            self._write(epoch, payload)
+            if is_best and self._best is not None:
+                self._best._write(epoch, payload)
+        barrier(self.replicas)
 
     # ------------------------------------------------------------ restore
     def _load(self, epoch: Optional[int], best: bool) -> dict:
@@ -125,6 +139,8 @@ class CheckpointManager:
         model.load_state_dict(payload["model"], strict=True)
         tx.load_state_dict(payload["optimizer"])
         state.load_state_dict(payload["train_state"])
+        assert_replicated([*state_tensors(model, tx), torch.tensor(state.step),
+                           state.generator.get_state()], self.replicas, "the restored state")
         meta = payload["meta"]
         return meta["epoch"] + 1, meta["best_acc1"]
 

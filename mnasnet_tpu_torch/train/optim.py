@@ -113,6 +113,12 @@ class _Transform:
             out["inner"] = self.inner.state_dict()
         return out
 
+    def tensors(self) -> list[torch.Tensor]:
+        """The bound state's tensors, this transformation's and its inner
+        one's: what a data-parallel replica copies from rank 0."""
+        out = [t for f in self._TENSORS for t in getattr(self, f).values()]
+        return out + (self.inner.tensors() if hasattr(self, "inner") else [])
+
     def load_state_dict(self, state: Mapping) -> None:
         """Copy a :meth:`state_dict` into the bound state, in place (the
         tensors stay on the parameters' device); raises if a field or a

@@ -1,13 +1,22 @@
 """Train, eval and predict steps. Counterpart of ``mnasnet_tpu/train/steps.py``
-(``make_train_step`` with its grad-accumulation form, ``fused_ema_stats``,
-``auto_grad_accum``, ``make_eval_step``, ``make_predict_fn``).
+(``make_train_step`` with its grad-accumulation form,
+``make_local_bn_train_step``, ``fused_ema_stats``, ``auto_grad_accum``,
+``make_eval_step``, ``make_predict_fn``).
 
 A PyTorch module owns its parameters and BN statistics and the optimizer its
 state, so the returned functions take the images (and labels) only, plus the
 :class:`~mnasnet_tpu_torch.train.state.TrainState` for training. Images are
 NHWC, as the JAX package takes them (a batch of ``eval_transform`` outputs);
 they go to the model's device and into NCHW channels_last without a copy.
-``make_local_bn_train_step`` (per-replica BN across GPUs) is not ported.
+
+Data parallelism: with a :class:`~mnasnet_tpu_torch.parallel.Replicas`
+handle each process passes its shard of the global batch, the same shape on
+every replica, and holds a full replica of the state. The reference writes
+its step as global-batch math and lets GSPMD shard it (``steps.py:1-8``);
+here the step makes the collectives itself, and every replica makes the same
+update. The dropout mask of a step is drawn once for the whole global batch
+(from the generator every replica holds in the same state) and each shard,
+and each microbatch, takes its rows.
 """
 
 from __future__ import annotations
@@ -18,6 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from mnasnet_tpu_torch.models.layers import BatchNorm, replicas_of
+from mnasnet_tpu_torch.ops.depthwise import resolve_impl
+from mnasnet_tpu_torch.parallel.dist import Replicas, all_reduce_max_, all_reduce_sum_
 from mnasnet_tpu_torch.train.loss import cross_entropy, topk_correct
 from mnasnet_tpu_torch.train.state import TrainState
 
@@ -57,6 +69,12 @@ def _flat(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tensors])
 
 
+def _unflat_(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
+    with torch.no_grad():
+        torch._foreach_copy_(tensors, [t.view_as(s) for t, s in
+                                       zip(flat.split([s.numel() for s in tensors]), tensors)])
+
+
 def _ema_outside(model: nn.Module) -> float | None:
     """The BN EMA decay when the model leaves the running-stat EMA to the step."""
     return model.bn_momentum if getattr(model, "bn_ema", "module") == "external" else None
@@ -67,7 +85,8 @@ def _global_norm(tensors) -> torch.Tensor:
 
 
 def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
-                    diagnostics: bool = False, grad_accum: int = 1
+                    diagnostics: bool = False, grad_accum: int = 1,
+                    replicas: Replicas | None = None
                     ) -> Callable[[TrainState, object, object], tuple[TrainState, dict]]:
     """``train_step(state, images NHWC, labels) -> (state, metrics)``
     (``steps.py:81-250``): the model's train-mode forward, the label-smoothed
@@ -85,7 +104,51 @@ def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     and makes one update: the same step as k replicas with per-replica BN.
     It requires ``bn_ema="external"``. ``diagnostics=True`` adds the grad,
     update and param norms and the largest |logit| to the metrics.
+
+    ``replicas``: sync-BN data parallelism, the step of the global batch
+    (the model's BatchNorms must hold the same handle,
+    ``models/layers.py:set_replicas``). Each replica weights its loss by its
+    share of the global count of valid labels before the backward, so that
+    the BN backward's cross-replica sums are those of the global loss even
+    when the shards hold different numbers of valid labels, and the
+    gradients, the loss and the top-k counts are summed over the replicas in
+    one collective. Collectives per step: one for the global count, one for
+    the gradients and metrics, a MAX for the largest |logit| under
+    ``diagnostics``, and those of the BatchNorms (``models/layers.py``).
+    With ``grad_accum=k`` microbatch i is each replica's i-th local
+    microbatch, normalised with the moments of all replicas' i-th
+    microbatches. The reference reshapes the global batch instead
+    (``steps.py:185-188``), so its microbatch i holds other rows; the math
+    of each group is the same.
     """
+    if replicas_of(model) is not replicas:
+        raise ValueError("sync-BN: the model's BatchNorms must hold the step's replica "
+                         "handle (models.layers.set_replicas)")
+    return _make_step(model, tx, label_smoothing, diagnostics, grad_accum, replicas,
+                      local_bn=False)
+
+
+def make_local_bn_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
+                             replicas: Replicas | None = None
+                             ) -> Callable[[TrainState, object, object], tuple[TrainState, dict]]:
+    """The train step with per-replica BN statistics (``--no-sync-bn``,
+    ``steps.py:253-342``): each replica normalises with the moments of its
+    own shard (the model's BatchNorms hold no handle), and the gradients,
+    the loss and the top-k counts are combined weighted by each replica's
+    share of the valid labels. The running-statistics EMA takes the
+    cross-replica mean of the raw local statistics, so the state stays
+    replicated (the reference's choice over stock DDP, which keeps rank 0's).
+    Collectives per step: one for the global count, one for the gradients,
+    metrics and statistics. The dropout mask is the global batch's, so the
+    replicas' masks differ, as the reference's ``fold_in(step_rng,
+    axis_index)`` makes them (``steps.py:283``). The step equals the
+    single-process ``grad_accum=world`` step on the concatenated shards."""
+    if replicas_of(model) is not None:
+        raise ValueError("local BN: the model's BatchNorms must hold no replica handle")
+    return _make_step(model, tx, label_smoothing, False, 1, replicas, local_bn=True)
+
+
+def _make_step(model, tx, label_smoothing, diagnostics, grad_accum, replicas, local_bn):
     ema_decay = _ema_outside(model)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -97,31 +160,10 @@ def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     stats = _stat_buffers(model)
-
-    def grads_of(x, y, generator):
-        logits = model(x, generator=generator)
-        loss = cross_entropy(logits, y, label_smoothing)
-        grads = torch.autograd.grad(loss, params)
-        return loss.detach(), logits.detach(), grads
-
-    def accumulate(x, y, generator):
-        micro = x.shape[0] // grad_accum
-        total = (y >= 0).sum().clamp(min=1).float()
-        g_acc = [torch.zeros_like(p) for p in params]
-        s_acc = torch.zeros(sum(s.numel() for s in stats), device=x.device)
-        loss_acc = torch.zeros((), device=x.device)
-        counts, maxl = None, torch.zeros((), device=x.device)
-        for i in range(grad_accum):
-            xi, yi = x[i * micro:(i + 1) * micro], y[i * micro:(i + 1) * micro]
-            loss, logits, grads = grads_of(xi, yi, generator)
-            w = (yi >= 0).sum().float() / total
-            torch._foreach_add_(g_acc, torch._foreach_mul(grads, w))
-            s_acc = s_acc + _flat(stats) / grad_accum
-            loss_acc = loss_acc + loss * w
-            m = topk_correct(logits, yi)
-            counts = m if counts is None else {k: counts[k] + m[k] for k in m}
-            maxl = torch.maximum(maxl, logits.abs().max())
-        return loss_acc, counts, maxl, g_acc, s_acc
+    world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
+    # Weights by the share of valid labels: needed to combine microbatches or
+    # replicas; the plain step on one process takes the loss as it is.
+    weighted = grad_accum > 1 or replicas is not None
 
     def train_step(state: TrainState, images, labels):
         was_training = model.training
@@ -129,23 +171,63 @@ def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
         try:
             x = _images(model, images)
             y = torch.as_tensor(labels).to(x.device)
-            if grad_accum > 1 and x.shape[0] % grad_accum:
-                raise ValueError(f"batch size {x.shape[0]} not divisible by "
-                                 f"grad_accum={grad_accum}")
+            n = x.shape[0]
+            if n % grad_accum:
+                raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
+            micro = n // grad_accum
+            keep = model.dropout_keep(n * world, state.generator, x.device)
+            if keep is not None:
+                keep = keep[rank * n:(rank + 1) * n]
+            if weighted:
+                total = (y >= 0).sum().float()
+                all_reduce_sum_([total], replicas)
+                total = total.clamp(min=1)
             old = _flat(stats) if ema_decay is not None else None
-            if grad_accum == 1:
-                loss, logits, grads = grads_of(x, y, state.generator)
-                metrics = {"loss": loss, **topk_correct(logits, y)}
-                maxl = logits.abs().max() if diagnostics else None
-                new = _flat(stats) if ema_decay is not None else None
-            else:
-                loss, counts, maxl, grads, new = accumulate(x, y, state.generator)
-                metrics = {"loss": loss, **counts}
+            grads = loss = counts = new = None
+            maxl = torch.zeros((), device=x.device)
+            for i in range(grad_accum):
+                rows = slice(i * micro, (i + 1) * micro)
+                yi = y[rows]
+                logits = model(x[rows], keep=None if keep is None else keep[rows])
+                li = cross_entropy(logits, yi, label_smoothing)
+                if weighted:
+                    li = li * ((yi >= 0).sum().float() / total)
+                gi = torch.autograd.grad(li, params)
+                li, logits = li.detach(), logits.detach()
+                ci = topk_correct(logits, yi)
+                if diagnostics:
+                    maxl = torch.maximum(maxl, logits.abs().max())
+                si = _flat(stats) if ema_decay is not None else None
+                if i == 0:
+                    grads, loss, counts, new = list(gi), li, ci, si
+                else:
+                    torch._foreach_add_(grads, gi)
+                    loss = loss + li
+                    counts = {k: counts[k] + ci[k] for k in ci}
+                    new = new + si
+            if grad_accum > 1:
+                new = new / grad_accum
+            metrics = {"loss": loss, **counts}
+            if replicas is not None:
+                # One collective: the gradients, the metrics and, under local
+                # BN, the statistics, whose mean over the replicas is kept:
+                # the raw ones before the external EMA, or those after the
+                # module's EMA (the EMA is linear, so both are the EMA of the
+                # mean).
+                shared = (new if ema_decay is not None else _flat(stats)) if local_bn else None
+                all_reduce_sum_([*grads, *metrics.values(),
+                                 *([shared] if local_bn else [])], replicas)
+                if local_bn:
+                    shared = shared / world
+                    if ema_decay is not None:
+                        new = shared
+                    else:
+                        _unflat_(shared, stats)
+                if diagnostics:
+                    all_reduce_max_(maxl, replicas)
             with torch.no_grad():
                 if ema_decay is not None:
-                    v = fused_ema_stats(old, new, ema_decay)
-                    torch._foreach_copy_(stats, [t.view_as(s) for t, s in
-                                                 zip(v.split([s.numel() for s in stats]), stats)])
+                    _unflat_(fused_ema_stats(old, new, ema_decay), stats)
                 updates = tx.update(dict(zip(names, grads)))
                 ups = [updates[n] for n in names]
                 torch._foreach_add_(params, ups)
@@ -160,6 +242,33 @@ def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
         return state, metrics
 
     return train_step
+
+
+def step_collectives(model: nn.Module, sync_bn: bool = True, diagnostics: bool = False,
+                     grad_accum: int = 1) -> int:
+    """The collectives one data-parallel train step issues, as the code is
+    written: the global count and the one flat buffer (and a MAX under
+    ``diagnostics``), and under sync-BN per microbatch and per BatchNorm the
+    moments' (one for ``one_pass``, two for ``two_pass``); in the backward a
+    BatchNorm of a BN+ReLU region on the kernel route sums its (2, C) once,
+    any other sums the moments' gradients as often as its forward summed the
+    moments. A BatchNorm is in a region when a ReLU follows it in its
+    Sequential. The first step also checks each new plane size once
+    (``parallel.global_rows``)."""
+    n = 2 + int(diagnostics)
+    if not sync_bn:
+        return n
+    kernel_route = resolve_impl(model.bn_bwd, next(model.parameters())) == "kernel"
+    per_microbatch = 0
+    for seq in model.modules():
+        if not isinstance(seq, nn.Sequential):
+            continue
+        for i, bn in enumerate(seq):
+            if isinstance(bn, BatchNorm):
+                fwd = 1 if bn.stats == "one_pass" else 2
+                region = kernel_route and i + 1 < len(seq) and isinstance(seq[i + 1], nn.ReLU)
+                per_microbatch += fwd + (1 if region else fwd)
+    return n + grad_accum * per_microbatch
 
 
 def _images(model: torch.nn.Module, images) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Epoch loop: the reference's ``train`` / ``validate`` loop on one device.
+"""Epoch loop: the reference's ``train`` / ``validate`` loop, on one device or
+as one of several data-parallel replicas.
 
 Counterpart of ``mnasnet_tpu/train/trainer.py``. Batches come from
 :func:`~mnasnet_tpu_torch.data.pipeline.prefetch_to_device` already on the
@@ -11,6 +12,15 @@ Cooperative preemption: :meth:`Trainer.request_stop` (from a SIGTERM
 handler) makes ``train_epoch`` stop at the next batch boundary;
 ``stopped_early`` and ``next_global_step`` tell the caller where to save and
 where the resumed run starts.
+
+Replicas (``replicas``, one process per GPU): the trainer picks the sync-BN
+step (``sync_bn``, the default: it gives the model's BatchNorms the handle)
+or the local-BN one, and every replica must stop at the same global step, or
+the next collective hangs. So each step all-reduces the stop flag (MAX, a
+device tensor) and the host reads it one step late, as it reads the
+metrics: a stop asked of any one replica stops them all before the same
+step, with no host wait added per step. Validation sums its counts over the
+replicas' shards; meters, prints and the TensorBoard writer are rank 0's.
 """
 
 from __future__ import annotations
@@ -24,8 +34,15 @@ import torch
 from torch import nn
 
 from mnasnet_tpu_torch.data.pipeline import prefetch_to_device
+from mnasnet_tpu_torch.models.layers import set_replicas
+from mnasnet_tpu_torch.parallel.dist import Flag, Replicas, all_reduce_sum_
 from mnasnet_tpu_torch.train.state import TrainState
-from mnasnet_tpu_torch.train.steps import make_eval_step, make_train_step
+from mnasnet_tpu_torch.train.steps import (
+    make_eval_step,
+    make_local_bn_train_step,
+    make_train_step,
+    step_collectives,
+)
 from mnasnet_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
 
@@ -69,11 +86,19 @@ class Trainer:
         step_tracer=None,
         grad_accum: int = 1,
         diagnostics: bool = False,
+        replicas: Optional[Replicas] = None,
+        sync_bn: bool = True,
     ):
+        if grad_accum > 1 and not sync_bn:
+            raise ValueError("grad_accum > 1 with sync_bn=False is redundant: the "
+                             "accumulation step already uses per-microbatch (local) BN "
+                             "statistics; use sync_bn=True with grad_accum")
         self.model = model
         self.tx = tx
         self.device = torch.device(device) if device is not None \
             else next(model.parameters()).device
+        self.replicas = replicas
+        self.is_main = replicas is None or replicas.rank == 0
         self.label_smoothing = label_smoothing
         self.compute_dtype = compute_dtype
         self.schedule = schedule
@@ -87,8 +112,15 @@ class Trainer:
         self._stop_event = threading.Event()
         self.stopped_early = False
         self.next_global_step: Optional[int] = None
-        self._train_step = make_train_step(model, tx, label_smoothing,
-                                           diagnostics=diagnostics, grad_accum=grad_accum)
+        self._layout = (sync_bn, diagnostics, grad_accum)
+        set_replicas(model, replicas if sync_bn else None)
+        if sync_bn:
+            self._train_step = make_train_step(model, tx, label_smoothing, diagnostics=diagnostics,
+                                               grad_accum=grad_accum, replicas=replicas)
+        else:
+            if diagnostics:
+                raise ValueError("diagnostics are not kept by the local-BN step")
+            self._train_step = make_local_bn_train_step(model, tx, label_smoothing, replicas)
         self._eval_step = make_eval_step(model)
 
     def create_state(self, seed: int = 0) -> TrainState:
@@ -96,12 +128,19 @@ class Trainer:
         generator."""
         return TrainState.create(self.model, self.tx, seed=seed)
 
+    def collectives_per_step(self) -> int:
+        """The collectives a step of ``train_epoch`` issues with replicas: the
+        step's (``steps.step_collectives``) and the stop flag."""
+        return step_collectives(self.model, *self._layout) + 1
+
     def request_stop(self) -> None:
         """Ask the running (or next) ``train_epoch`` to stop at the next batch
         boundary: the current step completes, no new step is issued. Safe
         from a signal handler or another thread. Sticky: once stopped, every
         later ``train_epoch`` returns at once and keeps the first
-        ``next_global_step``."""
+        ``next_global_step``. With replicas, a stop asked of one stops all:
+        before the next step when asked before an epoch, else one step
+        later."""
         self._stop_event.set()
 
     # ----------------------------------------------------------------- train
@@ -128,11 +167,21 @@ class Trainer:
         self.epoch_diag = {}
         self.stopped_early = False
         pending = None  # (metrics, step index), read one step late
+        # With replicas only flags agreed by all decide a stop: the one read
+        # at once at the start of the epoch, then each step's, read before
+        # the step after next.
+        flag = Flag(self._stop_event.is_set(), self.replicas)
         end = time.perf_counter()
         j = start_step - 1  # absolute batch index within the epoch
         for i, (images, labels) in enumerate(it):
             j = start_step + i
-            if self._stop_event.is_set():
+            if self.replicas is None:
+                stop = self._stop_event.is_set()
+            else:
+                stop = flag.get()
+                flag = Flag(self._stop_event.is_set(), self.replicas)
+            if stop:
+                self._stop_event.set()
                 # First stop wins: a later train_epoch on a stopped trainer
                 # must not move next_global_step past unconsumed batches.
                 self.stopped_early = True
@@ -152,7 +201,8 @@ class Trainer:
             batch_time.update(time.perf_counter() - end)
             end = time.perf_counter()
         else:
-            if self._stop_event.is_set():
+            if Flag(self._stop_event.is_set(), self.replicas).get():
+                self._stop_event.set()
                 # Stopped between epochs (or during validation): every batch
                 # of this epoch ran; the resumed run starts at the boundary.
                 self.stopped_early = True
@@ -174,7 +224,7 @@ class Trainer:
                 d[f"max_{key}"] = max(d.get(f"max_{key}", 0.0), float(metrics[key]))
             d["final_param_norm"] = float(metrics["param_norm"])
             d["final_loss"] = float(metrics["loss"])
-        if i % self.print_freq == 0:
+        if i % self.print_freq == 0 and self.is_main:
             progress.display(i)
             if self.writer is not None:
                 step = epoch * spe + i
@@ -195,15 +245,20 @@ class Trainer:
         with swapped_params(self.model, params_override):
             return run_validation(self._eval_step, loader, device=self.device,
                                   compute_dtype=self.compute_dtype,
-                                  print_freq=self.print_freq, verbose=verbose)
+                                  print_freq=self.print_freq, verbose=verbose and self.is_main,
+                                  replicas=self.replicas)
 
 
 def run_validation(eval_step, loader, *, device, compute_dtype: torch.dtype = torch.float32,
-                   print_freq: int = 10, verbose: bool = True):
+                   print_freq: int = 10, verbose: bool = True,
+                   replicas: Optional[Replicas] = None):
     """One pass of ``eval_step`` (``make_eval_step(model)``) over ``loader``.
     The padded tail's -1 labels are masked out of the loss and the counts,
     so top-1/top-5 are exact over the real samples. Returns (top1 %,
-    top5 %, loss)."""
+    top5 %, loss). With ``replicas`` the loader is this replica's shard
+    (whose wrap-padding also carries -1 labels) and the sums are taken over
+    all shards, one collective at the end; the per-batch meters are this
+    replica's."""
     batch_time = AverageMeter("Time", ":6.3f")
     losses = AverageMeter("Loss", ":.4e")
     top1 = AverageMeter("Acc@1", ":6.2f")
@@ -228,6 +283,11 @@ def run_validation(eval_step, loader, *, device, compute_dtype: torch.dtype = to
         end = time.perf_counter()
         if verbose and i % print_freq == 0:
             progress.display(i)
+    if replicas is not None:
+        sums = torch.tensor([total[k] for k in ("loss", "top1", "top5", "count")],
+                            dtype=torch.float64)
+        all_reduce_sum_([sums], replicas)
+        total = dict(zip(("loss", "top1", "top5", "count"), sums.tolist()))
     c = max(total["count"], 1)
     acc1 = 100.0 * total["top1"] / c
     acc5 = 100.0 * total["top5"] / c

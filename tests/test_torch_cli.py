@@ -238,11 +238,15 @@ def test_check_preempt_meta_tolerates_torn_or_missing(tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--world-size", "2"], "multi-process training"),
-    (["--rank", "1"], "multi-process training"),
-    (["--dist-url", "tcp://localhost:1", "--world-size", "2"], "multi-process training"),
-    (["--no-sync-bn"], "per-replica BN"),
-    (["--mesh-dcn", "2"], "multi-node"),
+    # The reference's refusals of a data-parallel layout (train.py:310-317,
+    # 424-430), in one process; none joins a process group.
+    (["--world-size", "2"], "--world-size 2 != the process group's 1"),
+    (["--rank", "1"], "--rank 1 != this process's rank 0"),
+    (["--mesh-dcn", "2", "--no-sync-bn"], "--mesh-dcn requires --sync-bn"),
+    (["--grad-accum", "2", "--no-sync-bn"], "drop --no-sync-bn"),
+    (["--dist-url", "tcp://localhost:1", "--world-size", "2", "--rank", "0", "--mesh-dcn",
+      "3"], "--mesh-dcn 3 does not divide the world size 2"),
+    # Modules not ported.
     (["--remat"], "rematerialised"),
     (["--compilation-cache", "cache"], "compilation cache"),
 ])
@@ -250,6 +254,70 @@ def test_cli_refuses_flags_whose_modules_are_not_ported(tmp_path, flags, message
     with pytest.raises(SystemExit, match=message):
         train_cli.main([*BASE, *flags, "--output-dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_pretrained_model_ema_shadow_starts_from_the_init(tmp_path, monkeypatch):
+    """As the reference (train.py:460,502-505): the train state, with the
+    model-EMA shadow, is made before --pretrained replaces the weights, so
+    the shadow at step 0 holds the init from --seed, not the loaded
+    weights."""
+    loaded = train_cli_model(seed=7)
+    npz = tmp_path / "w.npz"
+    np.savez(npz, **{k: v.numpy() for k, v in loaded.state_dict().items()})
+    init = dict(train_cli_model(seed=0).named_parameters())
+    seen = {}
+    orig = Trainer.train_epoch
+
+    def first_epoch(self, state, loader, epoch, **kw):
+        from mnasnet_tpu_torch.train.optim import get_ema_params
+
+        seen.update({n: t.clone() for n, t in get_ema_params(self.tx).items()})
+        seen["weights"] = dict(self.model.named_parameters())["layers.0.weight"].detach().clone()
+        self.request_stop()
+        return orig(self, state, loader, epoch, **kw)
+
+    monkeypatch.setattr(Trainer, "train_epoch", first_epoch)
+    train_cli.main([*BASE, "--epochs", "1", "--pretrained", str(npz), "--model-ema", "0.5",
+                    "--output-dir", str(tmp_path / "run")])
+    assert torch.equal(seen.pop("weights"), loaded.state_dict()["layers.0.weight"])
+    assert seen.keys() == init.keys()
+    for n, p in init.items():
+        assert torch.equal(seen[n], p.detach()), n
+    assert not torch.equal(seen["layers.0.weight"], loaded.state_dict()["layers.0.weight"])
+
+
+def train_cli_model(seed):
+    from mnasnet_tpu_torch import create_model
+
+    return create_model("mnasnet0_35", device="cpu", num_classes=8, seed=seed)
+
+
+def test_cli_two_processes_on_the_cpu(tmp_path):
+    """Two processes over gloo (--dist-url file://, --device cpu), 2 synthetic
+    steps of a global batch of 16: rank 0 alone prints the meters and the
+    epoch line, and one checkpoint is written, by rank 0."""
+    out = tmp_path / "run"
+    argv = [*_with(_with(BASE, "--batch-size", 16), "--synthetic-size", 32), "--epochs", "1",
+            "--print-freq", "1", "--output-dir", str(out), "--world-size", "2",
+            "--dist-url", f"file://{tmp_path / 'rendezvous'}"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, "-m", "mnasnet_tpu_torch.train", *argv,
+                               "--rank", str(r)], cwd=REPO, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    text0, text1 = outs[0][0], outs[1][0]
+    assert "Epoch: [0][0/2]" in text0 and "Epoch: [0][1/2]" in text0 and "epoch 0: acc1=" in text0
+    assert "Epoch:" not in text1 and "epoch 0:" not in text1
+    assert CheckpointManager(str(out)).keys() == [0]
 
 
 def test_cli_flag_resolution():

@@ -272,6 +272,50 @@ def test_bn_kernels_match_plain(cuda, dtype, tol_dx, shape):
     assert torch.equal(count, (y > 0).float().sum(dim=(0, 1, 2)))
 
 
+@pytest.mark.parametrize("dtype,tol_dx", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("n_factor", [2, 3])
+def test_bn_dx_with_a_global_count(cuda, dtype, tol_dx, n_factor):
+    """Sync-BN's dx: the count n is the global one (n_factor replicas of M
+    rows), not the local M; the kernel against its plain version."""
+    x, dy, _, vecs = _bn_case(cuda, (4, 14, 14, 96), dtype, seed=3)
+    dg, db = bn_bwd_reduce_reference(x, dy, *vecs)
+    dg, db = dg * n_factor, db * n_factor  # the sums over n_factor such replicas
+    n = n_factor * x.numel() // x.shape[-1]
+    before = bn_bwd_dx.launches
+    dx = bn_bwd_dx(x, dy, *vecs, dg, db, n=n)
+    torch.cuda.synchronize()
+    assert bn_bwd_dx.launches == before + 1
+    _close(dx, bn_bwd_dx_reference(x, dy, *vecs, dg, db, n=n), tol_dx)
+    assert not torch.equal(dx, bn_bwd_dx(x, dy, *vecs, dg, db))
+
+
+def test_bn_bwd_under_a_one_rank_group_is_bitwise_the_plain_call(cuda, tmp_path):
+    """A 1-rank gloo group on CUDA tensors: the collective sums one tensor,
+    the count is M, so dx, dγ and dβ equal the call without a group, bit for
+    bit."""
+    import torch.distributed as dist
+
+    from mnasnet_tpu_torch.parallel import Replicas
+
+    x, dy, _, (mean, inv, gamma, beta) = _bn_case(cuda, (4, 14, 14, 96), torch.bfloat16, seed=4)
+    var = 1.0 / inv.square() - 1e-5
+    plain = bn_bwd.bn_bwd(x, dy, mean, var, gamma, beta, 1e-5)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        replicas = Replicas(0, 1, cuda)
+        before = (bn_bwd_reduce.launches, bn_bwd_dx.launches)
+        grouped = bn_bwd.bn_bwd(x, dy, mean, var, gamma, beta, 1e-5, replicas)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert (bn_bwd_reduce.launches, bn_bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+    # One check of the plane size, then the (2, C) sums: two collectives.
+    assert replicas.collectives == 2
+    for a, b in zip(plain, grouped):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_reduce_at_an_unaligned_offset(cuda, dtype):
     """A contiguous input that starts 300 (bf16) or 600 (fp32) bytes into its
