@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only kernels # the dw and mbconv phases only
     python3 chip_smoke.py --only trainer # the training harness phase only
     python3 chip_smoke.py --only dist    # the data-parallel phase only
+    python3 chip_smoke.py --only serve   # the serving deployment phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -24,6 +25,23 @@ Phases, in order; any failure raises and exits non-zero:
      holds the logits against the "torch" route and an fp32 reference,
      answers one single-image request, and times images/s at batch 128 and
      the latency of a batch of one;
+  5b. serve: the serving deployment (``tools/export_latency.py``'s
+     counterpart) with the serving phase's weights: (a) ``export_serving``'s
+     ``build_forward`` and ``export_artifact`` with ``dw_impl="kernel"`` and a
+     symbolic batch (and a fixed batch of 8); a fresh interpreter that
+     imports only ``mnasnet_tpu_torch.serving`` loads the artifact, serves
+     the bs128 batch on the eager route three times (exactly 1 dw and 16
+     MBConv launches a call; logits bit for bit the live
+     ``make_predict_fn``'s) and sees the fixed-batch artifact refuse a batch
+     of 3; (b) ``load_serving`` on each route at bs 1, 8, 32 and 128: the
+     graph route bit for bit eager, the compile route (bs 1 and 128 only)
+     within the bf16 bars below against the torch route; ms per batch and
+     images/s by route (CUDA events) and the table of the fastest route
+     that ``SERVE_ROUTE_BATCH_RANGES`` is set from; every route's launches
+     reconciled with its calls (eager and compiled calls count, a graph
+     counts its warm-up and capture, not its replays); (c) the seconds of
+     the first compiled call at bs1 in two fresh processes with the same
+     ``--compilation-cache`` directory, cold then warm;
   6. bn: the two BN+ReLU backward kernels against their plain versions at the
      35 BN+ReLU regions of the mnasnet1_0@224 training forward, batch 128,
      bf16 and fp32; the bf16 and fp32 ReLU masks exactly (with dy = 1, dβ
@@ -50,8 +68,10 @@ Phases, in order; any failure raises and exits non-zero:
      ImageFolder of JPEGs (384 train images, 3 steps; 160 val images, a
      full batch and a padded tail of 32) with ``--bn-recalibrate 2`` and the
      ``native-fast`` decoder, checking 17 dw / 35 + 35 BN / 0 MBConv launches
-     per train step, 1 dw and 16 MBConv launches per validation forward
-     (before and after recalibration), 17 dw and nothing else per
+     per train step, 1 dw and 16 MBConv launches per validation forward that
+     the counters see (before and after recalibration; the eval step is
+     batch-routed, and a graph replay launches without its wrappers), 17 dw
+     and nothing else per
      recalibration forward, finite losses, the checkpoints ``0/``, ``1/`` and
      ``best/``, and that ``python -m mnasnet_tpu_torch.eval DIR --resume OUT
      --best`` prints the acc1 the trainer printed for that checkpoint; (b)
@@ -145,6 +165,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -175,10 +196,13 @@ from mnasnet_tpu_torch.ops.cuda.dw_conv import (
     dw_conv_reference,
     out_size,
 )
+from mnasnet_tpu_torch.ops.cuda.dw_conv import launch as dw_launch
 from mnasnet_tpu_torch.ops.cuda.dw_conv import plan as dw_plan
-from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fused, mbconv_reference, plan
+from mnasnet_tpu_torch.ops.cuda.mbconv import kernel_args, mbconv_fused, mbconv_reference, plan
+from mnasnet_tpu_torch.ops.cuda.mbconv import launch as mb_launch
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.parallel import close, init_distributed
+from mnasnet_tpu_torch.serving import load_serving
 from mnasnet_tpu_torch.tools.tune_plans import (
     BATCH,
     IMAGE,
@@ -199,7 +223,9 @@ from mnasnet_tpu_torch.train.steps import (
     make_train_step,
     step_collectives,
 )
+from mnasnet_tpu_torch.tools.export_serving import build_forward, export_artifact
 from mnasnet_tpu_torch.train.trainer import Trainer
+from mnasnet_tpu_torch.utils.routing import GRAPH_WARMUP, ROUTES, SERVE_ROUTE_BATCH_RANGES
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor-core rate
@@ -309,6 +335,11 @@ def dw_phase(timing: bool) -> list[dict]:
             if timing:
                 row["ms"] = time_ms(lambda: dw_conv_bn_act(x, w, scale, bias, stride=s))
                 row["host_ms"] = host_ms(lambda: dw_conv_bn_act(x, w, scale, bias, stride=s))
+                # The direct launch() on prepared operands: the op's checks and
+                # the dispatcher are the difference.
+                ops32 = (w.reshape(k, k, c).float().contiguous(), scale.float().contiguous(),
+                         bias.float().contiguous())
+                row["launch_host_ms"] = host_ms(lambda: dw_launch(x, *ops32, s, True, p))
                 row["plain_ms"] = time_ms(lambda: dw_conv_reference(x, w, scale, bias, stride=s))
                 # One cuDNN call for the same conv and affine (no ReLU): the
                 # scale folded into the weights, the bias as the conv bias.
@@ -406,6 +437,9 @@ def mbconv_phase(timing: bool) -> list[dict]:
                 with torch.no_grad():
                     row["ms"] = time_ms(lambda: mbconv_fused(*args, **kw))
                     row["host_ms"] = host_ms(lambda: mbconv_fused(*args, **kw))
+                    ka = kernel_args(*args, kernel_size=k)
+                    row["launch_host_ms"] = host_ms(
+                        lambda: mb_launch(*ka, stride=s, residual=kw["residual"], p=p))
                     row["plain_ms"] = time_ms(lambda: mbconv_reference(*args, **kw))
                     # The port's "torch" route for the whole block, as the model runs it.
                     xc = nchw(x)
@@ -435,12 +469,19 @@ def calibrate_bn(model, images) -> None:
             hd.remove()
 
 
-def serving_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
-    g = torch.Generator(device="cuda").manual_seed(3)
+def serving_weights(g: torch.Generator):
+    """The serving phase's weights: mnasnet1_0 from seed 0 with its BN
+    statistics calibrated on 32 random images drawn from ``g``; returns the
+    fp32 torch-route model and its state_dict."""
     ref32 = create_model("mnasnet1_0", dtype=torch.float32, dw_impl="torch", seed=0)
     calib = torch.randn(32, 3, IMAGE, IMAGE, device="cuda", generator=g)
     calibrate_bn(ref32, calib)
-    state = ref32.state_dict()
+    return ref32, ref32.state_dict()
+
+
+def serving_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ref32, state = serving_weights(g)
 
     def model(dtype, impl):
         m = create_model("mnasnet1_0", dtype=dtype, dw_impl=impl, seed=0)
@@ -518,6 +559,194 @@ def serving_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
             f"{out['torch_route_images_per_s']:.1f}; bs1 ms: kernel route "
             f"{out['kernel_route_ms_single_image']:.3f}, torch route "
             f"{out['torch_route_ms_single_image']:.3f} on {card}")
+    return out
+
+
+# The serve phase's sizes: every route is timed at SERVE_SIZES, the compile
+# route (a compile of the whole forward per size) at COMPILE_SIZES only.
+SERVE_SIZES = (1, 8, 32, 128)
+COMPILE_SIZES = (1, 128)
+FIXED_BATCH = 8  # the fixed-batch artifact of the wrong-shape check
+
+# (a): in a fresh interpreter that imports only mnasnet_tpu_torch.serving, the
+# artifact on the eager route: its logits at bs128, the launches of each of
+# 3 calls, and a wrong batch on the fixed-batch artifact.
+_SERVE_CHILD = """
+import json, sys
+import torch
+from mnasnet_tpu_torch import serving
+art, fixed, x_path, out_path = sys.argv[1:5]
+predict = serving.load_serving(art, route="eager")
+x = torch.load(x_path).cuda()
+counters = {"dw_conv_bn_act": serving.dw_conv.dw_conv_bn_act,
+            "mbconv_block": serving.mbconv.mbconv_fused}
+res = {"per_call": []}
+for fn in counters.values():
+    fn.launches = 0
+for _ in range(3):
+    before = {k: fn.launches for k, fn in counters.items()}
+    y = predict(x)
+    torch.cuda.synchronize()
+    res["per_call"].append({k: fn.launches - before[k] for k, fn in counters.items()})
+res["launches"] = {k: fn.launches for k, fn in counters.items()}
+torch.save(y.cpu(), out_path)
+try:
+    serving.load_serving(fixed, route="eager")(x[:3])
+    res["wrong_shape"] = None
+except Exception as e:
+    res["wrong_shape"] = f"{type(e).__name__}: {str(e)[:200]}"
+print(json.dumps(res))
+"""
+
+# (c): one compile of the artifact at bs 1 with --compilation-cache DIR.
+_CACHE_CHILD = """
+import json, sys, time
+import torch
+from mnasnet_tpu_torch import serving
+from mnasnet_tpu_torch.utils.compilation_cache import enable_compilation_cache
+cache, art = sys.argv[1:3]
+enable_compilation_cache(cache)
+predict = serving.load_serving(art, route="compile")
+x = torch.randn(1, 224, 224, 3, device="cuda")
+t0 = time.perf_counter()
+predict(x)
+torch.cuda.synchronize()
+print(json.dumps({"first_call_s": time.perf_counter() - t0}))
+"""
+
+
+def _child(code: str, args: list, timeout: int = 600) -> dict:
+    r = subprocess.run([sys.executable, "-c", code, *map(str, args)], cwd=REPO,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(f"child rc {r.returncode}:\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def route_table(rows: list) -> tuple:
+    """``SERVE_ROUTE_BATCH_RANGES`` as the timings give it: the fastest route
+    at each measured size rules from that size up to the next one."""
+    ranges = []
+    for i, row in enumerate(rows):
+        hi = rows[i + 1]["bs"] - 1 if i + 1 < len(rows) else 1 << 30
+        if ranges and ranges[-1][2] == row["fastest"]:
+            ranges[-1] = (ranges[-1][0], hi, row["fastest"])
+        else:
+            ranges.append((row["bs"] if i else 1, hi, row["fastest"]))
+    return tuple(ranges)
+
+
+def serve_phase(timing: bool, card: str) -> dict:
+    """The serving deployment: export, a fresh process's load, each route."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    _, state = serving_weights(g)
+    images = torch.randn(BATCH, IMAGE, IMAGE, 3, device="cuda", generator=g)
+    work = Path(tempfile.mkdtemp(prefix="serve_", dir=REPO / "build"))
+    out: dict = {}
+    try:
+        # (a) export, then load and run in a fresh process.
+        fn, x = build_forward("mnasnet1_0", 1000, "bfloat16", state, IMAGE, BATCH,
+                              device="cuda")
+        t0 = time.perf_counter()
+        data = export_artifact(fn, x, symbolic_batch=True)
+        out["export_s"] = time.perf_counter() - t0
+        out["artifact_mb"] = len(data) / 1e6
+        art, fixed = work / "model.pt2", work / "model_b8.pt2"
+        art.write_bytes(data)
+        fixed.write_bytes(export_artifact(fn, x[:FIXED_BATCH].contiguous()))
+        torch.save(images.cpu(), work / "x.pt")
+        served = create_model("mnasnet1_0", dtype=torch.bfloat16, dw_impl="auto", seed=0)
+        served.load_state_dict(state)
+        live = make_predict_fn(served)(images)
+        child = _child(_SERVE_CHILD, [art, fixed, work / "x.pt", work / "y.pt"])
+        log(f"[serve] fresh process: {json.dumps(child)}")
+        out["artifact"] = child
+        got = torch.load(work / "y.pt")
+        if not torch.equal(got, live.cpu()):
+            raise RuntimeError(f"the artifact's bs{BATCH} logits differ from the live forward: "
+                               f"max {float((got - live.cpu()).abs().max())}")
+        if any(c != {"dw_conv_bn_act": 1, "mbconv_block": 16} for c in child["per_call"]):
+            raise RuntimeError(f"artifact launches per call {child['per_call']}, expected 1 + 16")
+        if child["wrong_shape"] is None:
+            raise RuntimeError("the fixed-batch artifact accepted a batch of 3")
+
+        # (b) each route of the artifact, loaded here.
+        routes = {r: load_serving(data, route=r) for r in ROUTES}
+        plain = create_model("mnasnet1_0", dtype=torch.bfloat16, dw_impl="torch", seed=0)
+        plain.load_state_dict(state)
+        torch_route = make_predict_fn(plain)
+        for fn_ in COUNTERS.values():
+            fn_.launches = 0
+        rows = []
+        for b in SERVE_SIZES:
+            xb = images[:b].contiguous()
+            row = {"bs": b}
+            eager, graph = routes["eager"](xb), routes["graph"](xb)
+            if not torch.equal(graph, eager):
+                raise RuntimeError(f"bs{b}: the graph route differs from eager")
+            if b == BATCH and not torch.equal(eager, live):
+                raise RuntimeError("the artifact's eager route differs from the live forward")
+            timed = ["eager", "graph"]
+            if b in COMPILE_SIZES:
+                t0 = time.perf_counter()
+                comp = routes["compile"](xb)
+                torch.cuda.synchronize()
+                row["compile_first_call_s"] = time.perf_counter() - t0
+                row["compile_vs_eager_max_abs_diff"] = float((comp - eager).abs().max())
+                # The bars over all 128 images at every size: at bs b the
+                # compiled call of each slice of b (a top-1 of one image
+                # says little).
+                comp = torch.cat([routes["compile"](images[i:i + b])
+                                  for i in range(0, BATCH, b)])
+                ref = torch_route(images)
+                row["compile_max_abs_diff_vs_torch"] = float((comp - ref).abs().max())
+                row["compile_tol"] = 0.25 * float(ref.abs().max())
+                row["compile_top1_agreement"] = float(
+                    (comp.argmax(-1) == ref.argmax(-1)).float().mean())
+                if row["compile_max_abs_diff_vs_torch"] > row["compile_tol"] \
+                        or row["compile_top1_agreement"] < 0.5:
+                    raise RuntimeError(f"bs{b}: the compile route misses the bf16 bars: {row}")
+                timed.append("compile")
+            if timing:
+                for r in timed:
+                    ms = time_ms(lambda: routes[r](xb), target_ms=300.0)
+                    row[f"{r}_ms"] = ms
+                    row[f"{r}_images_per_s"] = b / ms * 1e3
+                row["fastest"] = min(timed, key=lambda r: row[f"{r}_ms"])
+            rows.append(row)
+            log(f"[serve] {row}")
+        torch.cuda.synchronize()
+        launches = counts()
+        counted = sum(routed_forwards(routes[r], {})["counted"] for r in ROUTES)
+        if launches != _scaled(LAUNCHES_PER_VAL_FORWARD, counted):
+            raise RuntimeError(f"routes' launches {launches}; expected {counted} counted "
+                               f"forwards of {LAUNCHES_PER_VAL_FORWARD}")
+        out["routes_launches"] = launches
+        out["graph_replays"] = sum(routes["graph"].replays.values())
+        out["by_size"] = rows
+        if timing:
+            measured = route_table(rows)
+            out["route_table"] = measured
+            out["route_table_matches_SERVE_ROUTE_BATCH_RANGES"] = \
+                measured == SERVE_ROUTE_BATCH_RANGES
+            log(f"[serve] ms per batch by route on {card}:")
+            for row in rows:
+                log("[serve]   bs{:>4}: ".format(row["bs"]) + ", ".join(
+                    f"{r} {row[f'{r}_ms']:.3f} ms ({row[f'{r}_images_per_s']:.1f} images/s)"
+                    for r in ROUTES if f"{r}_ms" in row) + f"; fastest {row['fastest']}")
+            log(f"[serve] measured table {measured}; SERVE_ROUTE_BATCH_RANGES "
+                f"{SERVE_ROUTE_BATCH_RANGES}")
+
+        # (c) the compilation cache: the same compile, cold then warm.
+        cache = work / "cache"
+        out["cache"] = {k: _child(_CACHE_CHILD, [cache, art])["first_call_s"]
+                        for k in ("cold_first_call_s", "warm_first_call_s")}
+        out["cache"]["entries"] = sum(len(f) for _, _, f in os.walk(cache))
+        log(f"[serve] compilation cache: {out['cache']}")
+        if not out["cache"]["entries"]:
+            raise RuntimeError("the compile left no entry in the compilation cache")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -811,15 +1040,35 @@ def _patched(obj, name, wrapper):
         setattr(obj, name, orig)
 
 
+def routed_forwards(routed, calls_before: dict) -> dict:
+    """The forwards a ``BatchRouted`` ran since its ``calls`` were
+    ``calls_before``, by route, and how many of them its kernels' launch
+    counters saw: every eager and compiled call, and for each graph key
+    captured in that span its warm-ups and its capture (a replay launches
+    the kernels without their wrappers)."""
+    by_route = dict.fromkeys(ROUTES, 0)
+    counted = 0
+    for key, n in routed.calls.items():
+        new = n - calls_before.get(key, 0)
+        by_route[key[0]] += new
+        if key[0] != "graph":
+            counted += new
+        elif key not in calls_before:
+            counted += GRAPH_WARMUP + 1
+    return {"by_route": by_route, "counted": counted}
+
+
 @contextlib.contextmanager
 def recorded_calls(calls: list):
     """Record, for each call of ``Trainer.train_epoch``, ``Trainer.validate``
     and ``recalibrate_bn`` made inside, the kernel launches it made and the
-    steps or batches it ran."""
+    steps or batches it ran (for validation, also the routed eval step's
+    forwards by route: :func:`routed_forwards`)."""
     def record(kind):
         def wrapper(orig):
             def call(*a, **kw):
                 before, t0 = counts(), time.perf_counter()
+                routed_before = dict(a[0]._eval_step.calls) if kind == "validate" else None
                 out = orig(*a, **kw)
                 torch.cuda.synchronize()
                 row = {"kind": kind, "launches": _delta(before, counts()),
@@ -829,6 +1078,7 @@ def recorded_calls(calls: list):
                     row["loss"] = a[0].epoch_train_stats["loss"]
                 elif kind == "validate":
                     row["forwards"] = a[2].steps_per_epoch()
+                    row["routes"] = routed_forwards(a[0]._eval_step, routed_before)
                 else:
                     row["forwards"] = kw["num_batches"]
                 calls.append(row)
@@ -924,11 +1174,15 @@ def folder_run(work: Path, workers: int) -> dict:
         raise RuntimeError(f"train epoch: {train}; expected {spe} steps of {LAUNCHES_PER_STEP}")
     if not np.isfinite(train["loss"]):
         raise RuntimeError(f"train epoch loss not finite: {train['loss']}")
+    # Validation runs its eval step on the route of each batch size: the
+    # launches are those of the forwards the counters see (graph replays
+    # launch the kernels without their wrappers), and every batch ran once.
     for val in (val0, val1):
-        if val["forwards"] != val_batches \
-                or val["launches"] != _scaled(LAUNCHES_PER_VAL_FORWARD, val_batches):
-            raise RuntimeError(f"validation: {val}; expected {val_batches} forwards of "
-                               f"{LAUNCHES_PER_VAL_FORWARD}")
+        routes = val["routes"]
+        if val["forwards"] != val_batches or sum(routes["by_route"].values()) != val_batches \
+                or val["launches"] != _scaled(LAUNCHES_PER_VAL_FORWARD, routes["counted"]):
+            raise RuntimeError(f"validation: {val}; expected {val_batches} forwards, the "
+                               f"counted ones of {LAUNCHES_PER_VAL_FORWARD}")
     if recal["launches"] != _scaled(LAUNCHES_PER_RECAL_FORWARD, 2):
         raise RuntimeError(f"recalibration: {recal}; expected 2 forwards of "
                            f"{LAUNCHES_PER_RECAL_FORWARD}")
@@ -1395,7 +1649,8 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
             "summed_over": f"{len(bf)} regions of one training step, bf16"}
 
 
-def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer, dist) -> dict:
+def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trainer,
+                 dist) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -1403,7 +1658,8 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer, di
         return sum(r[key] for r in mb) if all(key in r for r in mb) else None
 
     by_bytes = sum(r["bound_ms"] for r in mb if r["bound_by"] == "bytes")
-    paths = {"serving": serving["launches"], "train": train["launches"],
+    paths = {"serving": serving["launches"], "artifact": serve["artifact"]["launches"],
+             "artifact_routes": serve["routes_launches"], "train": train["launches"],
              "trainer": trainer["launches"], "dist_torchrun": dist["nccl"]["launches"],
              "dist_ranks_rank0": dist["ranks"]["launches"]}
 
@@ -1428,6 +1684,7 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer, di
          "also_replaces": "mnasnet_tpu/ops/pallas/dw_conv.py:96",
          "launches": launches("dw_conv_bn_act"), "launches_by_path": by_path("dw_conv_bn_act"),
          "max_abs_err": sep["max_abs_err"], "ms": sep.get("ms"), "host_ms": sep.get("host_ms"),
+         "launch_host_ms": sep.get("launch_host_ms"),
          "plain_ms": sep.get("plain_ms"), "bound_ms": sep["bound_ms"],
          "bound_by": sep["bound_by"], "library_ms": sep.get("library_ms"),
          "measured_at": "112x112x32 k3 s1, the serving path's one launch",
@@ -1441,7 +1698,7 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train, trainer, di
          "replaces": "mnasnet_tpu/ops/pallas/mbconv.py:58",
          "launches": launches("mbconv_block"), "launches_by_path": by_path("mbconv_block"),
          "max_abs_err": max(r["max_abs_err"] for r in mb), "ms": total("ms"),
-         "host_ms": total("host_ms"),
+         "host_ms": total("host_ms"), "launch_host_ms": total("launch_host_ms"),
          "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
          "bound_by": "bytes" if by_bytes * 2 >= total("bound_ms") else "operations",
          "library_ms": None, "torch_route_ms": total("torch_route_ms"),
@@ -1456,11 +1713,12 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
-    ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist"),
+    ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve"),
                     default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
-                         "phase only; 'dist' the data-parallel phase only")
+                         "phase only; 'dist' the data-parallel phase only; 'serve' the "
+                         "serving deployment phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     args = ap.parse_args()
@@ -1508,8 +1766,13 @@ def main() -> int:
         log(json.dumps({"dist": phase("dist", dist_phase, timing, card, None, args.profile)}))
         log(card)
         return 0
+    if args.only == "serve":
+        log(json.dumps({"serve": phase("serve", serve_phase, timing, card)}))
+        log(card)
+        return 0
     if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
+        serve = phase("serve", serve_phase, timing, card)
     bn_rows = phase("bn", bn_phase, timing)
     dw_train = phase("dw-train", dw_train_phase)
     train = phase("train", train_phase, timing, card, args.profile)
@@ -1517,9 +1780,10 @@ def main() -> int:
     if args.only == "all":
         trainer = phase("trainer", trainer_phase, timing, card, train)
         dist = phase("dist", dist_phase, timing, card, trainer, args.profile)
-        log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, bn_rows, train,
+        log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train,
                                     trainer, dist)))
         log(json.dumps({"serving": serving}))
+        log(json.dumps({"serve": serve}))
         log(json.dumps({"trainer": trainer}))
         log(json.dumps({"dist": dist}))
     log(json.dumps({"train": train, "dw_train": dw_train}))

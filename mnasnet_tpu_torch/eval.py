@@ -12,7 +12,11 @@ are decoded as the train CLI's validation decodes them (``--decoder``,
 default ``native-fast``), so a checkpoint scores here what the trainer
 printed for it. Launched by ``torchrun`` on several processes, each scores
 its shard of DATA_DIR at ``--batch-size / world`` and rank 0 prints the
-counts summed over all shards, as the root ``eval.py:100-125`` does.
+counts summed over all shards, as the root ``eval.py:100-125`` does. Each
+batch size runs on the route measured fastest for it on the card (eager, a
+CUDA graph or ``torch.compile``: ``utils/routing.py``), as the root
+``eval.py:121`` routes its eval step; ``--compilation-cache DIR`` keeps the
+compiled route's caches across runs.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from mnasnet_tpu_torch.models.mnasnet import create_model
 from mnasnet_tpu_torch.ops.depthwise import CLI_IMPLS
 from mnasnet_tpu_torch.pretrained import load_state_dict_file, load_weights
 from mnasnet_tpu_torch.train.steps import make_eval_step, make_predict_fn
+from mnasnet_tpu_torch.utils.compilation_cache import enable_compilation_cache
+from mnasnet_tpu_torch.utils.routing import BatchRouted
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -55,7 +61,12 @@ def main(argv=None):
     p.add_argument("--fused-kernels", choices=sorted(CLI_IMPLS), default="auto")
     p.add_argument("--topk", type=int, default=5)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--compilation-cache", default=None, metavar="DIR",
+                   help="persistent cache of the compiled route (Inductor's FX graphs, "
+                        "Triton's kernels) in DIR (default: $MNASNET_TPU_COMPILATION_CACHE, "
+                        "else off)")
     args = p.parse_args(argv)
+    enable_compilation_cache(args.compilation_cache)
 
     if args.use_ema and not args.resume:
         raise SystemExit("--use-ema requires --resume (the EMA shadow lives in the "
@@ -116,8 +127,10 @@ def main(argv=None):
                             drop_last=False, workers=args.workers, augment=False,
                             shard_id=rank, num_shards=world, bytes_transform=bytes_tf)
         # Eval only: no Trainer, no optimizer, no TrainState.
-        run_validation(make_eval_step(model), loader, device=next(model.parameters()).device,
-                       compute_dtype=_DTYPES[args.dtype], verbose=rank == 0, replicas=replicas)
+        device = next(model.parameters()).device
+        run_validation(BatchRouted(make_eval_step(model), batch_arg=0, device=device), loader,
+                       device=device, compute_dtype=_DTYPES[args.dtype], verbose=rank == 0,
+                       replicas=replicas)
     finally:
         close(replicas)
 

@@ -14,10 +14,14 @@ block's band of output rows, its channel group, each thread's strip of
 outputs and the rows computed side by side. C must be a multiple of 8 on the card (every MNASNet width is): the
 wrapper raises for any other.
 
-:func:`dw_conv_bn_act` runs :func:`dw_conv_reference` for a CPU tensor and
-the kernel for a CUDA tensor; nothing falls back from one to the other. It has
-no gradient: on a CUDA tensor that requires one it raises, and training
-reaches the kernel through :func:`depthwise_conv_train` (``_dw_conv``,
+The kernel is the ``torch.library`` op ``mnasnet_tpu_torch::dw_conv_bn_act``,
+so that ``torch.export``, ``torch.compile`` and fake tensors record the op
+itself: its CPU impl is :func:`dw_conv_reference`, its CUDA impl launches the
+kernel, its fake impl gives the output's shape. A tensor on any other device
+finds no impl and raises; nothing falls back from one impl to another.
+Each impl checks its arguments; :func:`dw_conv_bn_act` calls the op. It has no
+gradient: where autograd would record it, it raises, and training reaches
+the kernel through :func:`depthwise_conv_train` (``_dw_conv``,
 ``dw_conv.py:259-282``): the kernel with unit affine and no ReLU forward, and
 the reference's XLA backward as torch ops (``ops/depthwise.py``).
 """
@@ -177,15 +181,21 @@ def dw_conv_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
     x (N, H, W, C) bf16 or fp32, NHWC; w (k, k, 1, C) fp32; scale, bias (C,)
     fp32; k in {3, 5}; stride in {1, 2}. Returns (N, Ho, Wo, C) in x's dtype.
-    A CPU tensor takes :func:`dw_conv_reference`; a CUDA tensor launches the
-    kernel (``dw_conv_bn_act.launches`` counts those launches) or raises.
+    Calls the op ``mnasnet_tpu_torch::dw_conv_bn_act``: a CPU tensor takes
+    :func:`dw_conv_reference`, a CUDA tensor launches the kernel
+    (``dw_conv_bn_act.launches`` counts those launches) or raises.
     """
-    _check(x, w, scale, bias, stride)
-    if x.device.type == "cpu":
-        return dw_conv_reference(x, w, scale, bias, stride=stride, relu=relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"dw_conv_bn_act runs on cpu or cuda, not {x.device}")
     _build.refuse_autograd("dw_conv_bn_act", x, w, scale, bias)
+    return torch.ops.mnasnet_tpu_torch.dw_conv_bn_act.default(x, w, scale, bias, stride, relu)
+
+
+def _dw_cuda(x, w, scale, bias, stride, relu):
+    """The op's CUDA impl: the op's and the kernel's checks, the plan, one
+    launch. Every impl checks its arguments: an artifact calls the op
+    directly."""
+    _check(x, w, scale, bias, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"the dw kernel takes x on the card, not on {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"the dw kernel takes bf16 or fp32, not {x.dtype}")
     if not x.is_contiguous():
@@ -204,6 +214,18 @@ def dw_conv_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     y = launch(x, w32, s32, b32, stride, relu, plan(n, h, wd, c, k, stride, x.element_size()))
     dw_conv_bn_act.launches += 1
     return y
+
+
+def _dw_cpu(x, w, scale, bias, stride, relu):
+    _check(x, w, scale, bias, stride)
+    return dw_conv_reference(x, w, scale, bias, stride=stride, relu=relu)
+
+
+def _dw_fake(x, w, scale, bias, stride, relu):
+    _check(x, w, scale, bias, stride)
+    n, h, wd, c = x.shape
+    k = w.shape[0]
+    return x.new_empty((n, out_size(h, k, stride), out_size(wd, k, stride), c))
 
 
 def launch(x, w32, s32, b32, stride: int, relu: bool, p: Plan) -> torch.Tensor:
@@ -226,6 +248,15 @@ def launch(x, w32, s32, b32, stride: int, relu: bool, p: Plan) -> torch.Tensor:
 
 
 dw_conv_bn_act.launches = 0
+
+# The op. ``needs_exact_strides``: a compiler hands x over with the strides
+# it has in eager mode (contiguous NHWC), never re-laid out.
+_LIB = torch.library.Library("mnasnet_tpu_torch", "FRAGMENT")
+_LIB.define("dw_conv_bn_act(Tensor x, Tensor w, Tensor scale, Tensor bias, int stride, "
+            "bool relu) -> Tensor", tags=(torch.Tag.needs_exact_strides,))
+_LIB.impl("dw_conv_bn_act", _dw_cpu, "CPU")
+_LIB.impl("dw_conv_bn_act", _dw_cuda, "CUDA")
+torch.library.register_fake("mnasnet_tpu_torch::dw_conv_bn_act", _dw_fake, lib=_LIB)
 
 
 class _DepthwiseConv(torch.autograd.Function):

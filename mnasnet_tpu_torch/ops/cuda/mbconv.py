@@ -13,9 +13,12 @@ channels (see the source note in ``csrc/mbconv.cu``). :func:`plan` picks the
 tile, and :func:`mbconv_fits_smem` (the counterpart of ``mbconv_fits_vmem``)
 says whether a block has a plan at all.
 
-:func:`mbconv_fused` runs :func:`mbconv_reference` for a CPU tensor and the
-kernel for a CUDA tensor; nothing falls back from one to the other. The block
-is inference-only: on a CUDA tensor that requires a gradient it raises.
+The kernel is the ``torch.library`` op ``mnasnet_tpu_torch::mbconv_block``
+(CPU impl :func:`mbconv_reference`, CUDA impl the kernel, a fake impl for
+tracing), so that an export or a compile records the op itself; a tensor on
+any other device finds no impl and raises, and nothing falls back from one
+impl to another. Each impl checks its arguments; :func:`mbconv_fused` calls the op.
+The block is inference-only: where autograd would record it, it raises.
 """
 
 from __future__ import annotations
@@ -203,9 +206,12 @@ def plan(h: int, w: int, cin: int, cmid: int, cout: int, k: int, stride: int,
     return best
 
 
+@torch.compiler.assume_constant_result
 def mbconv_fits_smem(H: int, W: int, Cin: int, Cmid: int, Cout: int, k: int, stride: int,
                      elem_bytes: int = 2) -> bool:
-    """Whether the fused kernel has a shared-memory plan for this block."""
+    """Whether the fused kernel has a shared-memory plan for this block: a
+    pure function of static shapes, which a compiler evaluates once while it
+    traces (``assume_constant_result``) instead of tracing the planner."""
     return plan(H, W, Cin, Cmid, Cout, k, stride, elem_bytes) is not None
 
 
@@ -271,18 +277,25 @@ def mbconv_fused(x, we, se, be, wd, sd, bd, wp, sp, bp, *, kernel_size: int,
 
     x (N, H, W, Cin) bf16 or fp32, NHWC; we (Cin, Cmid); wd (k, k, 1, Cmid);
     wp (Cmid, Cout); the folded BN pairs (se, be), (sd, bd) (Cmid,) and
-    (sp, bp) (Cout,). Returns (N, Ho, Wo, Cout) in x's dtype. A CPU tensor
-    takes :func:`mbconv_reference`; a CUDA tensor launches the kernel
+    (sp, bp) (Cout,). Returns (N, Ho, Wo, Cout) in x's dtype. Calls the op
+    ``mnasnet_tpu_torch::mbconv_block``: a CPU tensor takes
+    :func:`mbconv_reference`, a CUDA tensor launches the kernel
     (``mbconv_fused.launches`` counts those launches) or raises.
     """
-    k = kernel_size
-    _check(x, we, se, be, wd, sd, bd, wp, sp, bp, k, stride, residual)
     args = (x, we, se, be, wd, sd, bd, wp, sp, bp)
-    if x.device.type == "cpu":
-        return mbconv_reference(*args, kernel_size=k, stride=stride, residual=residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"mbconv_fused runs on cpu or cuda, not {x.device}")
     _build.refuse_autograd("mbconv_fused", *args)
+    return torch.ops.mnasnet_tpu_torch.mbconv_block.default(*args, kernel_size, stride,
+                                                            residual)
+
+
+def _mbconv_cuda(x, we, se, be, wd, sd, bd, wp, sp, bp, k, stride, residual):
+    """The op's CUDA impl: the op's and the kernel's checks, the plan, one
+    launch. Every impl checks its arguments: an artifact calls the op
+    directly."""
+    args = (x, we, se, be, wd, sd, bd, wp, sp, bp)
+    _check(*args, k, stride, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"the MBConv kernel takes x on the card, not on {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"the MBConv kernel takes bf16 or fp32, not {x.dtype}")
     if not x.is_contiguous():
@@ -296,6 +309,18 @@ def mbconv_fused(x, we, se, be, wd, sd, bd, wp, sp, bp, *, kernel_size: int,
     y = launch(*kernel_args(*args, kernel_size=k), stride=stride, residual=residual, p=p)
     mbconv_fused.launches += 1
     return y
+
+
+def _mbconv_cpu(x, we, se, be, wd, sd, bd, wp, sp, bp, k, stride, residual):
+    _check(x, we, se, be, wd, sd, bd, wp, sp, bp, k, stride, residual)
+    return mbconv_reference(x, we, se, be, wd, sd, bd, wp, sp, bp, kernel_size=k,
+                            stride=stride, residual=residual)
+
+
+def _mbconv_fake(x, we, se, be, wd, sd, bd, wp, sp, bp, k, stride, residual):
+    _check(x, we, se, be, wd, sd, bd, wp, sp, bp, k, stride, residual)
+    n, h, w, _ = x.shape
+    return x.new_empty((n, out_size(h, k, stride), out_size(w, k, stride), wp.shape[1]))
 
 
 def kernel_args(x, we, se, be, wd, sd, bd, wp, sp, bp, *, kernel_size: int) -> tuple:
@@ -333,3 +358,12 @@ def launch(x, we, se, be, wd, sd, bd, wp, sp, bp, *, stride: int, residual: bool
 
 
 mbconv_fused.launches = 0
+
+# The op; ``needs_exact_strides`` as for ``dw_conv_bn_act``: x stays contiguous NHWC.
+_LIB = torch.library.Library("mnasnet_tpu_torch", "FRAGMENT")
+_LIB.define("mbconv_block(Tensor x, Tensor we, Tensor se, Tensor be, Tensor wd, Tensor sd, "
+            "Tensor bd, Tensor wp, Tensor sp, Tensor bp, int kernel_size, int stride, "
+            "bool residual) -> Tensor", tags=(torch.Tag.needs_exact_strides,))
+_LIB.impl("mbconv_block", _mbconv_cpu, "CPU")
+_LIB.impl("mbconv_block", _mbconv_cuda, "CUDA")
+torch.library.register_fake("mnasnet_tpu_torch::mbconv_block", _mbconv_fake, lib=_LIB)

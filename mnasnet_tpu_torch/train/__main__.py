@@ -17,8 +17,11 @@ R`` on each process; ``--batch-size`` is the global batch and each replica
 takes ``--batch-size / W`` of it from its shard of the data. Sync-BN is the
 default and ``--no-sync-bn`` keeps per-replica statistics. Rank 0 prints and
 writes the checkpoints; every rank prints its own decoder-fallback count.
-``--remat`` and ``--compilation-cache``, whose modules are not ported, exit
-non-zero and say so.
+``--compilation-cache DIR`` keeps the compiled routes' caches (Inductor,
+Triton) in DIR across runs; the train step itself runs eagerly, and
+validation runs each batch size on the route measured fastest for it
+(``utils/routing.py``). ``--remat``, whose module is not ported, exits
+non-zero and says so.
 """
 
 from __future__ import annotations
@@ -144,7 +147,10 @@ def parse_args(argv=None):
                    help="N:M: torch.profiler trace of train steps N..M (epoch 0)")
     p.add_argument("--tensorboard", default="", help="TensorBoard log dir (empty = off)")
     p.add_argument("--compilation-cache", default=None, metavar="DIR",
-                   help="the reference's XLA compile cache: not ported, exits non-zero")
+                   help="persistent cache of the compiled routes (Inductor's FX graphs, "
+                        "Triton's kernels) in DIR; validation's compile route reads it, "
+                        "the train step runs eagerly (default: "
+                        "$MNASNET_TPU_COMPILATION_CACHE, else off)")
     p.add_argument("--device", default="cuda",
                    help="device to train on (default cuda; cpu runs the kernels' plain "
                         "versions)")
@@ -169,9 +175,6 @@ def refuse_unported(args) -> None:
     missing = []
     if args.remat:
         missing.append("--remat: rematerialised MBConv blocks")
-    if args.compilation_cache is not None:
-        missing.append("--compilation-cache: the XLA compilation cache has no counterpart "
-                       "in the port yet")
     if missing:
         raise SystemExit("not ported yet in mnasnet_tpu_torch: " + "; ".join(missing))
 
@@ -257,7 +260,9 @@ def main(argv=None):
 
     from mnasnet_tpu_torch.models.mnasnet import resolve_device
     from mnasnet_tpu_torch.parallel import close, init_distributed
+    from mnasnet_tpu_torch.utils.compilation_cache import enable_compilation_cache
 
+    enable_compilation_cache(args.compilation_cache)
     device = resolve_device(args.device)
     try:
         replicas = init_distributed(args.dist_url, args.world_size, args.rank,

@@ -278,9 +278,13 @@ def _images(model: torch.nn.Module, images) -> torch.Tensor:
 
 
 def make_eval_step(model: torch.nn.Module, label_smoothing: float = 0.0):
-    """eval_step(images, labels) -> metrics (running-stats BN, no dropout)."""
+    """eval_step(images, labels) -> metrics (running-stats BN, no dropout).
 
-    @torch.inference_mode()
+    It runs under ``no_grad``, not ``inference_mode``: Dynamo cannot compile
+    a function that enters inference mode, and the eval and predict steps
+    are served through the compile route too (``utils/routing.py``)."""
+
+    @torch.no_grad()
     def eval_step(images, labels):
         logits = model(_images(model, images))
         labels = torch.as_tensor(labels).to(logits.device)
@@ -294,9 +298,9 @@ def make_eval_step(model: torch.nn.Module, label_smoothing: float = 0.0):
 
 def make_predict_fn(model: torch.nn.Module):
     """predict(images NHWC) -> fp32 logits: the single-image request path and
-    the serving path."""
+    the serving path. ``no_grad`` as in :func:`make_eval_step`."""
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def predict(images):
         return model(_images(model, images))
 

@@ -21,6 +21,9 @@ device tensor) and the host reads it one step late, as it reads the
 metrics: a stop asked of any one replica stops them all before the same
 step, with no host wait added per step. Validation sums its counts over the
 replicas' shards; meters, prints and the TensorBoard writer are rank 0's.
+The eval step is batch-routed as the reference's (``trainer.py:133,300-312``):
+each batch size runs on the route measured fastest for it on the card
+(``utils/routing.py``); the train step stays eager.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from mnasnet_tpu_torch.train.steps import (
     step_collectives,
 )
 from mnasnet_tpu_torch.utils.meters import AverageMeter, ProgressMeter
+from mnasnet_tpu_torch.utils.routing import BatchRouted
 
 
 @contextlib.contextmanager
@@ -121,7 +125,7 @@ class Trainer:
             if diagnostics:
                 raise ValueError("diagnostics are not kept by the local-BN step")
             self._train_step = make_local_bn_train_step(model, tx, label_smoothing, replicas)
-        self._eval_step = make_eval_step(model)
+        self._eval_step = BatchRouted(make_eval_step(model), batch_arg=0, device=self.device)
 
     def create_state(self, seed: int = 0) -> TrainState:
         """Bind the optimizer to the model (fresh state) and seed the dropout

@@ -248,12 +248,38 @@ def test_check_preempt_meta_tolerates_torn_or_missing(tmp_path):
       "3"], "--mesh-dcn 3 does not divide the world size 2"),
     # Modules not ported.
     (["--remat"], "rematerialised"),
-    (["--compilation-cache", "cache"], "compilation cache"),
 ])
 def test_cli_refuses_flags_whose_modules_are_not_ported(tmp_path, flags, message):
     with pytest.raises(SystemExit, match=message):
         train_cli.main([*BASE, *flags, "--output-dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_cli_compilation_cache_flag_sets_the_cache_directory(tmp_path, capsys, monkeypatch, cli):
+    """--compilation-cache DIR, on both CLIs as on the reference's
+    (train.py:183,286, eval.py:36,45): the run goes through and Inductor's
+    and Triton's caches point into DIR."""
+    from mnasnet_tpu_torch import eval as eval_cli
+    from mnasnet_tpu_torch.utils.compilation_cache import disable_compilation_cache
+
+    for var in ("MNASNET_TPU_COMPILATION_CACHE", "TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR"):
+        monkeypatch.delenv(var, raising=False)
+    cache = tmp_path / "cache"
+    out = tmp_path / "run"
+    try:
+        train_cli.main([*BASE, "--epochs", "1", "--output-dir", str(out),
+                        *(["--compilation-cache", str(cache)] if cli == "train" else [])])
+        if cli == "eval":
+            eval_cli.main([str(_image_folder(tmp_path / "data")), "--arch", "mnasnet0_35",
+                           "--image-size", "32", "--device", "cpu", "--workers", "0",
+                           "--resume", str(out), "-b", "4", "--compilation-cache", str(cache)])
+        assert " * Acc@1 " in capsys.readouterr().out
+        assert cache.is_dir()
+        assert os.environ["TORCHINDUCTOR_CACHE_DIR"] == str(cache)
+        assert os.environ["TRITON_CACHE_DIR"] == str(cache / "triton")
+    finally:
+        disable_compilation_cache()
 
 
 def test_pretrained_model_ema_shadow_starts_from_the_init(tmp_path, monkeypatch):

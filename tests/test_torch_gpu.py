@@ -568,3 +568,135 @@ def test_trainer_stop_and_resume_is_bitwise_on_the_card(cuda, tmp_path, monkeypa
             assert torch.equal(a[k], c[k]), k
     assert sa.state_dict()["step"] == sc.state_dict()["step"] == 4
     assert torch.equal(sa.generator.get_state(), sc.generator.get_state())
+
+
+# ------------------------------------------------- the ops and the routes
+
+
+def _dw_op_case(cuda, h, c, k, dtype, batch=16, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(batch, h, h, c, device=cuda, generator=g).to(dtype)
+    w = torch.randn(k, k, 1, c, device=cuda, generator=g) * 0.3
+    return x, w, torch.rand(c, device=cuda, generator=g) + 0.5, \
+        torch.randn(c, device=cuda, generator=g) * 0.1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("i", range(12))
+def test_dw_op_cuda_impl_matches_its_cpu_impl(cuda, dtype, tol, i):
+    """``torch.ops.mnasnet_tpu_torch.dw_conv_bn_act`` through the dispatcher at
+    each depthwise shape of mnasnet1_0@224 (batch 16): the CUDA impl (one
+    counted launch) against the CPU impl on the same inputs."""
+    from mnasnet_tpu_torch.tools.tune_plans import dw_shapes
+
+    h, c, k, s = dw_shapes()[i]
+    x, w, scale, bias = _dw_op_case(cuda, h, c, k, dtype, seed=i)
+    op = torch.ops.mnasnet_tpu_torch.dw_conv_bn_act.default
+    before = dw_conv_bn_act.launches
+    y = op(x, w, scale, bias, s, True)
+    torch.cuda.synchronize()
+    assert dw_conv_bn_act.launches - before == 1 and y.is_cuda and y.dtype == dtype
+    _close(y.cpu(), op(x.cpu(), w.cpu(), scale.cpu(), bias.cpu(), s, True), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("i", range(16))
+def test_mbconv_op_cuda_impl_matches_its_cpu_impl(cuda, dtype, tol, i):
+    """``torch.ops.mnasnet_tpu_torch.mbconv_block`` at each block of
+    mnasnet1_0@224 (batch 8): the CUDA impl against the CPU impl."""
+    from mnasnet_tpu_torch.tools.tune_plans import block_shapes, random_block
+
+    _, h, cin, cmid, cout, k, s = block_shapes()[i]
+    g = torch.Generator(device=cuda).manual_seed(i)
+    _, (x32, *weights), kw = random_block(h, cin, cmid, cout, k, s, g)
+    x = x32[:8].to(dtype).contiguous()
+    op = torch.ops.mnasnet_tpu_torch.mbconv_block.default
+    args = (kw["kernel_size"], kw["stride"], kw["residual"])
+    before = mbconv_fused.launches
+    y = op(x, *weights, *args)
+    torch.cuda.synchronize()
+    assert mbconv_fused.launches - before == 1 and y.is_cuda and y.dtype == dtype
+    _close(y.cpu(), op(x.cpu(), *(t.cpu() for t in weights), *args), tol)
+
+
+def test_graph_route_equals_eager_and_keeps_held_results(cuda):
+    """The graph route's logits equal eager's bit for bit; a replay returns a
+    copy, so two held results stay intact after a third call; the kernels'
+    counters advance at the warm-up and the capture, not at a replay."""
+    from mnasnet_tpu_torch.train.steps import make_predict_fn
+    from mnasnet_tpu_torch.utils.routing import GRAPH_WARMUP, BatchRouted
+
+    model = create_model("mnasnet0_5", num_classes=10, dtype=torch.bfloat16, dw_impl="kernel")
+    predict = make_predict_fn(model)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xs = [torch.randn(4, 64, 64, 3, device=cuda, generator=g) for _ in range(3)]
+    routed = BatchRouted(predict, route_for=lambda bs: "graph")
+    before = (dw_conv_bn_act.launches, mbconv_fused.launches)
+    held = [routed(xs[0]), routed(xs[1])]
+    copies = [h.clone() for h in held]
+    third = routed(xs[2])
+    torch.cuda.synchronize()
+    calls = GRAPH_WARMUP + 1
+    assert (dw_conv_bn_act.launches - before[0], mbconv_fused.launches - before[1]) == \
+        (calls, 16 * calls)
+    assert list(routed.replays.values()) == [3]
+    assert all(torch.equal(h, c) for h, c in zip(held, copies))
+    for x, out in zip(xs, [*held, third]):
+        assert torch.equal(out, predict(x))
+
+
+def test_compile_of_the_model_on_the_card_keeps_the_ops_opaque(cuda):
+    """torch.compile(fullgraph=True) with Inductor on the card: the graph holds
+    the 17 kernel ops, each compiled call launches them (1 + 16), and the
+    logits meet the serving phase's bf16 bar against eager."""
+    from torch._inductor.compile_fx import compile_fx
+
+    ops = ("mnasnet_tpu_torch.dw_conv_bn_act", "mnasnet_tpu_torch.mbconv_block")
+    graphs = []
+
+    def backend(gm, example_inputs):
+        graphs.append([str(n.target) for n in gm.graph.nodes if n.op == "call_function"])
+        return compile_fx(gm, example_inputs)
+
+    model = create_model("mnasnet0_5", num_classes=10, dtype=torch.bfloat16, dw_impl="kernel")
+    x = torch.randn(8, 3, 64, 64, device=cuda)
+    with torch.no_grad():
+        want = model(x)
+        compiled = torch.compile(model, backend=backend, fullgraph=True)
+        compiled(x)
+        before = (dw_conv_bn_act.launches, mbconv_fused.launches)
+        got = compiled(x)
+    torch.cuda.synchronize()
+    assert len(graphs) == 1
+    assert [sum(op in t for t in graphs[0]) for op in ops] == [1, 16]
+    assert (dw_conv_bn_act.launches - before[0], mbconv_fused.launches - before[1]) == (1, 16)
+    assert float((got - want).abs().max()) <= 0.25 * float(want.abs().max())
+
+
+def test_artifact_traced_on_the_cpu_serves_on_the_card(cuda):
+    """An artifact traced on the CPU, moved to the card by load_serving: its
+    eager route equals the live forward on the card bit for bit, with 1 dw
+    and 16 MBConv launches a call."""
+    from mnasnet_tpu_torch.serving import load_serving
+    from mnasnet_tpu_torch.tools.export_serving import build_forward, export_artifact
+
+    fn, x = build_forward("mnasnet0_5", 10, "bfloat16", None, 64, 4, device="cpu")
+    data = export_artifact(fn, x, symbolic_batch=True)
+    predict = load_serving(data, route="eager")
+    live = fn.to(cuda)
+    img = torch.randn(6, 64, 64, 3, device=cuda)
+    before = (dw_conv_bn_act.launches, mbconv_fused.launches)
+    got = predict(img)
+    torch.cuda.synchronize()
+    assert (dw_conv_bn_act.launches - before[0], mbconv_fused.launches - before[1]) == (1, 16)
+    with torch.no_grad():
+        assert torch.equal(got, live(img))
+    # The compile route of the same artifact (Inductor, the ops opaque): each
+    # call launches the kernels; the logits within the serving bf16 bar.
+    compiled = load_serving(data, route="compile")
+    compiled(img)
+    before = (dw_conv_bn_act.launches, mbconv_fused.launches)
+    out = compiled(img)
+    torch.cuda.synchronize()
+    assert (dw_conv_bn_act.launches - before[0], mbconv_fused.launches - before[1]) == (1, 16)
+    assert float((out - got).abs().max()) <= 0.25 * float(got.abs().max())
