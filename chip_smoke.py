@@ -56,19 +56,31 @@ Phases, in order; any failure raises and exits non-zero:
   8. train: ``make_train_step`` on the production configuration
      (``create_model("mnasnet1_0", dtype=bf16, bn_ema="external",
      stem_s2d=True)``, ``create_optimizer("rmsprop", 0.01, fused="small")``,
-     label smoothing 0.1) for 5 steps on one fixed batch of 128x224x224x3
-     with seeded labels: the losses finite and falling from step 1 to step 5,
-     and exactly 17 dw, 35 bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches
-     per step; one fp32 step on the kernel route against the torch route
-     from the same weights; images/s of both routes in bf16 and the step's
-     peak memory; with ``--profile``, one kernel per counted launch;
+     label smoothing 0.1) on the default train route (``TRAIN_ROUTE``) for 5
+     steps on one fixed batch of 128x224x224x3 with seeded labels: the
+     losses finite and falling from step 1 to step 5, and exactly 17 dw, 35
+     bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches per step the counters
+     see (``TrainRouted.counted``: eager and compiled calls, and a graph's
+     warm-up and capture, not its replays); under deterministic algorithms,
+     with dropout, a warmup-cosine rate that changes every step and the
+     model EMA, 5 steps on the graph route and 5 steps eager, eager, graph,
+     graph, eager on one state, each bit for bit the all-eager run; one
+     fp32 step on the kernel route against the torch route, and the first
+     bf16 step of the compile route (Inductor) against the eager one, from
+     the same weights;
+     per train route (eager, graph, compile on the kernel route; the torch
+     route eager) in bf16 the ms per step, images/s, peak memory and the
+     first call's seconds (capture, compile), and the fastest route, which
+     ``TRAIN_ROUTE`` is set from; with ``--profile``, each route's device
+     time and busy share and one kernel per counted launch;
   9. trainer: the training harness, ``python -m mnasnet_tpu_torch.train``'s
      ``main(argv)`` in this process on the same production configuration
      (batch 128, bf16, 224 px, mnasnet1_0): (a) one epoch over a seeded
      ImageFolder of JPEGs (384 train images, 3 steps; 160 val images, a
      full batch and a padded tail of 32) with ``--bn-recalibrate 2`` and the
      ``native-fast`` decoder, checking 17 dw / 35 + 35 BN / 0 MBConv launches
-     per train step, 1 dw and 16 MBConv launches per validation forward that
+     per train step that the counters see (the CLI trains on the default
+     train route), 1 dw and 16 MBConv launches per validation forward that
      the counters see (before and after recalibration; the eval step is
      batch-routed, and a graph replay launches without its wrappers), 17 dw
      and nothing else per
@@ -130,12 +142,24 @@ Tolerances (normalised by the largest magnitude of the reference):
   * dw training op vs torch route: dx 1e-4 (fp32) and 2^-7 (bf16); dw 1e-4
     (fp32) and 2^-6 (bf16: the torch route rounds its weight gradient to
     bf16, the Function sums in fp32);
+  * the first bf16 step of the compile route (compiled once, then timed)
+    vs eager from the same weights: loss within 1e-5 relative, the BN
+    running statistics (moments as the dist bars below read them) within
+    1e-5, and the update within 1e-2 relative RMS, or each within 4 times
+    the eager step's own move when its images change by one bf16 ulp,
+    whichever is larger (Inductor rounds its fused bf16 arithmetic once
+    where eager rounds every op). At random init that one-ulp move shifts
+    the bf16 update by about its own size (measured: 1.17 relative RMS), so
+    the loss and the moments carry this check; the update is held in fp32,
+    at the fp32 bars, by ``tests/test_torch_gpu.py`` at a small size;
   * one fp32 training step, kernel route vs torch route: loss within 1e-5
     relative, BN running statistics within 1e-5 relative, and the parameter
     update p - p0 within 1e-2 relative RMS over all parameters (the
     elementwise count outside rtol 5e-3 / atol 1e-4 is printed: at random
     init a 1e-7 forward difference can flip a ReLU mask and move single
     gradient elements by more);
+  * train routes: the graph route and a mix of routes bit for bit the eager
+    route (the same kernels on the same inputs in the same order);
   * trainer: launches and checkpoints exactly, the eval CLI's acc1 equal to
     the trainer's as printed (3 decimals), the resumed run bit for bit;
   * dist: launches and collectives exactly; the ranks against one process:
@@ -216,6 +240,7 @@ from mnasnet_tpu_torch.tools.tune_plans import (
 from mnasnet_tpu_torch.train import __main__ as train_cli
 from mnasnet_tpu_torch.train import bn_recal
 from mnasnet_tpu_torch.train.optim import create_optimizer
+from mnasnet_tpu_torch.train.schedules import make_schedule
 from mnasnet_tpu_torch.train.state import TrainState
 from mnasnet_tpu_torch.train.steps import (
     make_local_bn_train_step,
@@ -225,7 +250,12 @@ from mnasnet_tpu_torch.train.steps import (
 )
 from mnasnet_tpu_torch.tools.export_serving import build_forward, export_artifact
 from mnasnet_tpu_torch.train.trainer import Trainer
-from mnasnet_tpu_torch.utils.routing import GRAPH_WARMUP, ROUTES, SERVE_ROUTE_BATCH_RANGES
+from mnasnet_tpu_torch.utils.routing import (
+    GRAPH_WARMUP,
+    ROUTES,
+    SERVE_ROUTE_BATCH_RANGES,
+    TRAIN_ROUTE,
+)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense bf16 tensor-core rate
@@ -922,13 +952,20 @@ def train_batch():
     return images, labels
 
 
-def _train_setup(dtype, route, seed=0):
+def _train_setup(dtype, route, seed=0, step_route=None, schedule=False, model_ema=None,
+                 **model_kw):
+    """The production configuration (``route``: the model's kernel route,
+    "auto" = its default) and its train step on ``step_route`` (None: the
+    default train route). ``schedule``: warmup-cosine from 0 over the
+    ``TRAIN_STEPS`` steps, a rate that changes every step."""
     kw = {} if route == "auto" else {"dw_impl": route, "bn_bwd": route}
     model = create_model("mnasnet1_0", dtype=dtype, bn_ema="external", stem_s2d=True,
-                         seed=seed, **kw)
-    tx = create_optimizer("rmsprop", TRAIN_LR, fused="small")
+                         seed=seed, **kw, **model_kw)
+    lr = make_schedule("cosine", TRAIN_LR, TRAIN_STEPS, 2, warmup_epochs=1) if schedule \
+        else TRAIN_LR
+    tx = create_optimizer("rmsprop", lr, fused="small", model_ema=model_ema)
     state = TrainState.create(model, tx, seed=seed)
-    return model, state, make_train_step(model, tx, label_smoothing=0.1)
+    return model, state, make_train_step(model, tx, label_smoothing=0.1, route=step_route)
 
 
 def _params(model):
@@ -939,11 +976,78 @@ def _stats(model):
     return {n: b.clone() for n, b in model.named_buffers() if n.endswith(("mean", "var"))}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms (cuBLAS's fixed workspace is set from the
+    first call of this process on): what bitwise comparisons of steps need."""
+    previous = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(previous)
+
+
+def _memory_base() -> tuple[int, int]:
+    """Allocated and reserved bytes now, with the allocator's unused cache
+    released and the peak reset: the base a route's memory is counted from."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _snapshot(model, step, state) -> dict:
+    return {"model": {k: v.clone() for k, v in model.state_dict().items()},
+            "tx": step._steps.tx.state_dict(), "generator": state.generator.get_state(),
+            "step": state.step}
+
+
+def _route_runs(images, labels) -> dict:
+    """Bitwise: 5 steps on the graph route against 5 eager steps, and eager,
+    graph, eager on one state (steps 1-2, 3-4, 5) against all-eager, with
+    dropout, a rate that changes every step and the model EMA with warmup,
+    under deterministic algorithms."""
+    runs = {}
+    for name, routes in (("eager", ["eager"] * TRAIN_STEPS), ("graph", ["graph"] * TRAIN_STEPS),
+                         ("mixed", ["eager", "eager", "graph", "graph", "eager"])):
+        model, state, first = _train_setup(torch.bfloat16, "auto", seed=2, step_route="eager",
+                                           schedule=True, model_ema=0.999)
+        tx = first._steps.tx
+        steps = {r: make_train_step(model, tx, 0.1, route=r) for r in set(routes)}
+        losses, lrs = [], []
+        with deterministic():
+            for r in routes:
+                state, metrics = steps[r](state, images, labels)
+                losses.append(metrics["loss"])
+                lrs.append(tx.inner.lr.clone())
+        torch.cuda.synchronize()
+        runs[name] = {"losses": [float(v) for v in losses], "lrs": [float(v) for v in lrs],
+                      **_snapshot(model, steps[routes[0]], state),
+                      "replays": sum(sum(st.replays.values()) for st in steps.values())}
+        del model, state, steps, tx, first
+    ref = runs["eager"]
+    out = {"lrs": ref["lrs"], "losses": ref["losses"]}
+    for name in ("graph", "mixed"):
+        run = runs[name]
+        same = {"losses": run["losses"] == ref["losses"],
+                **{k: _tree_equal(run[k], ref[k]) for k in ("model", "tx", "generator")}}
+        out[f"{name}_vs_eager_bitwise"] = same
+        out[f"{name}_replays"] = run["replays"]
+        log(f"[train] {name} route vs eager over {TRAIN_STEPS} steps, bitwise: {same}")
+        if not all(same.values()):
+            raise RuntimeError(f"the {name} run differs from the eager one: {same}")
+    if len(set(out["lrs"])) != TRAIN_STEPS or runs["graph"]["replays"] != TRAIN_STEPS - 1:
+        raise RuntimeError(f"rates {out['lrs']} or replays {runs['graph']['replays']}")
+    return out
+
+
 def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
     images, labels = train_batch()
     model, state, step = _train_setup(torch.bfloat16, "auto")
 
-    # The main path: counts set to 0 just before, read just after.
+    # The main path, on the default train route: counts set to 0 just
+    # before, read just after.
     for fn in COUNTERS.values():
         fn.launches = 0
     losses = []
@@ -953,68 +1057,147 @@ def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     losses = [float(v) for v in losses]
-    out = {"launches": launches, "losses": losses}
-    log(f"[train] {TRAIN_STEPS} steps, losses {losses}, launches {launches}")
-    if launches != {k: v * TRAIN_STEPS for k, v in LAUNCHES_PER_STEP.items()}:
-        raise RuntimeError(f"expected {LAUNCHES_PER_STEP} launches per step, got {launches}")
+    counted = step.counted()
+    out = {"route": step.route, "launches": launches, "losses": losses,
+           "calls": sum(step.calls.values()), "replays": sum(step.replays.values()),
+           "counted_steps": counted}
+    log(f"[train] {TRAIN_STEPS} steps on the {step.route} route, losses {losses}, launches "
+        f"{launches}, calls {out['calls']}, replays {out['replays']}")
+    if step.route != TRAIN_ROUTE or out["calls"] != TRAIN_STEPS:
+        raise RuntimeError(f"expected {TRAIN_STEPS} calls on the {TRAIN_ROUTE} route: {out}")
+    if launches != _scaled(LAUNCHES_PER_STEP, counted):
+        raise RuntimeError(f"expected {LAUNCHES_PER_STEP} launches per counted step "
+                           f"({counted}), got {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"losses not finite or not falling: {losses}")
     if model.training or state.step != TRAIN_STEPS:
         raise RuntimeError("the step left the model in train mode or miscounted steps")
+    out["launches_per_step"] = LAUNCHES_PER_STEP
 
-    # One fp32 step on each route from the same weights (TF32 is off).
+    out["routes_bitwise"] = _route_runs(images, labels)
+
+    # One fp32 step from the same weights (TF32 is off): the kernel route
+    # against the torch route, both eager.
     after = {}
     for route in ("kernel", "torch"):
-        m32, st32, step32 = _train_setup(torch.float32, route, seed=1)
+        m32, st32, step32 = _train_setup(torch.float32, route, seed=1, step_route="eager")
         p0 = _params(m32)
         st32, met = step32(st32, images, labels)
-        after[route] = (float(met["loss"]), p0, _params(m32), _stats(m32))
+        after[route] = {"loss": float(met["loss"]), "p0": p0, "params": _params(m32),
+                        "stats": _stats(m32)}
         del m32, st32, step32
-    (lk, p0, pk, sk), (lt, _, pt, stt) = after["kernel"], after["torch"]
-    num = sum(float(((pk[n] - pt[n]) ** 2).sum()) for n in pt)
-    den = sum(float(((pt[n] - p0[n]) ** 2).sum()) for n in pt)
-    outside = sum(int((~torch.isclose(pk[n], pt[n], rtol=5e-3, atol=1e-4)).sum()) for n in pt)
-    fp32 = {"loss_kernel": lk, "loss_torch": lt, "loss_rel_diff": abs(lk - lt) / abs(lt),
-            "update_rel_rms_diff": (num / den) ** 0.5,
+    ka, tb = after["kernel"], after["torch"]
+    pk, pt = ka["params"], tb["params"]
+    fp32 = {"loss_kernel": ka["loss"], "loss_torch": tb["loss"],
+            "loss_rel_diff": abs(ka["loss"] - tb["loss"]) / abs(tb["loss"]),
+            "update_rel_rms_diff": _update_rel_rms(ka, tb),
             "param_max_abs_diff": max(float((pk[n] - pt[n]).abs().max()) for n in pt),
-            "params_outside_rtol5e-3_atol1e-4": outside,
+            "params_outside_rtol5e-3_atol1e-4": sum(
+                int((~torch.isclose(pk[n], pt[n], rtol=5e-3, atol=1e-4)).sum()) for n in pt),
             "param_count": sum(p.numel() for p in pt.values()),
-            "stats_max_rel_diff": max(rel_err(sk[n], stt[n]) for n in stt)}
+            "stats_max_rel_diff": max(rel_err(ka["stats"][n], tb["stats"][n])
+                                      for n in tb["stats"])}
     out["fp32_kernel_vs_torch"] = fp32
     log(f"[train] fp32 one step, kernel route vs torch route: {json.dumps(fp32)}")
     if fp32["loss_rel_diff"] > 1e-5 or fp32["stats_max_rel_diff"] > 1e-5 \
             or fp32["update_rel_rms_diff"] > 1e-2:
         raise RuntimeError(f"fp32 kernel route disagrees with the torch route: {fp32}")
-    del after, p0, pk, pt, sk, stt
+    del after, ka, tb, pk, pt
+
+    # The compile route (Inductor), compiled once: its first step against the
+    # eager step from the same weights, beside the eager step on images
+    # moved by one bf16 ulp; then, with timing, it is timed as it stands.
+    nudged = images * (1 + 2.0 ** -7 * torch.randint(
+        0, 2, images.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(6)).float().mul(2).sub(1))
+    first = {}
+    for name, step_route, x in (("eager", "eager", images), ("eager_one_ulp", "eager", nudged),
+                                ("compile", "compile", images)):
+        base = _memory_base()
+        m, st, stp = _train_setup(torch.bfloat16, "kernel", step_route=step_route)
+        p0 = _params(m)
+        t0 = time.perf_counter()
+        st, met = stp(st, x, labels)
+        torch.cuda.synchronize()
+        first[name] = {"loss": float(met["loss"]), "p0": p0, "params": _params(m),
+                       "stats": _stats(m), "s": time.perf_counter() - t0}
+        if step_route == "compile":
+            compiled = (m, st, stp, first[name]["s"], base)
+        del m, st, stp, p0
+    comp = _vs_one_process(first["compile"], first["eager"], first["eager_one_ulp"])
+    moved = _vs_one_process(first["eager_one_ulp"], first["eager"], first["eager_one_ulp"])
+    comp.update(first_call_s=first["compile"]["s"],
+                one_ulp_loss_rel_diff=moved["loss_rel_diff"],
+                one_ulp_moments_max_diff=moved["moments_max_diff"])
+    bars = {"loss_rel_diff": max(1e-5, 4 * moved["loss_rel_diff"]),
+            "moments_max_diff": max(1e-5, 4 * moved["moments_max_diff"]),
+            "update_rel_rms_diff": max(1e-2, 4 * comp["one_ulp_update_rel_rms_diff"])}
+    comp["bars"] = bars
+    out["bf16_compile_vs_eager"] = comp
+    log(f"[train] bf16 first step, compile route vs eager: {json.dumps(comp)}")
+    if any(comp[k] > bar for k, bar in bars.items()):
+        raise RuntimeError(f"the compile route disagrees with eager: {comp}")
+    del first
 
     if timing:
-        for route in ("kernel", "torch"):
-            m, st, stp = (model, state, step) if route == "kernel" else \
-                _train_setup(torch.bfloat16, "torch")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+        # Every route timed first, then (with --profile) each profiled: the
+        # profiler leaves the process slower after it.
+        out["by_route"] = {}
+        runs = {}
+        # The compiled step first: nothing was made since its memory base.
+        for route, step_route in (("kernel", "compile"), ("kernel", "eager"),
+                                  ("kernel", "graph"), ("torch", "eager")):
+            name = f"{route}_{step_route}"
+            if name == "kernel_compile":
+                m, st, stp, first_s, base = compiled
+                row = {"first_call_s": first_s}
+            else:
+                base = _memory_base()
+                m, st, stp = _train_setup(torch.bfloat16, route, step_route=step_route)
+                t0 = time.perf_counter()
+                stp(st, images, labels)
+                torch.cuda.synchronize()
+                row = {"first_call_s": time.perf_counter() - t0}
             stp(st, images, labels)
             torch.cuda.synchronize()
-            out[f"{route}_route_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            ms = time_ms(lambda: stp(st, images, labels), target_ms=2000.0)
-            out[f"{route}_route_ms_per_step"] = ms
-            out[f"{route}_route_images_per_s"] = BATCH / ms * 1e3
-            if profile_dir is not None:
-                prof = profile_forward(lambda x: stp(st, x, labels), images,
-                                       profile_dir / f"profile_train_{route}_route.txt")
-                out[f"{route}_route_profile"] = prof
-                # One kernel per counted launch: the reduce is one launch.
-                seen = {name: prof["port_kernels"].get(name, {}).get("launches", 0)
-                        for name in LAUNCHES_PER_STEP}
-                if route == "kernel" and seen != LAUNCHES_PER_STEP:
-                    raise RuntimeError(f"the profile saw {seen} kernels per step, "
-                                       f"expected {LAUNCHES_PER_STEP}")
-            del m, st, stp
-        log(f"[train] bs{BATCH} bf16 train images/s: kernel route "
-            f"{out['kernel_route_images_per_s']:.1f}, torch route "
-            f"{out['torch_route_images_per_s']:.1f}; peak memory GB: kernel "
-            f"{out['kernel_route_peak_memory_gb']:.2f}, torch "
-            f"{out['torch_route_peak_memory_gb']:.2f} on {card}")
+            # What the route holds and takes at most over its first two
+            # calls, beyond what was allocated before its model was made (a
+            # graph's replays allocate nothing: its pool is reserved).
+            row["peak_memory_gb"] = (torch.cuda.max_memory_allocated() - base[0]) / 1e9
+            row["reserved_memory_gb"] = (torch.cuda.memory_reserved() - base[1]) / 1e9
+            row["ms_per_step"] = time_ms(lambda: stp(st, images, labels), target_ms=2000.0)
+            row["images_per_s"] = BATCH / row["ms_per_step"] * 1e3
+            row["host_ms_per_step"] = host_ms(lambda: stp(st, images, labels), iters=5)
+            out["by_route"][name] = row
+            runs[name] = (m, st, stp)
+            log(f"[train] bs{BATCH} bf16 {name}: {row['ms_per_step']:.3f} ms/step, "
+                f"{row['images_per_s']:.1f} images/s, peak {row['peak_memory_gb']:.2f} GB, "
+                f"first call {row['first_call_s']:.1f} s on {card}")
+        for name, (m, st, stp) in runs.items():
+            if profile_dir is None:
+                break
+            prof = profile_forward(lambda x: stp(st, x, labels), images,
+                                   profile_dir / f"profile_train_{name}.txt")
+            out["by_route"][name]["profile"] = prof
+            log(f"[train] {name} profile: device {prof['device_ms_per_call']:.3f} ms of "
+                f"{prof['wall_ms_per_call']:.3f} ms a step, busy share "
+                f"{prof['device_busy_share']:.3f}, port kernels {prof['port_kernels']}")
+            # One kernel per counted launch: the reduce is one launch.
+            seen = {k: prof["port_kernels"].get(k, {}).get("launches", 0)
+                    for k in LAUNCHES_PER_STEP}
+            out["by_route"][name]["launches_seen_per_step"] = seen
+            if name in ("kernel_eager", "kernel_compile") and seen != LAUNCHES_PER_STEP:
+                raise RuntimeError(f"the {name} profile saw {seen} kernels per step, "
+                                   f"expected {LAUNCHES_PER_STEP}")
+        del runs, m, st, stp
+        fastest = min(("eager", "graph", "compile"),
+                      key=lambda r: out["by_route"][f"kernel_{r}"]["ms_per_step"])
+        out["fastest_train_route"] = fastest
+        main = out["by_route"][f"kernel_{TRAIN_ROUTE}"]
+        out["kernel_route_images_per_s"] = main["images_per_s"]
+        out["torch_route_images_per_s"] = out["by_route"]["torch_eager"]["images_per_s"]
+        log(f"[train] fastest train route {fastest}; TRAIN_ROUTE is {TRAIN_ROUTE}")
+    del compiled
     return out
 
 
@@ -1063,12 +1246,16 @@ def recorded_calls(calls: list):
     """Record, for each call of ``Trainer.train_epoch``, ``Trainer.validate``
     and ``recalibrate_bn`` made inside, the kernel launches it made and the
     steps or batches it ran (for validation, also the routed eval step's
-    forwards by route: :func:`routed_forwards`)."""
+    forwards by route: :func:`routed_forwards`; for training, the train
+    route, its calls and the steps the counters saw: ``TrainRouted.counted``)."""
     def record(kind):
         def wrapper(orig):
             def call(*a, **kw):
                 before, t0 = counts(), time.perf_counter()
                 routed_before = dict(a[0]._eval_step.calls) if kind == "validate" else None
+                train_step = a[0]._train_step if kind == "train_epoch" else None
+                if train_step is not None:
+                    counted0, calls0 = train_step.counted(), sum(train_step.calls.values())
                 out = orig(*a, **kw)
                 torch.cuda.synchronize()
                 row = {"kind": kind, "launches": _delta(before, counts()),
@@ -1076,6 +1263,9 @@ def recorded_calls(calls: list):
                 if kind == "train_epoch":
                     row["steps"] = out.step
                     row["loss"] = a[0].epoch_train_stats["loss"]
+                    row["route"] = train_step.route
+                    row["step_calls"] = sum(train_step.calls.values()) - calls0
+                    row["counted_steps"] = train_step.counted() - counted0
                 elif kind == "validate":
                     row["forwards"] = a[2].steps_per_epoch()
                     row["routes"] = routed_forwards(a[0]._eval_step, routed_before)
@@ -1170,8 +1360,13 @@ def folder_run(work: Path, workers: int) -> dict:
     train, val0, recal, val1 = calls
     spe = FOLDER_CLASSES * FOLDER_TRAIN // BATCH
     val_batches = -(-FOLDER_CLASSES * FOLDER_VAL // BATCH)  # the tail padded
-    if train["steps"] != spe or train["launches"] != _scaled(LAUNCHES_PER_STEP, spe):
-        raise RuntimeError(f"train epoch: {train}; expected {spe} steps of {LAUNCHES_PER_STEP}")
+    # The train step runs on the default train route: its launches are
+    # those of the steps the counters see (a graph replay launches the
+    # kernels without their wrappers), and every batch ran once.
+    if train["steps"] != spe or train["step_calls"] != spe or train["route"] != TRAIN_ROUTE \
+            or train["launches"] != _scaled(LAUNCHES_PER_STEP, train["counted_steps"]):
+        raise RuntimeError(f"train epoch: {train}; expected {spe} steps on the {TRAIN_ROUTE} "
+                           f"route, the counted ones of {LAUNCHES_PER_STEP}")
     if not np.isfinite(train["loss"]):
         raise RuntimeError(f"train epoch loss not finite: {train['loss']}")
     # Validation runs its eval step on the route of each batch size: the
@@ -1321,7 +1516,8 @@ def _step_kind(kind, replicas=None):
     elif kind == "local":
         step = make_local_bn_train_step(model, tx, 0.1, replicas)
     else:
-        step = make_train_step(model, tx, 0.1, grad_accum=int(kind[5:]) if kind != "one" else 1)
+        step = make_train_step(model, tx, 0.1, grad_accum=int(kind[5:]) if kind != "one" else 1,
+                               route="eager")
     return model, state, step
 
 
@@ -1506,7 +1702,7 @@ def collectives_cost() -> dict:
             state = TrainState.create(model, tx)
             group = None if kind == "plain" else replicas
             set_replicas(model, group)
-            step = make_train_step(model, tx, 0.1, replicas=group)
+            step = make_train_step(model, tx, 0.1, replicas=group, route="eager")
             no_op = (lambda *a, **kw: None) if kind == "sync_no_collective" else dist.all_reduce
             with _patched(dist, "all_reduce", lambda orig: no_op):
                 ms[kind].append(time_ms(lambda: step(state, images, labels), target_ms=1000.0))
@@ -1669,8 +1865,9 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trai
     def launches(name):
         return sum(by_path(name).values())
 
-    # The training sums cover the launches one step made in the train phase.
-    dw_per_step = by_path("dw_conv_bn_act")["train"] / TRAIN_STEPS
+    # The training sums cover the launches one step made in the train phase
+    # (a counted step: a graph replay launches without the wrappers).
+    dw_per_step = by_path("dw_conv_bn_act")["train"] / train["counted_steps"]
     if dw_step and dw_step["summed_over"] != dw_per_step:
         raise RuntimeError(f"the dw training sums cover {dw_step['summed_over']} launches, "
                            f"a step made {dw_per_step}")

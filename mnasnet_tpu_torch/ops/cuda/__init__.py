@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``), built with ``nvcc`` at
 first use and bound with ``ctypes``. Each wrapper runs its plain PyTorch
-version for a CPU tensor and its kernel for a CUDA tensor; the two serving
-kernels do so as ``torch.library`` ops (``mnasnet_tpu_torch::dw_conv_bn_act``,
-``mnasnet_tpu_torch::mbconv_block``) with a CPU, a CUDA and a fake impl."""
+version for a CPU tensor and its kernel for a CUDA tensor, as a
+``torch.library`` op (``mnasnet_tpu_torch::dw_conv_bn_act``, ``::mbconv_block``,
+``::bn_bwd_reduce``, ``::bn_bwd_dx``) with a CPU, a CUDA and a fake impl."""
 
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (  # noqa: F401
     bn_bwd_dx,

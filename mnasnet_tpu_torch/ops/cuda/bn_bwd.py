@@ -21,9 +21,15 @@ the moments are those of the global batch, summed over the replicas
 over them, in place, between its launch and the dx kernel's, which then
 divides by the global count (:func:`bn_bwd`). The kernels are the same.
 
-Each kernel wrapper runs its plain PyTorch version (``*_reference``) for a CPU
-tensor and launches its kernel for a CUDA tensor, or raises; nothing falls
-back from one to the other. A launch adds one to the wrapper's ``launches``.
+The two kernels are the ``torch.library`` ops ``mnasnet_tpu_torch::bn_bwd_reduce``
+and ``mnasnet_tpu_torch::bn_bwd_dx``, as the serving kernels are
+(``ops/cuda/dw_conv.py``), so that ``torch.compile`` records them in the
+backward it differentiates: the CPU impl is the plain PyTorch version
+(``*_reference``), the CUDA impl launches the kernel or raises, the fake impl
+gives the output's shape; nothing falls back from one to the other. A launch
+adds one to the wrapper's ``launches``; a CUDA-graph replay launches without
+it. With ``replicas`` the all-reduce between the two launches stays outside
+the ops.
 """
 
 from __future__ import annotations
@@ -225,6 +231,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(what, x, dy, vecs):
+    """The checks every impl of an op runs (an artifact or a compiled graph
+    calls the op directly); the public wrappers also refuse autograd."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     if dy.shape != x.shape:
@@ -238,7 +246,6 @@ def _check(what, x, dy, vecs):
     if dy.device != x.device:
         raise ValueError(f"dy must be on x's device {x.device}, not {dy.device}")
     if x.device.type == "cuda":
-        _build.refuse_autograd(what, x, dy, *vecs)
         if x.dtype not in _DTYPES or dy.dtype != x.dtype:
             raise TypeError(f"{what} takes x and dy both bf16 or both fp32, not "
                             f"{x.dtype} and {dy.dtype}")
@@ -255,13 +262,21 @@ def _f32(vecs, dev):
             else v.to(device=dev, dtype=torch.float32).contiguous() for v in vecs]
 
 
-# Per (device, stream): the reduce's partial sums and its tickets. Every
-# launch leaves the tickets at 0, so they are zeroed once, when made; launches
-# on one stream run in turn and may share them.
+# Per (device, stream): the reduce's partial sums and its tickets for eager
+# launches. Every launch leaves the tickets at 0, so they are zeroed once,
+# when made; launches on one stream run in turn and may share them. A larger
+# plan replaces them, so a CUDA graph never holds these: a launch under
+# capture takes its own, from the graph's pool, with its tickets zeroed by a
+# memset captured before it (:func:`_scratch`).
 _reduce_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _scratch(dev, stream: int, p: ReducePlan) -> tuple[torch.Tensor, torch.Tensor]:
+    if torch.cuda.is_current_stream_capturing():
+        # Freed after the launch like any temporary: the graph's pool keeps
+        # the memory for its replays, and every replay zeroes the tickets.
+        return (torch.empty(p.partial_floats, dtype=torch.float32, device=dev),
+                torch.zeros(p.tiles, dtype=torch.int32, device=dev))
     key = (dev.index, stream)
     got = _reduce_scratch.get(key)
     if got is None or got[0].numel() < p.partial_floats or got[1].numel() < p.tiles:
@@ -274,8 +289,8 @@ def _scratch(dev, stream: int, p: ReducePlan) -> tuple[torch.Tensor, torch.Tenso
 
 def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan) -> torch.Tensor:
     """One launch of the reduce kernel with plan ``p`` on CUDA tensors that
-    :func:`bn_bwd_reduce` has checked; the (2, C) fp32 sums (dγ, then dβ).
-    Counts nothing: the wrapper counts its launches."""
+    the op has checked; the (2, C) fp32 sums (dγ, then dβ). Counts nothing:
+    the op's CUDA impl counts its launches."""
     dev = x.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
@@ -295,12 +310,11 @@ def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan) -> torch.Tensor:
     return out
 
 
-def _reduce(x, dy, mean, inv, gamma, beta) -> torch.Tensor:
-    """The (2, C) fp32 sums (dγ, then dβ) of :func:`bn_bwd_reduce`, as one
-    tensor: the reference on the CPU, one counted launch on the card."""
+def _reduce_cuda(x, dy, mean, inv, gamma, beta):
+    """The reduce op's CUDA impl: the checks, the plan, one counted launch."""
     _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
-    if x.device.type == "cpu":
-        return torch.stack(bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta))
+    if x.device.type != "cuda":
+        raise ValueError(f"the reduce kernel takes x on the card, not on {x.device}")
     c = x.shape[-1]
     p = reduce_plan(x.numel() // c, c, x.element_size(), alignment(x.data_ptr(), dy.data_ptr()))
     out = launch_reduce(x, dy, mean, inv, gamma, beta, p)
@@ -308,16 +322,34 @@ def _reduce(x, dy, mean, inv, gamma, beta) -> torch.Tensor:
     return out
 
 
+def _reduce_cpu(x, dy, mean, inv, gamma, beta):
+    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
+    return torch.stack(bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta))
+
+
+def _reduce_fake(x, dy, mean, inv, gamma, beta):
+    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
+    return x.new_empty((2, x.shape[-1]), dtype=torch.float32)
+
+
+def _reduce(x, dy, mean, inv, gamma, beta) -> torch.Tensor:
+    """The (2, C) fp32 sums (dγ, then dβ) of :func:`bn_bwd_reduce`, as one
+    tensor: the op ``mnasnet_tpu_torch::bn_bwd_reduce``."""
+    return torch.ops.mnasnet_tpu_torch.bn_bwd_reduce.default(x, dy, mean, inv, gamma, beta)
+
+
 def bn_bwd_reduce(x, dy, mean, inv, gamma, beta) -> tuple[torch.Tensor, torch.Tensor]:
     """(dγ, dβ), fp32 (C,): ``Σ g·x̂`` and ``Σ g`` over N, H, W.
 
     x, dy (N, H, W, C) bf16 or fp32, NHWC, contiguous; mean, inv = rsqrt(var +
-    eps), gamma, beta (C,) fp32. A CPU tensor takes
+    eps), gamma, beta (C,) fp32. Calls the op
+    ``mnasnet_tpu_torch::bn_bwd_reduce``: a CPU tensor takes
     :func:`bn_bwd_reduce_reference`; a CUDA tensor launches the kernel once
     (``bn_bwd_reduce.launches`` counts it) or raises. The two results are
     views of one (2, C) tensor. The sums are the same from run to run: their
     order is fixed by the shape, and no float atomics.
     """
+    _build.refuse_autograd("bn_bwd_reduce", x, dy, mean, inv, gamma, beta)
     dg, db = _reduce(x, dy, mean, inv, gamma, beta).unbind()
     return dg, db
 
@@ -325,20 +357,14 @@ def bn_bwd_reduce(x, dy, mean, inv, gamma, beta) -> tuple[torch.Tensor, torch.Te
 bn_bwd_reduce.launches = 0
 
 
-def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None) -> torch.Tensor:
-    """dx = γ·inv·(g − dβ/n − x̂·dγ/n) in x's dtype, n = N·H·W unless given
-    (sync-BN: the count over all replicas, with dγ and dβ their sums).
-
-    The inputs of :func:`bn_bwd_reduce` plus its (dγ, dβ). A CPU tensor
-    takes :func:`bn_bwd_dx_reference`; a CUDA tensor launches the kernel
-    (``bn_bwd_dx.launches`` counts those launches) or raises.
-    """
+def _dx_cuda(x, dy, mean, inv, gamma, beta, dg, db, n):
+    """The dx op's CUDA impl: the checks, the plan, one counted launch."""
     vecs = (mean, inv, gamma, beta, dg, db)
     _check("bn_bwd_dx", x, dy, vecs)
-    if n is not None and n <= 0:
+    if x.device.type != "cuda":
+        raise ValueError(f"the dx kernel takes x on the card, not on {x.device}")
+    if n <= 0:
         raise ValueError(f"bn_bwd_dx needs a positive count, got n={n}")
-    if x.device.type == "cpu":
-        return bn_bwd_dx_reference(x, dy, *vecs, n)
     c = x.shape[-1]
     m = x.numel() // c
     tp, r, slabs = plan(m, c)
@@ -350,13 +376,56 @@ def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None) -> to
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bn_bwd_dx(
             x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in v32), dx.data_ptr(),
-            m, c, 1.0 / (n or m), tp, r, slabs, int(x.dtype == torch.bfloat16), stream)
+            m, c, 1.0 / n, tp, r, slabs, int(x.dtype == torch.bfloat16), stream)
     _build.check(err, "bn_bwd_dx")
     bn_bwd_dx.launches += 1
     return dx
 
 
+def _dx_cpu(x, dy, mean, inv, gamma, beta, dg, db, n):
+    _check("bn_bwd_dx", x, dy, (mean, inv, gamma, beta, dg, db))
+    if n <= 0:
+        raise ValueError(f"bn_bwd_dx needs a positive count, got n={n}")
+    return bn_bwd_dx_reference(x, dy, mean, inv, gamma, beta, dg, db, n)
+
+
+def _dx_fake(x, dy, mean, inv, gamma, beta, dg, db, n):
+    _check("bn_bwd_dx", x, dy, (mean, inv, gamma, beta, dg, db))
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None) -> torch.Tensor:
+    """dx = γ·inv·(g − dβ/n − x̂·dγ/n) in x's dtype, n = N·H·W unless given
+    (sync-BN: the count over all replicas, with dγ and dβ their sums).
+
+    The inputs of :func:`bn_bwd_reduce` plus its (dγ, dβ). Calls the op
+    ``mnasnet_tpu_torch::bn_bwd_dx``: a CPU tensor takes
+    :func:`bn_bwd_dx_reference`; a CUDA tensor launches the kernel
+    (``bn_bwd_dx.launches`` counts those launches) or raises.
+    """
+    _build.refuse_autograd("bn_bwd_dx", x, dy, mean, inv, gamma, beta, dg, db)
+    if n is not None and n <= 0:
+        raise ValueError(f"bn_bwd_dx needs a positive count, got n={n}")
+    return torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(
+        x, dy, mean, inv, gamma, beta, dg, db, n or x.numel() // max(x.shape[-1], 1))
+
+
 bn_bwd_dx.launches = 0
+
+# The ops. ``needs_exact_strides``: a compiler hands x and dy over with the
+# strides they have in eager mode (contiguous NHWC), never re-laid out.
+_LIB = torch.library.Library("mnasnet_tpu_torch", "FRAGMENT")
+_LIB.define("bn_bwd_reduce(Tensor x, Tensor dy, Tensor mean, Tensor inv, Tensor gamma, "
+            "Tensor beta) -> Tensor", tags=(torch.Tag.needs_exact_strides,))
+_LIB.define("bn_bwd_dx(Tensor x, Tensor dy, Tensor mean, Tensor inv, Tensor gamma, "
+            "Tensor beta, Tensor dg, Tensor db, int n) -> Tensor",
+            tags=(torch.Tag.needs_exact_strides,))
+_LIB.impl("bn_bwd_reduce", _reduce_cpu, "CPU")
+_LIB.impl("bn_bwd_reduce", _reduce_cuda, "CUDA")
+_LIB.impl("bn_bwd_dx", _dx_cpu, "CPU")
+_LIB.impl("bn_bwd_dx", _dx_cuda, "CUDA")
+torch.library.register_fake("mnasnet_tpu_torch::bn_bwd_reduce", _reduce_fake, lib=_LIB)
+torch.library.register_fake("mnasnet_tpu_torch::bn_bwd_dx", _dx_fake, lib=_LIB)
 
 
 def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None = None):
@@ -372,12 +441,13 @@ def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None 
     inv = torch.rsqrt(var + eps)  # the forward's own rsqrt(var + eps)
     dy = dy.to(x.dtype).contiguous()
     sums = _reduce(x, dy, mean, inv, gamma, beta)
-    own, n = sums, None
+    own, n = sums, x.numel() // x.shape[-1]
     if replicas is not None:
         own = sums.clone()
         all_reduce_sum_([sums], replicas)
-        n = global_rows(x.numel() // x.shape[-1], replicas)
-    dx = bn_bwd_dx(x, dy, mean, inv, gamma, beta, *sums.unbind(), n)
+        n = global_rows(n, replicas)
+    dg, db = sums.unbind()
+    dx = torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(x, dy, mean, inv, gamma, beta, dg, db, n)
     dg, db = own.unbind()
     return dx, dg.to(gamma.dtype), db.to(beta.dtype)
 

@@ -97,7 +97,16 @@ def dw_grad_weights(x: torch.Tensor, g: torch.Tensor, k: int, stride: int,
     PERF.md), so here it is one grouped weight-gradient convolution on the
     fp32 casts of x and g, with TF32 off: the same exact fp32 products,
     summed in fp32 in another order. x (N, H, W, C), g (N, Ho, Wo, C) NHWC
-    -> (k, k, 1, C) fp32."""
+    -> (k, k, 1, C) fp32.
+
+    TF32 is a process-wide flag that a compiled graph does not replay, so the
+    convolution is the op ``mnasnet_tpu_torch::dw_grad_weights``: a compiled
+    backward calls it as it stands, and the flag is turned off around the
+    convolution when it runs (or, in a CUDA graph, when it is captured)."""
+    return torch.ops.mnasnet_tpu_torch.dw_grad_weights.default(x, g, k, stride, padding)
+
+
+def _dw_grad_weights(x, g, k, stride, padding):
     c = x.shape[-1]
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -108,6 +117,18 @@ def dw_grad_weights(x: torch.Tensor, g: torch.Tensor, k: int, stride: int,
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return w.permute(2, 3, 1, 0)
+
+
+def _dw_grad_weights_fake(x, g, k, stride, padding):
+    c = x.shape[-1]
+    return x.new_empty((c, 1, k, k), dtype=torch.float32).permute(2, 3, 1, 0)
+
+
+_LIB = torch.library.Library("mnasnet_tpu_torch", "FRAGMENT")
+_LIB.define("dw_grad_weights(Tensor x, Tensor g, int k, int stride, int padding) -> Tensor")
+_LIB.impl("dw_grad_weights", _dw_grad_weights, "CompositeExplicitAutograd")
+torch.library.register_fake("mnasnet_tpu_torch::dw_grad_weights", _dw_grad_weights_fake,
+                            lib=_LIB)
 
 
 def depthwise_conv_bn_relu_fused(x: torch.Tensor, kernel: torch.Tensor,

@@ -18,9 +18,12 @@ takes ``--batch-size / W`` of it from its shard of the data. Sync-BN is the
 default and ``--no-sync-bn`` keeps per-replica statistics. Rank 0 prints and
 writes the checkpoints; every rank prints its own decoder-fallback count.
 ``--compilation-cache DIR`` keeps the compiled routes' caches (Inductor,
-Triton) in DIR across runs; the train step itself runs eagerly, and
-validation runs each batch size on the route measured fastest for it
-(``utils/routing.py``). ``--remat``, whose module is not ported, exits
+Triton) in DIR across runs. The train step runs on the train route
+(``utils/routing.py:default_train_route``: ``TRAIN_ROUTE`` on the card,
+eager with ``--device cpu`` and with data parallelism; the environment
+variable ``MNASNET_TPU_TORCH_ROUTE=eager|graph|compile`` overrides it), and
+validation runs each batch size on the route measured fastest for it.
+``--profile-steps`` traces graph replays as it traces eager steps. ``--remat``, whose module is not ported, exits
 non-zero and says so.
 """
 
@@ -148,8 +151,8 @@ def parse_args(argv=None):
     p.add_argument("--tensorboard", default="", help="TensorBoard log dir (empty = off)")
     p.add_argument("--compilation-cache", default=None, metavar="DIR",
                    help="persistent cache of the compiled routes (Inductor's FX graphs, "
-                        "Triton's kernels) in DIR; validation's compile route reads it, "
-                        "the train step runs eagerly (default: "
+                        "Triton's kernels) in DIR; the compile routes of validation and "
+                        "of the train step read it (default: "
                         "$MNASNET_TPU_COMPILATION_CACHE, else off)")
     p.add_argument("--device", default="cuda",
                    help="device to train on (default cuda; cpu runs the kernels' plain "

@@ -33,6 +33,18 @@ Each transformation saves and restores its state by parameter name with
 ``torch.load(weights_only=True)`` reads them back): ``count``, ``ms``,
 ``mom``, ``trace``, the EMA shadow, and a wrapper's ``inner`` state.
 
+Step scalars live on the device. The learning rate of an update and the
+model-EMA factor ``1 − d`` are 0-d fp32 tensors on the parameters' device
+(``lr``, ``one_minus_d``), as the reference computes both inside its jitted
+step from the count in its state. An update is two parts: :meth:`prepare`
+on the host computes the scalars from the host-side ``count``, writes them
+with an eager ``fill_`` and advances the count; :meth:`apply` is the device
+work, which reads the tensors and touches no host state, so that a CUDA
+graph or a compiled region can hold it and still see each step's values.
+``update(grads)`` is the two in turn; its arithmetic is bit for bit that of
+the same formulas with the scalars as Python floats (a float scalar is
+rounded to fp32 before it multiplies an fp32 tensor).
+
 ``fused`` picks how the arithmetic is issued, not what it is: ``True`` runs
 every formula as ``torch._foreach_*`` ops over all parameters at once,
 ``"small"`` over the 1-D (per-channel) parameters only, as the reference's
@@ -85,7 +97,8 @@ def _lr_at(learning_rate: ScalarOrSchedule, count: int) -> float:
 
 class _Transform:
     """Bound to a model's parameters by :meth:`init`; ``update`` maps grads to
-    updates, both dicts keyed by parameter name."""
+    updates, both dicts keyed by parameter name: :meth:`prepare` (host:
+    step scalars and counts), then :meth:`apply` (device work only)."""
 
     names: list[str]
     params: dict[str, torch.Tensor]
@@ -94,8 +107,25 @@ class _Transform:
         self.params = dict(model.named_parameters())
         self.names = list(self.params)
 
-    def update(self, grads: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    def _scalar(self) -> torch.Tensor:
+        """A 0-d fp32 step scalar on the parameters' device."""
+        dev = next(iter(self.params.values())).device if self.params else "cpu"
+        return torch.zeros((), dtype=torch.float32, device=dev)
+
+    def prepare(self) -> None:
+        """Host part of the next update: write its step scalars into their
+        device tensors (an eager ``fill_``, never inside a captured region)
+        and advance the counts."""
         raise NotImplementedError
+
+    def apply(self, grads: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Device part of the update :meth:`prepare` set up: reads the step
+        scalars, writes the optimizer state in place, changes no host state."""
+        raise NotImplementedError
+
+    def update(self, grads: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        self.prepare()
+        return self.apply(grads)
 
     # The state saved by state_dict(): plain numbers, and dicts of tensors by
     # parameter name, by attribute; a wrapper's inner state goes under "inner".
@@ -160,6 +190,7 @@ class _Core(_Transform):
         super().init(model)
         self.decayed = _resolve_mask(self.mask, model)
         self.count = 0
+        self.lr = self._scalar()  # the learning rate of the next update
         if self.fused is True:
             self.groups = [self.names]
         elif self.fused == "small":
@@ -182,14 +213,17 @@ class _Core(_Transform):
                 g[i] = v
         return g
 
-    def update(self, grads):
-        lr = _lr_at(self.learning_rate, self.count)
+    def prepare(self):
+        # The rate at the update count before its increment (optax's).
+        self.lr.fill_(_lr_at(self.learning_rate, self.count))
+        self.count += 1
+
+    def apply(self, grads):
         out = {}
         for names in self.groups:
             if names:
                 out.update(zip(names, self._group_update(names, self._decayed_grads(grads, names),
-                                                         lr)))
-        self.count += 1
+                                                         self.lr)))
         return out
 
 
@@ -277,8 +311,11 @@ class Freeze(_Transform):
         self.inner.init(model)
         self.frozen = _resolve_mask(self.frozen_mask, model)
 
-    def update(self, grads):
-        out = self.inner.update(grads)
+    def prepare(self):
+        self.inner.prepare()
+
+    def apply(self, grads):
+        out = self.inner.apply(grads)
         return {n: torch.zeros_like(u) if self.frozen.get(n, False) else u
                 for n, u in out.items()}
 
@@ -309,22 +346,26 @@ class ModelEma(_Transform):
         self.count = 0
         self.ema_params = {n: p.detach().clone(memory_format=torch.contiguous_format)
                            for n, p in self.params.items()}
+        self.one_minus_d = self._scalar()  # 1 − d of the next update
 
-    def update(self, grads):
-        out = self.inner.update(grads)
+    def prepare(self):
+        self.inner.prepare()
         self.count += 1
         # d in fp32, as the reference computes it.
         d = np.float32(self.decay)
         if self.warmup:
             n = np.float32(self.count)
             d = min(d, (np.float32(1.0) + n) / (np.float32(10.0) + n))
-        one_minus_d = float(np.float32(1.0) - d)
+        self.one_minus_d.fill_(float(np.float32(1.0) - d))
+
+    def apply(self, grads):
+        out = self.inner.apply(grads)
         names = self.names
         shadow = [self.ema_params[n] for n in names]
         new_params = torch._foreach_add([self.params[n].detach() for n in names],
                                         [out[n] for n in names])
         diff = torch._foreach_sub(shadow, new_params)
-        torch._foreach_sub_(shadow, torch._foreach_mul(diff, one_minus_d))
+        torch._foreach_sub_(shadow, torch._foreach_mul(diff, self.one_minus_d))
         return out
 
 

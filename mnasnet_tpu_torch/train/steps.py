@@ -21,8 +21,6 @@ and each microbatch, takes its rows.
 
 from __future__ import annotations
 
-from typing import Callable
-
 import numpy as np
 import torch
 from torch import nn
@@ -32,6 +30,7 @@ from mnasnet_tpu_torch.ops.depthwise import resolve_impl
 from mnasnet_tpu_torch.parallel.dist import Replicas, all_reduce_max_, all_reduce_sum_
 from mnasnet_tpu_torch.train.loss import cross_entropy, topk_correct
 from mnasnet_tpu_torch.train.state import TrainState
+from mnasnet_tpu_torch.utils.routing import TrainRouted, default_train_route
 
 # The reference's microbatch limit: on its TPU the bs128->bs256 train step
 # lost ~14% to a conv-tiling cliff, so ``auto_grad_accum`` keeps per-chip
@@ -86,8 +85,8 @@ def _global_norm(tensors) -> torch.Tensor:
 
 def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
                     diagnostics: bool = False, grad_accum: int = 1,
-                    replicas: Replicas | None = None
-                    ) -> Callable[[TrainState, object, object], tuple[TrainState, dict]]:
+                    replicas: Replicas | None = None, route: str | None = None,
+                    **compile_kwargs) -> TrainRouted:
     """``train_step(state, images NHWC, labels) -> (state, metrics)``
     (``steps.py:81-250``): the model's train-mode forward, the label-smoothed
     loss, the gradients of every parameter, the BN-statistics EMA when the
@@ -96,6 +95,15 @@ def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     statistics and optimizer state update in place; the model's train/eval
     mode is restored on return. ``tx`` is bound to ``model`` by
     ``TrainState.create``.
+
+    ``route``: how the step runs (``utils/routing.py``, the counterpart of
+    the reference's ``jax.jit(step, donate_argnums=(0,))``): ``"eager"``,
+    ``"graph"`` (one CUDA graph per input shape) or ``"compile"``
+    (``torch.compile`` of the forward and loss, with ``compile_kwargs``);
+    None takes :func:`~mnasnet_tpu_torch.utils.routing.
+    default_train_route`. Every route computes the same step; the returned
+    :class:`~mnasnet_tpu_torch.utils.routing.TrainRouted` counts its
+    ``calls`` and graph ``replays``.
 
     ``grad_accum=k`` splits the batch into k microbatches of consecutive
     rows, takes each one's gradients and BN statistics from the same
@@ -119,18 +127,19 @@ def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     microbatch, normalised with the moments of all replicas' i-th
     microbatches. The reference reshapes the global batch instead
     (``steps.py:185-188``), so its microbatch i holds other rows; the math
-    of each group is the same.
+    of each group is the same. With replicas the step runs eagerly.
     """
     if replicas_of(model) is not replicas:
         raise ValueError("sync-BN: the model's BatchNorms must hold the step's replica "
                          "handle (models.layers.set_replicas)")
-    return _make_step(model, tx, label_smoothing, diagnostics, grad_accum, replicas,
-                      local_bn=False)
+    parts = _StepParts(model, tx, label_smoothing, diagnostics, grad_accum, replicas,
+                       local_bn=False)
+    return _routed(parts, route, replicas, compile_kwargs)
 
 
 def make_local_bn_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
-                             replicas: Replicas | None = None
-                             ) -> Callable[[TrainState, object, object], tuple[TrainState, dict]]:
+                             replicas: Replicas | None = None, route: str | None = None,
+                             **compile_kwargs) -> TrainRouted:
     """The train step with per-replica BN statistics (``--no-sync-bn``,
     ``steps.py:253-342``): each replica normalises with the moments of its
     own shard (the model's BatchNorms hold no handle), and the gradients,
@@ -142,71 +151,138 @@ def make_local_bn_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     metrics and statistics. The dropout mask is the global batch's, so the
     replicas' masks differ, as the reference's ``fold_in(step_rng,
     axis_index)`` makes them (``steps.py:283``). The step equals the
-    single-process ``grad_accum=world`` step on the concatenated shards."""
+    single-process ``grad_accum=world`` step on the concatenated shards.
+    ``route`` as in :func:`make_train_step`."""
     if replicas_of(model) is not None:
         raise ValueError("local BN: the model's BatchNorms must hold no replica handle")
-    return _make_step(model, tx, label_smoothing, False, 1, replicas, local_bn=True)
+    parts = _StepParts(model, tx, label_smoothing, False, 1, replicas, local_bn=True)
+    return _routed(parts, route, replicas, compile_kwargs)
 
 
-def _make_step(model, tx, label_smoothing, diagnostics, grad_accum, replicas, local_bn):
-    ema_decay = _ema_outside(model)
-    if grad_accum < 1:
-        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if grad_accum > 1 and ema_decay is None:
-        raise ValueError(
-            "grad_accum > 1 requires bn_ema='external' on the model: the step "
-            "combines per-microbatch BN statistics and applies the running-stats "
-            "EMA exactly once per optimizer update")
-    names = [n for n, _ in model.named_parameters()]
-    params = [p for _, p in model.named_parameters()]
-    stats = _stat_buffers(model)
-    world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
-    # Weights by the share of valid labels: needed to combine microbatches or
-    # replicas; the plain step on one process takes the loss as it is.
-    weighted = grad_accum > 1 or replicas is not None
+def _routed(parts, route, replicas, compile_kwargs) -> TrainRouted:
+    if route is None:
+        route = default_train_route(parts.device, replicas)
+    elif route != "eager" and replicas is not None:
+        raise ValueError(f"the {route!r} train route is not taken with replicas: the "
+                         "data-parallel step runs eagerly")
+    return TrainRouted(parts, route, **compile_kwargs)
 
-    def train_step(state: TrainState, images, labels):
+
+class _StepParts:
+    """The train step split where the host must act, for
+    :class:`~mnasnet_tpu_torch.utils.routing.TrainRouted`:
+
+      * :meth:`inputs`: the checks, and the batch on the model's device;
+      * :meth:`host`: ``state.step`` and the optimizer's counts and step
+        scalars (``tx.prepare()``), on every call of every route;
+      * :meth:`device_step`: the rest, device work only, so that a CUDA graph can
+        capture it: the dropout draw, per microbatch :meth:`forward_loss`
+        and ``torch.autograd.grad``, the metrics, and :meth:`update` (the
+        flat BN EMA, ``tx.apply`` and the parameters' ``_foreach_add_``).
+        The compile route compiles ``forward_loss``, which AOTAutograd
+        differentiates; the generator and ``torch.autograd.grad`` stay
+        outside the compiled region.
+    """
+
+    def __init__(self, model, tx, label_smoothing, diagnostics, grad_accum, replicas,
+                 local_bn):
+        self.ema_decay = _ema_outside(model)
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        if grad_accum > 1 and self.ema_decay is None:
+            raise ValueError(
+                "grad_accum > 1 requires bn_ema='external' on the model: the step "
+                "combines per-microbatch BN statistics and applies the running-stats "
+                "EMA exactly once per optimizer update")
+        self.model, self.tx = model, tx
+        self.label_smoothing = label_smoothing
+        self.diagnostics, self.grad_accum = diagnostics, grad_accum
+        self.replicas, self.local_bn = replicas, local_bn
+        self.names = [n for n, _ in model.named_parameters()]
+        self.params = [p for _, p in model.named_parameters()]
+        self.stats = _stat_buffers(model)
+        self.device = self.params[0].device
+        self.world, self.rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
+        # Weights by the share of valid labels: needed to combine microbatches
+        # or replicas; the plain step on one process takes the loss as it is.
+        self.weighted = grad_accum > 1 or replicas is not None
+
+    def inputs(self, images, labels) -> tuple[torch.Tensor, torch.Tensor]:
+        """NHWC images and labels on the model's device."""
+        x = images if torch.is_tensor(images) else torch.from_numpy(np.asarray(images))
+        x = x.to(self.device, non_blocking=True)
+        y = torch.as_tensor(labels).to(x.device)
+        if x.shape[0] % self.grad_accum:
+            raise ValueError(f"batch size {x.shape[0]} not divisible by "
+                             f"grad_accum={self.grad_accum}")
+        return x, y
+
+    def host(self, state: TrainState) -> None:
+        state.step += 1
+        self.tx.prepare()
+
+    def forward_loss(self, x, y, keep, total):
+        """The microbatch's loss (weighted by its share of ``total`` valid
+        labels when given) and its logits; x NCHW."""
+        logits = self.model(x, keep=keep)
+        loss = cross_entropy(logits, y, self.label_smoothing)
+        if total is not None:
+            loss = loss * ((y >= 0).sum().float() / total)
+        return loss, logits
+
+    def update(self, grads, old, new):
+        """The BN EMA, the optimizer's update and ``p + u``; the updates."""
+        with torch.no_grad():
+            if self.ema_decay is not None:
+                _unflat_(fused_ema_stats(old, new, self.ema_decay), self.stats)
+            updates = self.tx.apply(dict(zip(self.names, grads)))
+            ups = [updates[n] for n in self.names]
+            torch._foreach_add_(self.params, ups)
+        return ups
+
+    def device_step(self, images, labels, generator, forward_loss=None) -> dict:
+        """The device part of one step on NHWC ``images``; the metrics."""
+        forward_loss = forward_loss or self.forward_loss
+        model, replicas, stats = self.model, self.replicas, self.stats
+        k, world, rank = self.grad_accum, self.world, self.rank
         was_training = model.training
         model.train()
         try:
-            x = _images(model, images)
-            y = torch.as_tensor(labels).to(x.device)
+            x = images.permute(0, 3, 1, 2)
+            y = labels
             n = x.shape[0]
-            if n % grad_accum:
-                raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
-            micro = n // grad_accum
-            keep = model.dropout_keep(n * world, state.generator, x.device)
+            micro = n // k
+            keep = model.dropout_keep(n * world, generator, x.device)
             if keep is not None:
                 keep = keep[rank * n:(rank + 1) * n]
-            if weighted:
+            total = None
+            if self.weighted:
                 total = (y >= 0).sum().float()
                 all_reduce_sum_([total], replicas)
                 total = total.clamp(min=1)
-            old = _flat(stats) if ema_decay is not None else None
+            old = _flat(stats) if self.ema_decay is not None else None
             grads = loss = counts = new = None
             maxl = torch.zeros((), device=x.device)
-            for i in range(grad_accum):
+            for i in range(k):
                 rows = slice(i * micro, (i + 1) * micro)
                 yi = y[rows]
-                logits = model(x[rows], keep=None if keep is None else keep[rows])
-                li = cross_entropy(logits, yi, label_smoothing)
-                if weighted:
-                    li = li * ((yi >= 0).sum().float() / total)
-                gi = torch.autograd.grad(li, params)
+                li, logits = forward_loss(x[rows], yi, None if keep is None else keep[rows],
+                                          total)
+                gi = torch.autograd.grad(li, self.params)
                 li, logits = li.detach(), logits.detach()
                 ci = topk_correct(logits, yi)
-                if diagnostics:
+                if self.diagnostics:
                     maxl = torch.maximum(maxl, logits.abs().max())
-                si = _flat(stats) if ema_decay is not None else None
+                si = _flat(stats) if self.ema_decay is not None else None
                 if i == 0:
                     grads, loss, counts, new = list(gi), li, ci, si
                 else:
                     torch._foreach_add_(grads, gi)
                     loss = loss + li
-                    counts = {k: counts[k] + ci[k] for k in ci}
+                    counts = {key: counts[key] + ci[key] for key in ci}
                     new = new + si
-            if grad_accum > 1:
-                new = new / grad_accum
+            if k > 1:
+                new = new / k
             metrics = {"loss": loss, **counts}
             if replicas is not None:
                 # One collective: the gradients, the metrics and, under local
@@ -214,34 +290,28 @@ def _make_step(model, tx, label_smoothing, diagnostics, grad_accum, replicas, lo
                 # the raw ones before the external EMA, or those after the
                 # module's EMA (the EMA is linear, so both are the EMA of the
                 # mean).
-                shared = (new if ema_decay is not None else _flat(stats)) if local_bn else None
+                local_bn = self.local_bn
+                shared = ((new if self.ema_decay is not None else _flat(stats))
+                          if local_bn else None)
                 all_reduce_sum_([*grads, *metrics.values(),
                                  *([shared] if local_bn else [])], replicas)
                 if local_bn:
                     shared = shared / world
-                    if ema_decay is not None:
+                    if self.ema_decay is not None:
                         new = shared
                     else:
                         _unflat_(shared, stats)
-                if diagnostics:
+                if self.diagnostics:
                     all_reduce_max_(maxl, replicas)
-            with torch.no_grad():
-                if ema_decay is not None:
-                    _unflat_(fused_ema_stats(old, new, ema_decay), stats)
-                updates = tx.update(dict(zip(names, grads)))
-                ups = [updates[n] for n in names]
-                torch._foreach_add_(params, ups)
-            if diagnostics:
+            ups = self.update(grads, old, new)
+            if self.diagnostics:
                 metrics["grad_norm"] = _global_norm(grads)
                 metrics["update_norm"] = _global_norm(ups)
-                metrics["param_norm"] = _global_norm(params)
+                metrics["param_norm"] = _global_norm(self.params)
                 metrics["max_abs_logit"] = maxl
         finally:
             model.train(was_training)
-        state.step += 1
-        return state, metrics
-
-    return train_step
+        return metrics
 
 
 def step_collectives(model: nn.Module, sync_bn: bool = True, diagnostics: bool = False,

@@ -23,7 +23,14 @@ step, with no host wait added per step. Validation sums its counts over the
 replicas' shards; meters, prints and the TensorBoard writer are rank 0's.
 The eval step is batch-routed as the reference's (``trainer.py:133,300-312``):
 each batch size runs on the route measured fastest for it on the card
-(``utils/routing.py``); the train step stays eager.
+(``utils/routing.py``). The train step runs on the train route
+(``default_train_route``: ``TRAIN_ROUTE`` on the card, eager off it and with
+replicas), the counterpart of the reference's one jitted step with donated
+state (``trainer.py:122-128``); ``MNASNET_TPU_TORCH_ROUTE`` overrides it.
+The train graph keeps a memory pool of its own, apart from the eval graphs'. Every
+path that changes the model or the optimizer between steps (checkpoint
+restore, BN recalibration, :func:`swapped_params`) writes in place, so a
+captured step stays valid across them.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Per-batch routing of the inference callables: eager, a CUDA graph, or
-``torch.compile``.
+"""Routing of the inference callables (per batch size) and of the train step:
+eager, a CUDA graph, or ``torch.compile``.
 
 Counterpart of ``mnasnet_tpu/utils/xla_options.py``. The reference jits every
 eval and predict step and chooses, per batch size, the XLA compile options
@@ -24,9 +24,17 @@ argument's leading dimension and keeps one callable per (route, input
 shapes). A capture or a compile that fails raises; nothing drops back to
 eager, and a compile past Dynamo's recompile limit raises too.
 
-The reference's separate "train" option set has no counterpart here: the
-train step stays eager (its BN+ReLU backward kernels are not yet
-``torch.library`` ops, so neither a graph nor a compile can hold them).
+The train step has one route, :data:`TRAIN_ROUTE`, as the reference has one
+"train" option set for its one jitted step with donated state
+(``mnasnet_tpu/train/trainer.py:122-128``): :func:`default_train_route`
+returns it on the card and eager elsewhere, and :class:`TrainRouted` runs
+the step on it. The kernels' launches from ``ctypes`` are captured by a
+graph like any other launch; what a graph must not freeze is what the host
+decides every step (``state.step``, the optimizer's count and its step
+scalars, ``train/optim.py``), so the step is split there
+(``train/steps.py:_StepParts``), and the dropout generator is registered
+with the graph. ``torch.compile`` needs every kernel as a ``torch.library``
+op (the BN+ReLU backward's too, ``ops/cuda/bn_bwd.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +59,13 @@ ROUTES = ("eager", "graph", "compile")
 SERVE_ROUTE_BATCH_RANGES: tuple[tuple[int, int, str], ...] = (
     (1, 1 << 30, "graph"),
 )
+
+# The fastest train route of mnasnet1_0@224, bs128, bf16, on the production
+# configuration (external BN EMA, s2d stem, RMSProp fused="small"), on an
+# NVIDIA H100 80GB HBM3 at 700 W: ``python3 chip_smoke.py`` timed the three
+# routes in one call (PERF.md §6): ms per step eager 108.11, graph 36.77
+# (the card 95.5% busy), compile 65.77 (host-bound).
+TRAIN_ROUTE = "graph"
 
 # Warm-up calls of the graph route before its capture: they run eagerly,
 # on a side stream, so that every lazy set-up (libraries, plans, kernels
@@ -77,17 +92,43 @@ def default_route(batch_size: int, device="cuda") -> str:
     batch size and device) -> the measured table on a CUDA device -> eager
     elsewhere.
     """
-    raw = os.environ.get(_ENV_KEY)
-    if raw is not None:
-        s = raw.strip().lower()
-        if s in _DISABLED:
-            return "eager"
-        if s not in ROUTES:
-            raise ValueError(f"{_ENV_KEY}={raw!r}: expected one of {ROUTES} or none/off")
-        return s
+    route = _env_route()
+    if route is not None:
+        return route
     if torch.device(device).type != "cuda":
         return "eager"
     return route_for_batch(batch_size)
+
+
+def _env_route() -> str | None:
+    raw = os.environ.get(_ENV_KEY)
+    if raw is None:
+        return None
+    s = raw.strip().lower()
+    if s in _DISABLED:
+        return "eager"
+    if s not in ROUTES:
+        raise ValueError(f"{_ENV_KEY}={raw!r}: expected one of {ROUTES} or none/off")
+    return s
+
+
+def default_train_route(device="cuda", replicas=None) -> str:
+    """The route of the train step on ``device``.
+
+    Resolution order: the ``MNASNET_TPU_TORCH_ROUTE`` environment variable
+    (as :func:`default_route` reads it) -> :data:`TRAIN_ROUTE` on a CUDA
+    device -> eager elsewhere. With ``replicas`` (data parallelism, whose
+    collectives run between the step's launches) the route is eager, and
+    an environment that asks for another raises."""
+    route = _env_route()
+    if replicas is not None:
+        if route not in (None, "eager"):
+            raise ValueError(f"{_ENV_KEY} asks for the {route!r} train route, which is "
+                             "not taken with replicas: the data-parallel step runs eagerly")
+        return "eager"
+    if route is not None:
+        return route
+    return TRAIN_ROUTE if torch.device(device).type == "cuda" else "eager"
 
 
 def _fresh_function(fn):
@@ -191,6 +232,134 @@ class BatchRouted:
                 buf.copy_(a)
             graph.replay()
             self.replays[key] += 1
-            return tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, out)
+            return _clone(out)
 
         return replay
+
+
+def _clone(tree):
+    return tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, tree)
+
+
+class TrainRouted:
+    """The train step ``(state, images, labels) -> (state, metrics)`` on one
+    route; ``steps`` is the step split by ``train/steps.py:_StepParts``.
+
+    Every call checks the batch, then runs the host part (``state.step``,
+    the optimizer's counts and step scalars) and then the device part:
+
+      * eager: the device part as it is;
+      * graph: one ``torch.cuda.CUDAGraph`` per input shape, in a memory pool
+        of this object's own (apart from the eval graphs'). The first call of
+        a shape runs its step eagerly on a side stream (the warm-up is that
+        call's step, the one the eager route would take) and then captures
+        the device part with the dropout generator registered with the
+        graph: the capture runs no kernel and moves no count, nor the
+        generator (checked). A later call copies the batch into the graph's
+        static inputs, replays, and returns a copy of the metrics, so that
+        the next replay does not overwrite them. Each replay draws the next
+        dropout mask from the generator's current state, so that a
+        ``set_state`` carries into the replays;
+      * compile: ``torch.compile(dynamic=False, fullgraph=True,
+        **compile_kwargs)`` of the forward and loss (AOTAutograd
+        differentiates it; the kernels are opaque ops in both graphs), one
+        per input shape on a code object of its own, with Dynamo told to
+        fail at its recompile limit; the dropout draw,
+        ``torch.autograd.grad`` and the update run eagerly around it. (A
+        compiled update, its ``_foreach`` chains over every parameter, made
+        the cold compile of mnasnet1_0@224 take 464 s on the card.)
+
+    ``calls`` counts the calls per key and ``replays`` the graph replays: a
+    kernel's launch counter advances at eager and compiled calls and at a
+    graph's first call (its warm-up and its capture), not at a replay.
+    Parameters, buffers and optimizer state are written in place by every
+    path that changes them (checkpoint restore, BN recalibration,
+    ``swapped_params``), so a captured graph stays valid across them.
+    """
+
+    def __init__(self, steps, route: str, **compile_kwargs):
+        if route not in ROUTES:
+            raise ValueError(f"unknown route {route!r}; choices: {ROUTES}")
+        if route == "graph" and steps.device.type != "cuda":
+            raise ValueError(f"the graph route runs on a CUDA device, not {steps.device}")
+        self.route = route
+        self._steps = steps
+        self._compile_kwargs = {"fullgraph": True, **compile_kwargs}
+        self._cache: dict = {}
+        self._pool = None
+        self.calls: dict = {}
+        self.replays: dict = {}
+
+    def counted(self) -> int:
+        """The steps whose launches the kernels' counters saw: every eager
+        and compiled call, and for each graph the warm-up and the capture
+        of its first call."""
+        return sum(n if key[0] != "graph" else n - self.replays[key] + 1
+                   for key, n in self.calls.items())
+
+    def __call__(self, state, images, labels):
+        x, y = self._steps.inputs(images, labels)
+        key = (self.route, (tuple(x.shape), x.dtype), (tuple(y.shape), y.dtype))
+        run = self._cache.get(key)
+        self._steps.host(state)
+        if run is None:
+            run, metrics = self._build(key, x, y, state.generator)
+            self._cache[key] = run
+        else:
+            metrics = run(x, y, state.generator)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        return state, metrics
+
+    def _build(self, key, x, y, generator):
+        steps = self._steps
+        if self.route == "eager":
+            run = steps.device_step
+        elif self.route == "compile":
+            torch._dynamo.config.fail_on_recompile_limit_hit = True
+            fwd = torch.compile(_fresh_function(steps.forward_loss), dynamic=False,
+                                **self._compile_kwargs)
+
+            def run(images, labels, gen):
+                return steps.device_step(images, labels, gen, fwd)
+        else:
+            return self._capture(key, x, y, generator)
+        return run, run(x, y, generator)
+
+    def _capture(self, key, x, y, generator):
+        steps = self._steps
+        dev = x.device
+        if dev.type != "cuda":
+            raise ValueError(f"the graph route runs on a CUDA device, not {dev}")
+        static = (x.clone(), y.clone())
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            metrics = steps.device_step(*static, generator)  # this call's step
+        current.wait_stream(side)
+        for t in metrics.values():
+            t.record_stream(current)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        before = generator.get_state()
+        # thread_local: a loader thread may pin and copy the next batch
+        # meanwhile, on its own stream, which the capture does not hold.
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            out = steps.device_step(*static, generator)
+        if not torch.equal(generator.get_state(), before):
+            raise RuntimeError("the capture of the train step moved the dropout generator")
+        self.replays[key] = 0
+
+        def replay(images, labels, gen):
+            if gen is not generator:
+                raise ValueError("the graph route's step was captured with another "
+                                 "TrainState's dropout generator")
+            static[0].copy_(images)
+            static[1].copy_(labels)
+            graph.replay()
+            self.replays[key] += 1
+            return _clone(out)
+
+        return replay, metrics

@@ -517,9 +517,10 @@ def test_prefetch_to_device_on_the_card(cuda):
 
 
 def test_trainer_stop_and_resume_is_bitwise_on_the_card(cuda, tmp_path, monkeypatch):
-    """Trainer.train_epoch with the kernels under deterministic algorithms:
-    stopped after step 2, checkpointed, restored and resumed, the same bits
-    as the uninterrupted run; 17 dw, 35 + 35 BN and no MBConv launches a
+    """Trainer.train_epoch with the kernels under deterministic algorithms,
+    on the default train route: stopped after step 2, checkpointed, restored
+    and resumed (a new graph, captured at step 3), the same bits as the
+    uninterrupted run; 17 dw, 35 + 35 BN and no MBConv launches a counted
     step."""
     from mnasnet_tpu_torch.data.dataset import SyntheticDataset
     from mnasnet_tpu_torch.data.pipeline import DataLoader
@@ -548,7 +549,11 @@ def test_trainer_stop_and_resume_is_bitwise_on_the_card(cuda, tmp_path, monkeypa
         sa = ta.train_epoch(sa, loader, 0)
         after = dw_conv_bn_act.launches, bn_bwd_reduce.launches, bn_bwd_dx.launches, \
             mbconv_fused.launches
-        assert [b - a for a, b in zip(before, after)] == [17 * 4, 35 * 4, 35 * 4, 0]
+        # The default train route: the steps the counters see (a graph's
+        # warm-up and capture, not its replays) of 4 calls.
+        n = ta._train_step.counted()
+        assert sum(ta._train_step.calls.values()) == 4
+        assert [b - a for a, b in zip(before, after)] == [17 * n, 35 * n, 35 * n, 0]
 
         mb, txb, tb, sb = fresh()
         sb = tb.train_epoch(sb, loader, 0, step_callback=lambda s, g: tb.request_stop(),
@@ -700,3 +705,206 @@ def test_artifact_traced_on_the_cpu_serves_on_the_card(cuda):
     torch.cuda.synchronize()
     assert (dw_conv_bn_act.launches - before[0], mbconv_fused.launches - before[1]) == (1, 16)
     assert float((out - got).abs().max()) <= 0.25 * float(got.abs().max())
+
+
+# ------------------------------------------------------ the train route
+
+
+def _route_setup(cuda, seed=3, dtype=torch.bfloat16, dropout=0.2, lr=None, **model_kw):
+    """mnasnet0_35 and RMSProp with the model EMA; the rate ``lr``, or by
+    default warmup-cosine from 0, which changes at every one of 5 steps."""
+    from mnasnet_tpu_torch.train.schedules import make_schedule
+
+    model = create_model("mnasnet0_35", num_classes=10, dtype=dtype, bn_ema="external",
+                         stem_s2d=True, dropout=dropout, seed=seed, **model_kw)
+    tx = create_optimizer("rmsprop", lr or make_schedule("cosine", 1e-3, 5, 2, warmup_epochs=1),
+                          fused="small", model_ema=0.99)
+    return model, tx, TrainState.create(model, tx, seed=seed)
+
+
+def _route_batch(cuda, n=16, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(n, 64, 64, 3, device=cuda, generator=g),
+            torch.randint(0, 10, (n,), device=cuda, generator=g))
+
+
+def _snapshot(model, tx, state):
+    def tree(d):
+        return {k: tree(v) if isinstance(v, dict) else (v.clone() if torch.is_tensor(v) else v)
+                for k, v in d.items()}
+
+    return {"model": tree(model.state_dict()), "tx": tree(tx.state_dict()),
+            "generator": state.generator.get_state(), "step": state.step}
+
+
+def _assert_same(a, b, path=""):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _assert_same(a[k], b[k], f"{path}.{k}")
+    elif torch.is_tensor(a):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    else:
+        assert a == b, path
+
+
+@pytest.fixture
+def deterministic(cuda, monkeypatch):
+    """Bitwise comparisons of steps run under deterministic algorithms."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    previous = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield cuda
+    torch.use_deterministic_algorithms(previous)
+
+
+def _run(cuda, routes, batches, grad_accum=1, restore_at=None):
+    """Steps on ``routes`` (one per step) over ``batches``, on one state;
+    with ``restore_at=(i, j)`` the state after step i is saved and loaded
+    back, in place, after step j, and the steps after it run again."""
+    model, tx, state = _route_setup(cuda)
+    steps = {r: make_train_step(model, tx, 0.1, grad_accum=grad_accum, route=r)
+             for r in set(routes)}
+    losses, saved, i = [], None, 0
+    while i < len(routes):
+        state, metrics = steps[routes[i]](state, *batches[i])
+        losses.append(metrics["loss"])
+        if restore_at and i + 1 == restore_at[0] and saved is None:
+            saved = (model.state_dict(), tx.state_dict(), state.state_dict())
+            saved = tuple({k: (v.clone() if torch.is_tensor(v) else v) for k, v in d.items()}
+                          if isinstance(d, dict) else d for d in saved)
+        if restore_at and i + 1 == restore_at[1] and saved is not None:
+            model.load_state_dict(saved[0])
+            tx.load_state_dict(saved[1])
+            state.load_state_dict(saved[2])
+            losses = losses[:restore_at[0]]
+            i, restore_at = restore_at[0], None
+            continue
+        i += 1
+    torch.cuda.synchronize()
+    return [float(v) for v in losses], _snapshot(model, tx, state), steps
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_graph_train_route_is_bitwise_eager(deterministic, grad_accum):
+    """5 steps with dropout, a rate that changes every step and the model
+    EMA: the graph route (one warm-up step, then replays) equals eager bit
+    for bit, the generator included."""
+    cuda = deterministic
+    batches = [_route_batch(cuda)] * 5
+    le, se, _ = _run(cuda, ["eager"] * 5, batches, grad_accum)
+    lg, sg, steps = _run(cuda, ["graph"] * 5, batches, grad_accum)
+    assert le == lg
+    _assert_same(se, sg)
+    assert list(steps["graph"].replays.values()) == [4]
+    assert steps["graph"].counted() == 2
+
+
+def test_mixed_train_routes_are_bitwise_all_eager(deterministic):
+    cuda = deterministic
+    batches = [_route_batch(cuda, seed=i) for i in range(5)]
+    le, se, _ = _run(cuda, ["eager"] * 5, batches)
+    lm, sm, steps = _run(cuda, ["eager", "graph", "graph", "eager", "graph"], batches)
+    assert le == lm
+    _assert_same(se, sm)
+    assert list(steps["graph"].replays.values()) == [2]
+
+
+def test_graph_route_resume_is_bitwise(deterministic):
+    """The state after step 2 saved, two more steps, then loaded back in
+    place (the generator by ``set_state``) and three steps replayed: the
+    uninterrupted run's bits."""
+    cuda = deterministic
+    batches = [_route_batch(cuda, seed=i) for i in range(5)]
+    le, se, _ = _run(cuda, ["eager"] * 5, batches)
+    lr_, sr, steps = _run(cuda, ["graph"] * 5, batches, restore_at=(2, 4))
+    assert le == lr_
+    _assert_same(se, sr)
+    assert list(steps["graph"].replays.values()) == [6]
+
+
+def test_second_input_shape_keeps_the_first_graph(deterministic):
+    """A larger batch captured after the first graph (larger reduce plans),
+    then the first graph replayed: every step bit for bit eager."""
+    cuda = deterministic
+    batches = [_route_batch(cuda, n, seed=i) for i, n in enumerate((8, 16, 8, 16, 8))]
+    le, se, _ = _run(cuda, ["eager"] * 5, batches)
+    lg, sg, steps = _run(cuda, ["graph"] * 5, batches)
+    assert le == lg
+    _assert_same(se, sg)
+    assert sorted(steps["graph"].replays.values()) == [1, 2]
+
+
+def test_compile_train_route_within_the_fp32_bars(cuda):
+    """One fp32 step on the compile route (Inductor) against eager from the
+    same weights, held to chip_smoke.py's bars for a step whose sums run in
+    another order: loss 1e-5 relative; the step's BN moments (EMA decay 0,
+    two-pass statistics, so that no variance is the difference of two larger
+    sums) 1e-5, each mean in units of its channel's standard deviation and
+    each variance relative; the update within 1e-2 relative RMS or 4 times
+    the eager step's own move when its images change by one ulp. The dw
+    weight gradient keeps TF32 off inside its op."""
+    torch._dynamo.reset()
+    x, y = _route_batch(cuda)
+    nudged = x * (1 + 2.0 ** -23 * (torch.randint(0, 2, x.shape, device=cuda) * 2 - 1))
+    out = {}
+    for name, route, images in (("eager", "eager", x), ("moved", "eager", nudged),
+                                ("compile", "compile", x)):
+        model, tx, state = _route_setup(cuda, dtype=torch.float32, dropout=0.0, lr=1e-3,
+                                        bn_momentum=0.0, bn_stats="two_pass")
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        before = bn_bwd_reduce.launches
+        state, metrics = make_train_step(model, tx, 0.1, route=route)(state, images, y)
+        torch.cuda.synchronize()
+        assert bn_bwd_reduce.launches - before == 35
+        out[name] = (float(metrics["loss"]), p0,
+                     {n: p.detach().clone() for n, p in model.named_parameters()},
+                     dict(model.named_buffers()))
+    (le, p0, pe, be), (_, _, pm, _), (lc, _, pc, bc) = out["eager"], out["moved"], out["compile"]
+    assert abs(lc - le) <= 1e-5 * abs(le)
+    for n, v in be.items():
+        if n.endswith("running_var"):
+            m = n[:-len("var")] + "mean"
+            assert float(((bc[m] - be[m]).abs() / v.clamp(min=1e-12).sqrt()).max()) <= 1e-5, m
+            assert float(((bc[n] - v).abs() / v.clamp(min=1e-12)).max()) <= 1e-5, n
+
+    def rel_rms(pa):
+        num = sum(float(((pa[n] - pe[n]) ** 2).sum()) for n in pe)
+        return (num / sum(float(((pe[n] - p0[n]) ** 2).sum()) for n in pe)) ** 0.5
+
+    assert rel_rms(pc) <= max(1e-2, 4 * rel_rms(pm))
+    torch._dynamo.reset()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_bn_ops_on_cuda(cuda, dtype):
+    x, dy, ref, (mean, inv, gamma, beta) = _bn_case(cuda, (3, 9, 9, 24), dtype, seed=6)
+    torch.library.opcheck(torch.ops.mnasnet_tpu_torch.bn_bwd_reduce.default,
+                          (x, dy, mean, inv, gamma, beta))
+    dg, db = bn_bwd_reduce(x, dy, mean, inv, gamma, beta)
+    torch.library.opcheck(torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default,
+                          (x, dy, mean, inv, gamma, beta, dg, db, 3 * 81))
+
+
+def test_failed_capture_raises(cuda):
+    """A device part that reads a value on the host cannot be captured: the
+    graph route raises, and nothing runs eagerly in its place."""
+    import types
+
+    from mnasnet_tpu_torch.utils.routing import TrainRouted
+
+    state = types.SimpleNamespace(step=0, generator=torch.Generator(device=cuda))
+    calls = []
+
+    def device_step(images, labels, generator):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return {"loss": images.sum() * float(labels.sum())}
+
+    steps = types.SimpleNamespace(device=cuda, inputs=lambda x, y: (x, y),
+                                  host=lambda st: None, device_step=device_step)
+    routed = TrainRouted(steps, "graph")
+    x, y = torch.ones(4, 2, device=cuda), torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        routed(state, x, y)
+    assert calls == [False, True] and not routed._cache
+    torch.cuda.synchronize()
