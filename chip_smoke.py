@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only trainer # the training harness phase only
     python3 chip_smoke.py --only dist    # the data-parallel phase only
     python3 chip_smoke.py --only serve   # the serving deployment phase only
+    python3 chip_smoke.py --only knobs   # the model knobs phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -73,6 +74,29 @@ Phases, in order; any failure raises and exits non-zero:
      first call's seconds (capture, compile), and the fastest route, which
      ``TRAIN_ROUTE`` is set from; with ``--profile``, each route's device
      time and busy share and one kernel per counted launch;
+  8b. knobs: the model knobs on the same production configuration (bs128,
+     bf16; a full run takes it right after train). ``remat``: 3 steps with
+     dropout, a changing rate and the model EMA, under deterministic
+     algorithms, on the graph route with ``remat`` (this phase's main path:
+     exactly 33 dw, 35 bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches per
+     counted step, 16 of the dw launches the blocks' recomputes), bit for
+     bit the eager ``remat`` steps, which are bit for bit the steps without
+     ``remat`` (losses, parameters, BN buffers with ``num_batches_tracked``,
+     optimizer state, generator); the first step of the compile route with
+     ``remat`` against its eager step. The first eager step of ``taps``,
+     ``taps2`` and ``hybrid`` against the production step, and of
+     ``channel_pad`` 64 and 128 on the kernel route against their torch
+     route, with the padded models' serving launches (the MBConv blocks the
+     planner still admits); the knobs' tests of ``tests/test_torch_gpu.py``
+     in a child pytest. With timing (``tools/train_variants.py``): ms
+     per step, images/s, peak memory and launches per step of the variants
+     on the graph route (and eager for the dw routes): ``pw_lowering`` dot
+     and conv in six alternating fresh builds (the faster one, or "within
+     noise" where the means differ by no more than one lowering's spread),
+     ``remat`` off and on at bs128 and bs512, the padded models, the dw
+     routes; the serving forward per ``pw_lowering`` at bs1 and bs128 on
+     the graph route, on the kernel route (whose fused blocks run no
+     separate 1x1 conv) and on the torch route;
   9. trainer: the training harness, ``python -m mnasnet_tpu_torch.train``'s
      ``main(argv)`` in this process on the same production configuration
      (batch 128, bf16, 224 px, mnasnet1_0): (a) one epoch over a seeded
@@ -160,6 +184,11 @@ Tolerances (normalised by the largest magnitude of the reference):
     gradient elements by more);
   * train routes: the graph route and a mix of routes bit for bit the eager
     route (the same kernels on the same inputs in the same order);
+  * knobs: ``remat`` bit for bit (the recompute runs the same kernels on
+    the same inputs; the BN statistics update once, outside it); the
+    compile route with ``remat``, the dw routes and the padded kernel route
+    against their references within the compile route's bf16 bars above
+    (``_held_to_one_ulp``);
   * trainer: launches and checkpoints exactly, the eval CLI's acc1 equal to
     the trainer's as printed (3 decimals), the resumed run bit for bit;
   * dist: launches and collectives exactly; the ranks against one process:
@@ -203,7 +232,7 @@ from mnasnet_tpu_torch.data import native_decoder
 from mnasnet_tpu_torch.data.dataset import ImageFolderDataset, SyntheticDataset
 from mnasnet_tpu_torch.data.pipeline import DataLoader, prefetch_to_device
 from mnasnet_tpu_torch.data.transforms import eval_transform, train_transform
-from mnasnet_tpu_torch.models.layers import BatchNorm, nchw, set_replicas
+from mnasnet_tpu_torch.models.layers import PW_AUTO, BatchNorm, nchw, set_replicas
 from mnasnet_tpu_torch.ops.cuda import _build
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     _fwd_math,
@@ -249,6 +278,15 @@ from mnasnet_tpu_torch.train.steps import (
     step_collectives,
 )
 from mnasnet_tpu_torch.tools.export_serving import build_forward, export_artifact
+from mnasnet_tpu_torch.tools.train_variants import (
+    COUNTERS,
+    VARIANTS,
+    counts,
+    memory_base,
+    time_serving,
+    time_train,
+)
+from mnasnet_tpu_torch.tools.train_variants import train_batch as variant_batch
 from mnasnet_tpu_torch.train.trainer import Trainer
 from mnasnet_tpu_torch.utils.routing import (
     GRAPH_WARMUP,
@@ -272,8 +310,13 @@ TRAIN_LR = 0.01
 TRAIN_STEPS = 5
 LAUNCHES_PER_STEP = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 35, "bn_bwd_dx": 35,
                      "mbconv_block": 0}
-COUNTERS = {"dw_conv_bn_act": dw_conv_bn_act, "mbconv_block": mbconv_fused,
-            "bn_bwd_reduce": bn_bwd_reduce, "bn_bwd_dx": bn_bwd_dx}
+# With remat each of the 16 blocks runs its dw kernel again in the backward.
+LAUNCHES_PER_REMAT_STEP = dict(LAUNCHES_PER_STEP, dw_conv_bn_act=17 + 16)
+KNOB_STEPS = 3
+REMAT_BIG_BATCH = 512
+KNOB_TARGET_MS = 1000.0
+# conv and dot in alternating runs, each a fresh build.
+PW_ORDER = ("dot", "conv", "conv", "dot", "dot", "conv")
 # The port's kernels by a part of their CUDA function names, for profiles.
 KERNEL_NAMES = {"dw_conv_bn_act": "dw_conv_kernel", "mbconv_block": "mbconv_",
                 "bn_bwd_reduce": "bn_reduce_", "bn_bwd_dx": "bn_dx_kernel"}
@@ -988,15 +1031,6 @@ def deterministic():
         torch.use_deterministic_algorithms(previous)
 
 
-def _memory_base() -> tuple[int, int]:
-    """Allocated and reserved bytes now, with the allocator's unused cache
-    released and the peak reset: the base a route's memory is counted from."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-
-
 def _snapshot(model, step, state) -> dict:
     return {"model": {k: v.clone() for k, v in model.state_dict().items()},
             "tx": step._steps.tx.state_dict(), "generator": state.generator.get_state(),
@@ -1040,6 +1074,49 @@ def _route_runs(images, labels) -> dict:
     if len(set(out["lrs"])) != TRAIN_STEPS or runs["graph"]["replays"] != TRAIN_STEPS - 1:
         raise RuntimeError(f"rates {out['lrs']} or replays {runs['graph']['replays']}")
     return out
+
+
+def one_ulp(images):
+    """The images moved by one bf16 ulp, each up or down (seeded)."""
+    return images * (1 + 2.0 ** -7 * torch.randint(
+        0, 2, images.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(6)).float().mul(2).sub(1))
+
+
+def _first_step(step_route, images, labels, route="kernel", keep=False, **model_kw) -> dict:
+    """The first bf16 step of the production configuration from seed 0 on
+    ``step_route``: the loss, the parameters before and after, the BN
+    statistics and the seconds it took (a compile included); with ``keep``
+    the model, state, step, seconds and memory base under "kept"."""
+    base = memory_base(torch.device("cuda"))
+    m, st, stp = _train_setup(torch.bfloat16, route, step_route=step_route, **model_kw)
+    p0 = _params(m)
+    t0 = time.perf_counter()
+    st, met = stp(st, images, labels)
+    torch.cuda.synchronize()
+    out = {"loss": float(met["loss"]), "p0": p0, "params": _params(m), "stats": _stats(m),
+           "s": time.perf_counter() - t0}
+    if keep:
+        out["kept"] = (m, st, stp, out["s"], base)
+    return out
+
+
+def _held_to_one_ulp(ours: dict, ref: dict, moved: dict, what: str) -> dict:
+    """``ours`` against the first step ``ref``, within the bf16 bars of the
+    compile route: loss and BN moments within 1e-5 or 4 times ``ref``'s own
+    move when its images change by one bf16 ulp (``moved``), the update
+    within 1e-2 relative RMS or 4 times that move; raises outside them."""
+    comp = _vs_one_process(ours, ref, moved)
+    own = _vs_one_process(moved, ref, moved)
+    comp.update(one_ulp_loss_rel_diff=own["loss_rel_diff"],
+                one_ulp_moments_max_diff=own["moments_max_diff"])
+    bars = {"loss_rel_diff": max(1e-5, 4 * own["loss_rel_diff"]),
+            "moments_max_diff": max(1e-5, 4 * own["moments_max_diff"]),
+            "update_rel_rms_diff": max(1e-2, 4 * comp["one_ulp_update_rel_rms_diff"])}
+    comp["bars"] = bars
+    if any(comp[k] > bar for k, bar in bars.items()):
+        raise RuntimeError(f"{what} disagrees: {comp}")
+    return comp
 
 
 def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
@@ -1107,36 +1184,15 @@ def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
     # The compile route (Inductor), compiled once: its first step against the
     # eager step from the same weights, beside the eager step on images
     # moved by one bf16 ulp; then, with timing, it is timed as it stands.
-    nudged = images * (1 + 2.0 ** -7 * torch.randint(
-        0, 2, images.shape, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(6)).float().mul(2).sub(1))
-    first = {}
-    for name, step_route, x in (("eager", "eager", images), ("eager_one_ulp", "eager", nudged),
-                                ("compile", "compile", images)):
-        base = _memory_base()
-        m, st, stp = _train_setup(torch.bfloat16, "kernel", step_route=step_route)
-        p0 = _params(m)
-        t0 = time.perf_counter()
-        st, met = stp(st, x, labels)
-        torch.cuda.synchronize()
-        first[name] = {"loss": float(met["loss"]), "p0": p0, "params": _params(m),
-                       "stats": _stats(m), "s": time.perf_counter() - t0}
-        if step_route == "compile":
-            compiled = (m, st, stp, first[name]["s"], base)
-        del m, st, stp, p0
-    comp = _vs_one_process(first["compile"], first["eager"], first["eager_one_ulp"])
-    moved = _vs_one_process(first["eager_one_ulp"], first["eager"], first["eager_one_ulp"])
-    comp.update(first_call_s=first["compile"]["s"],
-                one_ulp_loss_rel_diff=moved["loss_rel_diff"],
-                one_ulp_moments_max_diff=moved["moments_max_diff"])
-    bars = {"loss_rel_diff": max(1e-5, 4 * moved["loss_rel_diff"]),
-            "moments_max_diff": max(1e-5, 4 * moved["moments_max_diff"]),
-            "update_rel_rms_diff": max(1e-2, 4 * comp["one_ulp_update_rel_rms_diff"])}
-    comp["bars"] = bars
+    first = {"eager": _first_step("eager", images, labels),
+             "eager_one_ulp": _first_step("eager", one_ulp(images), labels)}
+    first["compile"] = _first_step("compile", images, labels, keep=True)
+    compiled = first["compile"].pop("kept")
+    comp = _held_to_one_ulp(first["compile"], first["eager"], first["eager_one_ulp"],
+                            "the compile route against eager")
+    comp["first_call_s"] = first["compile"]["s"]
     out["bf16_compile_vs_eager"] = comp
     log(f"[train] bf16 first step, compile route vs eager: {json.dumps(comp)}")
-    if any(comp[k] > bar for k, bar in bars.items()):
-        raise RuntimeError(f"the compile route disagrees with eager: {comp}")
     del first
 
     if timing:
@@ -1152,7 +1208,7 @@ def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
                 m, st, stp, first_s, base = compiled
                 row = {"first_call_s": first_s}
             else:
-                base = _memory_base()
+                base = memory_base(torch.device("cuda"))
                 m, st, stp = _train_setup(torch.bfloat16, route, step_route=step_route)
                 t0 = time.perf_counter()
                 stp(st, images, labels)
@@ -1201,8 +1257,185 @@ def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
     return out
 
 
-def counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+def _knob_runs(images, labels) -> dict:
+    """The knobs phase's ``remat`` runs, under deterministic algorithms, with
+    dropout, a rate that changes every step and the model EMA:
+    ``KNOB_STEPS`` steps eager without ``remat``, eager with it, and on the
+    graph route with it (the phase's main path: the counts set to 0 just
+    before it and read just after)."""
+    runs = {}
+    for name, step_route, remat in (("plain_eager", "eager", False),
+                                    ("remat_eager", "eager", True),
+                                    ("remat_graph", "graph", True)):
+        model, state, step = _train_setup(torch.bfloat16, "auto", seed=2, step_route=step_route,
+                                          schedule=True, model_ema=0.999, remat=remat)
+        if name == "remat_graph":
+            for fn in COUNTERS.values():
+                fn.launches = 0
+        losses = []
+        with deterministic():
+            for _ in range(KNOB_STEPS):
+                state, metrics = step(state, images, labels)
+                losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        runs[name] = {"losses": [float(v) for v in losses], **_snapshot(model, step, state),
+                      "launches": counts(), "counted_steps": step.counted(),
+                      "replays": sum(step.replays.values())}
+        del model, state, step
+    return runs
+
+
+def knobs_phase(timing: bool, card: str) -> dict:
+    """The model knobs on the production configuration (mnasnet1_0@224,
+    bs128, bf16): ``remat``, ``pw_lowering``, ``channel_pad`` 64 and 128 and
+    the ``taps``/``taps2``/``hybrid`` depthwise routes."""
+    images, labels = train_batch()
+    out = {}
+
+    # remat: the graph route bit for bit its eager step and the plain step.
+    runs = _knob_runs(images, labels)
+    main = runs["remat_graph"]
+    out["launches"] = main["launches"]
+    out["counted_steps"] = main["counted_steps"]
+    out["launches_per_step"] = LAUNCHES_PER_REMAT_STEP
+    out["losses"] = main["losses"]
+    same = {}
+    for a, b in (("remat_graph", "remat_eager"), ("remat_eager", "plain_eager")):
+        same[f"{a}_vs_{b}"] = {"losses": runs[a]["losses"] == runs[b]["losses"],
+                               **{k: _tree_equal(runs[a][k], runs[b][k])
+                                  for k in ("model", "tx", "generator")}}
+    out["remat_bitwise"] = same
+    log(f"[knobs] remat over {KNOB_STEPS} steps, bitwise: {json.dumps(same)}; graph route "
+        f"launches {main['launches']} over {main['counted_steps']} counted steps, "
+        f"{main['replays']} replays")
+    if not all(all(v.values()) for v in same.values()):
+        raise RuntimeError(f"remat is not bit for bit the step: {same}")
+    if main["launches"] != _scaled(LAUNCHES_PER_REMAT_STEP, main["counted_steps"]) \
+            or main["replays"] != KNOB_STEPS - 1:
+        raise RuntimeError(f"expected {LAUNCHES_PER_REMAT_STEP} launches per counted remat "
+                           f"step and {KNOB_STEPS - 1} replays: {main}")
+    del runs, main
+
+    # remat on the compile route (Inductor): its first step against eager.
+    first = {"eager": _first_step("eager", images, labels, remat=True),
+             "eager_one_ulp": _first_step("eager", one_ulp(images), labels, remat=True),
+             "compile": _first_step("compile", images, labels, remat=True)}
+    comp = _held_to_one_ulp(first["compile"], first["eager"], first["eager_one_ulp"],
+                            "the compile route with remat against eager")
+    comp["first_call_s"] = first["compile"]["s"]
+    out["remat_compile_vs_eager"] = comp
+    log(f"[knobs] bf16 first step with remat, compile route vs eager: {json.dumps(comp)}")
+    base = first["eager"]
+
+    # The depthwise routes and the padded models: each first step against
+    # the production step (kernel route) within the same one-ulp bars.
+    out["first_step_vs_best"] = {}
+    for name, kw in (("best-taps", {"dw_impl": "taps"}), ("best-taps2", {"dw_impl": "taps2"}),
+                     ("best-hyb2", {"dw_impl": "hybrid"})):
+        ours = _first_step("eager", images, labels, route="auto", **kw)
+        comp = _held_to_one_ulp(ours, base, first["eager_one_ulp"], f"{name}'s first step")
+        out["first_step_vs_best"][name] = comp
+        log(f"[knobs] {name} first step vs best: {json.dumps(comp)}")
+    out["channel_pad"] = {}
+    for pad in (64, 128):
+        runs = {r: _first_step("eager", x, labels, route=r, channel_pad=pad)
+                for r, x in (("kernel", images), ("torch", images))}
+        moved = _first_step("eager", one_ulp(images), labels, route="torch", channel_pad=pad)
+        comp = _held_to_one_ulp(runs["kernel"], runs["torch"], moved,
+                                f"channel_pad={pad}'s kernel route against its torch route")
+        # The serving forward's launches: the blocks the planner still admits.
+        model = create_model("mnasnet1_0", dtype=torch.bfloat16, channel_pad=pad)
+        predict = make_predict_fn(model)
+        before = counts()
+        predict(images)
+        torch.cuda.synchronize()
+        comp["serving_launches"] = _delta(before, counts())
+        out["channel_pad"][pad] = comp
+        log(f"[knobs] channel_pad={pad} kernel route vs torch route: {json.dumps(comp)}")
+        del runs, moved, model, predict
+    del first, base
+
+    out["gpu_tests"] = knob_gpu_tests()
+    if timing:
+        out["timing"] = knob_timing(images, labels, card)
+    return out
+
+
+def knob_gpu_tests() -> dict:
+    """The knobs' tests of ``tests/test_torch_gpu.py`` in a child pytest
+    (``--noconftest``: no JAX): ``remat`` on the graph route, taps and
+    hybrid gradients at the stride-2 shapes, the padded kernel route."""
+    r = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                        "-q", "-m", "gpu", "-k", "remat or taps or channel_pad",
+                        "tests/test_torch_gpu.py"],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    summary = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    log(f"[knobs] GPU tests of the knobs: {summary}")
+    if r.returncode != 0 or " passed" not in summary or "failed" in summary:
+        raise RuntimeError(f"the knobs' GPU tests failed (rc {r.returncode}):\n"
+                           f"{r.stdout[-4000:]}{r.stderr[-2000:]}")
+    return {"summary": summary}
+
+
+def knob_timing(images, labels, card) -> dict:
+    """ms per step, images/s, peak memory and launches per step of the
+    variants (``tools/train_variants.py``), and the serving forward per
+    ``pw_lowering``; conv and dot in alternating runs."""
+    rows = []
+
+    def train(name, route, x=images, y=labels, **kw):
+        row = {"variant": name, **time_train({**VARIANTS["best"], **kw}, route, x, y,
+                                             target_ms=KNOB_TARGET_MS)}
+        rows.append(row)
+        log(f"[knobs] {name} bs{x.shape[0]} {route}: {row['ms_per_step']:.3f} ms/step, "
+            f"{row['images_per_s']:.1f} images/s, peak {row['peak_allocated_gb']:.2f} GB "
+            f"allocated / {row['peak_reserved_gb']:.2f} reserved, launches "
+            f"{row['launches_per_step']} on {card}")
+
+    for lowering in PW_ORDER:
+        train(f"best-pw{lowering}", TRAIN_ROUTE, pw_lowering=lowering)
+    for remat in (False, True):
+        train("best-remat" if remat else "best", TRAIN_ROUTE, remat=remat)
+    big = variant_batch(REMAT_BIG_BATCH, torch.device("cuda"))
+    for remat in (False, True):
+        train("best-remat" if remat else "best", TRAIN_ROUTE, *big, remat=remat)
+    del big
+    for pad in (64, 128):
+        train(f"best-cpad{pad}", TRAIN_ROUTE, channel_pad=pad)
+    for name, impl in (("best-taps", "taps"), ("best-taps2", "taps2"), ("best-hyb2", "hybrid")):
+        for route in ("eager", TRAIN_ROUTE):
+            train(name, route, dw_impl=impl)
+    train("best", "eager")
+    serving = []
+    for dw_impl in ("auto", "torch"):
+        for bs in (1, BATCH):
+            for lowering in PW_ORDER:
+                serving.append(time_serving(lowering, bs, torch.device("cuda"),
+                                            target_ms=KNOB_TARGET_MS / 2, dw_impl=dw_impl))
+                log(f"[knobs] serving pw_lowering={lowering} dw_impl={dw_impl} bs{bs} graph: "
+                    f"{serving[-1]['ms_per_batch']:.4f} ms on {card}")
+    verdict = {"train": pw_verdict([(r["variant"][len("best-pw"):], r["ms_per_step"])
+                                    for r in rows if r["variant"].startswith("best-pw")])}
+    for dw_impl in ("auto", "torch"):
+        for bs in (1, BATCH):
+            verdict[f"serving_{dw_impl}_bs{bs}"] = pw_verdict(
+                [(r["pw_lowering"], r["ms_per_batch"]) for r in serving
+                 if r["batch"] == bs and r["dw_impl"] == dw_impl])
+    log(f"[knobs] pw_lowering per mode: {json.dumps(verdict)}; PW_AUTO is {PW_AUTO}")
+    return {"train": rows, "serving": serving, "pw_lowering": verdict}
+
+
+def pw_verdict(times: list) -> dict:
+    """conv against dot from alternating runs of fresh builds: each
+    lowering's mean, the noise (the largest spread among one lowering's
+    runs) and the faster one, or "within noise" where the means differ by
+    no more than the noise."""
+    by = {lw: [t for name, t in times if name == lw] for lw in ("dot", "conv")}
+    mean = {lw: sum(v) / len(v) for lw, v in by.items()}
+    noise = max(max(v) - min(v) for v in by.values())
+    faster = min(mean, key=mean.get) if abs(mean["dot"] - mean["conv"]) > noise \
+        else "within noise"
+    return {"ms": by, "mean_ms": mean, "noise_ms": noise, "faster": faster}
 
 
 def _delta(before: dict, after: dict) -> dict:
@@ -1846,7 +2079,7 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
 
 
 def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trainer,
-                 dist) -> dict:
+                 dist, knobs) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -1857,7 +2090,7 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trai
     paths = {"serving": serving["launches"], "artifact": serve["artifact"]["launches"],
              "artifact_routes": serve["routes_launches"], "train": train["launches"],
              "trainer": trainer["launches"], "dist_torchrun": dist["nccl"]["launches"],
-             "dist_ranks_rank0": dist["ranks"]["launches"]}
+             "dist_ranks_rank0": dist["ranks"]["launches"], "knobs_remat": knobs["launches"]}
 
     def by_path(name):
         return {p: launches.get(name, 0) for p, launches in paths.items()}
@@ -1910,12 +2143,13 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
-    ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve"),
+    ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve",
+                                       "knobs"),
                     default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
                          "phase only; 'dist' the data-parallel phase only; 'serve' the "
-                         "serving deployment phase only")
+                         "serving deployment phase only; 'knobs' the model knobs phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     args = ap.parse_args()
@@ -1967,6 +2201,10 @@ def main() -> int:
         log(json.dumps({"serve": phase("serve", serve_phase, timing, card)}))
         log(card)
         return 0
+    if args.only == "knobs":
+        log(json.dumps({"knobs": phase("knobs", knobs_phase, timing, card)}, default=str))
+        log(card)
+        return 0
     if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
         serve = phase("serve", serve_phase, timing, card)
@@ -1975,14 +2213,17 @@ def main() -> int:
     train = phase("train", train_phase, timing, card, args.profile)
 
     if args.only == "all":
+        # Right after train: the compile route's kernels are in Inductor's cache.
+        knobs = phase("knobs", knobs_phase, timing, card)
         trainer = phase("trainer", trainer_phase, timing, card, train)
         dist = phase("dist", dist_phase, timing, card, trainer, args.profile)
         log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train,
-                                    trainer, dist)))
+                                    trainer, dist, knobs)))
         log(json.dumps({"serving": serving}))
         log(json.dumps({"serve": serve}))
         log(json.dumps({"trainer": trainer}))
         log(json.dumps({"dist": dist}))
+        log(json.dumps({"knobs": knobs}, default=str))
     log(json.dumps({"train": train, "dw_train": dw_train}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ needs no conversion; these functions carry weights between the two packages:
     conversions, returning numpy arrays;
   * :func:`state_dict_from_jax` — ``{"params", "batch_stats"}`` of the JAX
     package (numpy arrays) to a state_dict that
-    ``MNASNet.load_state_dict(strict=True)`` takes;
+    ``MNASNet.load_state_dict(strict=True)`` takes (a padded JAX model's
+    widths to the port's model of the same ``channel_pad``);
   * :func:`params_from_jax` and :func:`params_to_jax` — any tree shaped like
     the parameters (gradients, the optimizer's ``ms``/``mom``/``trace``, the
     model-EMA shadow) between the JAX paths and the port's parameter names.
@@ -31,7 +32,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from mnasnet_tpu_torch.models.mnasnet import STACKS, get_depths
+from mnasnet_tpu_torch.models.mnasnet import STACKS, get_depths, padded
 
 
 def _np(t) -> np.ndarray:
@@ -93,21 +94,61 @@ def strip_module_prefix(state_dict: Mapping[str, Any]) -> dict[str, Any]:
             for k, v in state_dict.items()}
 
 
-def check_state_dict(sd: Mapping[str, Any], alpha: float) -> None:
-    """Reject v1 checkpoints and a stem width that ``alpha`` does not imply."""
+def _widths(alpha: float, channel_pad: int) -> dict[str, int]:
+    """The output width of every 1x1 and stem conv weight by torchvision name."""
+    d = [padded(w, channel_pad) for w in get_depths(alpha)]
+    out = {"layers.0.weight": d[0], "layers.6.weight": d[1]}
+    in_ch = d[1]
+    for s, (_k, _stride, exp, repeats) in enumerate(STACKS):
+        for j in range(repeats):
+            t = f"layers.{8 + s}.{j}.layers"
+            out[f"{t}.0.weight"] = padded(in_ch * exp, channel_pad)
+            out[f"{t}.6.weight"] = d[2 + s]
+            in_ch = d[2 + s]
+    return out
+
+
+def _width_mismatch(sd: Mapping[str, Any], widths: dict[str, int]):
+    """The first (name, width in sd, width expected) that differ, or None."""
+    for name, want in widths.items():
+        w = sd.get(name)
+        if w is not None and _np(w).shape[0] != want:
+            return name, _np(w).shape[0], want
+    return None
+
+
+def check_state_dict(sd: Mapping[str, Any], alpha: float, channel_pad: int = 1) -> None:
+    """Reject v1 checkpoints and widths that ``alpha`` and ``channel_pad``
+    do not imply. A model with ``channel_pad`` > 1 is not
+    checkpoint-compatible with the reference widths (``mnasnet.py:247-250``):
+    where its widths differ from the unpadded ones, it loads only a padded
+    model's own state_dict."""
     version = sd.get("_version", 2)
     if version is not None and not hasattr(version, "detach") and version < 2:
         raise ValueError(
             "v1 MNASNet checkpoints (alpha-scaled stem) are not supported; "
             "migrate with torchvision first"
         )
-    depths = get_depths(alpha)
-    stem_w = sd.get("layers.0.weight")
-    if stem_w is not None and _np(stem_w).shape[0] != depths[0]:
+    bad = _width_mismatch(sd, _widths(alpha, channel_pad))
+    if bad is None:
+        return
+    name, have, want = bad
+    if channel_pad > 1 and _width_mismatch(sd, _widths(alpha, 1)) is None:
         raise ValueError(
-            f"state_dict stem has {_np(stem_w).shape[0]} channels but "
-            f"alpha={alpha} implies {depths[0]}; wrong depth multiplier?"
+            f"state_dict has the unpadded widths of alpha={alpha} ({name}: {have}), and "
+            f"this model pads them with channel_pad={channel_pad} ({want}): a padded model "
+            "is not checkpoint-compatible with the reference widths and loads only a "
+            "padded model's own checkpoint"
         )
+    if name == "layers.0.weight" and channel_pad == 1:
+        raise ValueError(
+            f"state_dict stem has {have} channels but alpha={alpha} implies {want}; "
+            "wrong depth multiplier?"
+        )
+    raise ValueError(
+        f"state_dict {name} has {have} channels but alpha={alpha} with "
+        f"channel_pad={channel_pad} implies {want}; wrong depth multiplier or channel_pad?"
+    )
 
 
 def params_to_jax(named: Mapping[str, Any], alpha: float) -> dict:

@@ -8,7 +8,8 @@ follow torchvision's MNASNet state_dict (``weight``, ``bias``,
 Layout: every module takes and returns NCHW tensors in ``torch.channels_last``
 memory. In that layout ``x.permute(0, 2, 3, 1)`` (:func:`nhwc`) is a
 contiguous NHWC tensor without a copy; the 1x1 convs run as a matmul over
-that view, and the kernels in ``ops/cuda`` take it as they are.
+that view (or as a 1x1 conv, :class:`PointwiseConv`), and the kernels in
+``ops/cuda`` take it as they are.
 
 In train mode BatchNorm normalises with batch statistics and updates its
 running statistics (:class:`BatchNorm`), and the stem may take its
@@ -30,6 +31,16 @@ from mnasnet_tpu_torch.parallel.dist import Replicas, global_rows
 BN_MOMENTUM = 0.9997  # EMA decay; torch momentum = 1 - 0.9997 = 3e-4
 BN_EPSILON = 1e-5
 BN_EMA = ("module", "external")
+PW_LOWERINGS = ("auto", "conv", "dot")
+# The lowering ``pw_lowering="auto"`` takes in each mode, measured on an
+# NVIDIA H100 80GB HBM3 at 700 W (``python3 chip_smoke.py --only knobs``,
+# PERF.md §6): in training conv led dot in each of 8 alternating
+# pairs, by 0.28 ms (median; 0.8% of a 36.7 ms step), while fresh builds of
+# one lowering spread by 0.41-1.08 ms within a call; serving on the kernel
+# route, the fused blocks run no separate 1x1 conv. Within noise in both
+# modes, so both keep dot, the port's lowering before. The reference's
+# mapping (conv when training, dot when serving) was measured on its TPU.
+PW_AUTO = {"train": "dot", "eval": "dot"}
 
 
 def conv_kernel_init_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -101,8 +112,11 @@ class BatchNorm(nn.Module):
         return inv, self.bias - self.running_mean * inv
 
     @torch.no_grad()
-    def _update_stats(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> None:
-        n = global_rows(x.numel() // x.shape[1], self.replicas)
+    def update_stats(self, rows: int, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The running-statistics update of one train forward whose batch
+        moments were ``mean`` and ``var`` over ``rows`` rows per channel on
+        this replica."""
+        n = global_rows(rows, self.replicas)
         bessel = n / max(n - 1, 1)
         if self.ema == "external":
             self.running_mean.copy_(mean)
@@ -115,24 +129,48 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = batch_moments(nhwc(x), self.stats, self.replicas)
-            self._update_stats(x, mean, var)
-            inv = self.weight * torch.rsqrt(var + self.eps)
-            shift = self.bias - mean * inv
-        else:
-            inv, shift = self.folded()
-        dt = x.dtype
-        return x * inv.to(dt).view(1, -1, 1, 1) + shift.to(dt).view(1, -1, 1, 1)
+            y, mean, var = self.train_forward(x)
+            self.update_stats(rows(x), mean, var)
+            return y
+        inv, shift = self.folded()
+        return _affine(x, inv, shift)
 
-    def relu_train_region(self, x: torch.Tensor) -> torch.Tensor:
+    def train_forward(self, x: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Train-mode BN with the batch statistics, without the running-stat
+        update: (y, mean, biased var). The caller applies
+        :meth:`update_stats` (a rematerialised block does so outside its
+        checkpointed region, once per forward)."""
+        mean, var = batch_moments(nhwc(x), self.stats, self.replicas)
+        inv = self.weight * torch.rsqrt(var + self.eps)
+        return _affine(x, inv, self.bias - mean * inv), mean, var
+
+    def relu_train_forward(self, x: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Train-mode BN + ReLU with the region backward of
         ``ops/cuda/bn_bwd.py`` (two CUDA kernels, or their plain versions on
-        the CPU). The forward and the running-stat updates are those of
-        ``relu(self(x))``; only the backward of the region differs."""
+        the CPU), without the running-stat update: (y, mean, biased var). The
+        forward is that of ``relu(self(x))``; only the backward differs."""
         y, mean, var = bn_relu_train(nhwc(x), self.weight, self.bias, self.eps, self.stats,
                                      self.replicas)
-        self._update_stats(x, mean, var)
-        return nchw(y)
+        return nchw(y), mean, var
+
+    def relu_train_region(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`relu_train_forward` with the running-stat update."""
+        y, mean, var = self.relu_train_forward(x)
+        self.update_stats(rows(x), mean, var)
+        return y
+
+
+def rows(x: torch.Tensor) -> int:
+    """Rows per channel of an NCHW tensor: N·H·W."""
+    return x.numel() // x.shape[1]
+
+
+def _affine(x: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """x·inv + shift per channel of NCHW x, the fp32 factors cast to x's dtype."""
+    dt = x.dtype
+    return x * inv.to(dt).view(1, -1, 1, 1) + shift.to(dt).view(1, -1, 1, 1)
 
 
 def set_replicas(module: nn.Module, replicas: Replicas | None) -> Replicas | None:
@@ -155,11 +193,20 @@ def replicas_of(module: nn.Module) -> Replicas | None:
 
 
 class PointwiseConv(nn.Module):
-    """Bias-free 1x1 conv, run as a matmul over the NHWC view (the
-    reference's eval-mode ``dot`` lowering, ``layers.py:77-82``)."""
+    """Bias-free 1x1 conv (``layers.py:43-88``) with the reference's
+    ``lowering``: ``"dot"`` a matmul over the NHWC view, ``"conv"`` a 1x1
+    ``F.conv2d`` on the channels_last tensor (cuDNN on the card), ``"auto"``
+    the lowering :data:`PW_AUTO` gives the module's mode. The parameter is
+    the same under every lowering, so state_dicts do not depend on it. In
+    fp32 on the card the two follow different TF32 flags:
+    ``torch.backends.cuda.matmul.allow_tf32`` (off by default) for dot,
+    ``torch.backends.cudnn.allow_tf32`` (on by default) for conv."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, lowering: str = "dot"):
         super().__init__()
+        if lowering not in PW_LOWERINGS:
+            raise ValueError(f"unknown pw_lowering {lowering!r}; choices: {PW_LOWERINGS}")
+        self.lowering = lowering
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 1, 1))
 
     def matrix(self) -> torch.Tensor:
@@ -167,6 +214,12 @@ class PointwiseConv(nn.Module):
         return self.weight[:, :, 0, 0].t()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lowering = self.lowering
+        if lowering == "auto":
+            lowering = PW_AUTO["train" if self.training else "eval"]
+        if lowering == "conv":
+            y = F.conv2d(x, self.weight.to(x.dtype))
+            return y.contiguous(memory_format=torch.channels_last)
         return nchw(torch.matmul(nhwc(x), self.matrix().to(x.dtype)))
 
 

@@ -40,7 +40,9 @@ whose backward is the two CUDA kernels of ``ops/cuda/bn_bwd.py``; ``"torch"``
 (the reference's ``"xla"``) leaves it to autograd; ``"auto"`` is
 ``"kernel"`` on a CUDA tensor. The BNs without a ReLU stay on autograd. The
 fused MBConv kernel is inference-only and never runs in train mode.
-``remat``, ``channel_pad`` and ``pw_lowering`` are not ported.
+The reference's model knobs ``remat``, ``pw_lowering`` and ``channel_pad``
+are :class:`MNASNet`'s; ``dw_impl`` also takes its training routes
+``"taps"``, ``"taps2"`` and ``"hybrid"`` (``ops/depthwise.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mnasnet_tpu_torch.models.layers import (
     BN_MOMENTUM,
@@ -59,13 +62,16 @@ from mnasnet_tpu_torch.models.layers import (
     dense_kernel_init_,
     nchw,
     nhwc,
+    rows,
 )
 from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fits_smem, mbconv_fused
 from mnasnet_tpu_torch.ops.depthwise import (
+    BN_BWD_IMPLS,
     IMPLS,
     depthwise_conv_bn_relu_fused,
     resolve_impl,
 )
+from mnasnet_tpu_torch.parallel.dist import SumTape, taped_sums
 
 # Base (alpha=1.0) widths and MBConv stack spec: (kernel, stride, expansion, repeats).
 BASE_DEPTHS = (32, 16, 24, 40, 80, 96, 192, 320)
@@ -117,40 +123,58 @@ def _bn_relu(bn: BatchNorm, x: torch.Tensor, region: bool) -> torch.Tensor:
     return bn.relu_train_region(x) if region else torch.relu(bn(x))
 
 
+def _bn_relu_train(bn: BatchNorm, x: torch.Tensor, region: bool):
+    """Train-mode relu(bn(x)) without the running-stat update: (y, mean, var)."""
+    if region:
+        return bn.relu_train_forward(x)
+    y, mean, var = bn.train_forward(x)
+    return torch.relu(y), mean, var
+
+
+def padded(width: int, pad: int) -> int:
+    """``width`` rounded up to a multiple of ``pad`` (``mnasnet.py:109,255-257``)."""
+    return -(-width // pad) * pad
+
+
 class InvertedResidual(nn.Module):
     """MBConv block (torchvision's ``_InvertedResidual``).
 
-    Input and output are NCHW tensors in channels_last memory.
+    Input and output are NCHW tensors in channels_last memory. ``mid_pad``
+    rounds the expanded width up to its multiple (``channel_pad``);
+    ``pw_lowering`` is the expand and project convs' lowering; ``remat``
+    recomputes the train-mode block in the backward (:meth:`_train`).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
                  expansion: int, dw_impl: str = "auto", bn_stats: str = "one_pass",
                  bn_ema: str = "module", bn_momentum: float = BN_MOMENTUM,
-                 bn_bwd: str = "auto"):
+                 bn_bwd: str = "auto", pw_lowering: str = "dot", mid_pad: int = 1,
+                 remat: bool = False):
         super().__init__()
-        mid = in_ch * expansion
+        mid = padded(in_ch * expansion, mid_pad)
         self.in_ch, self.mid_ch, self.out_ch = in_ch, mid, out_ch
         self.kernel_size = kernel_size
         self.stride = stride
         self.dw_impl = dw_impl
         self.bn_bwd = bn_bwd
+        self.remat = remat
         self.apply_residual = in_ch == out_ch and stride == 1
         kw = _bn_kw(bn_stats, bn_ema, bn_momentum)
         self.layers = nn.Sequential(
-            PointwiseConv(in_ch, mid),
+            PointwiseConv(in_ch, mid, pw_lowering),
             BatchNorm(mid, **kw),
             nn.ReLU(),
             DepthwiseConv(mid, kernel_size, stride, dw_impl),
             BatchNorm(mid, **kw),
             nn.ReLU(),
-            PointwiseConv(mid, out_ch),
+            PointwiseConv(mid, out_ch, pw_lowering),
             BatchNorm(out_ch, **kw),
         )
 
     def _use_fused_block(self, x: torch.Tensor, impl: str) -> bool:
         """The single-kernel fused block (ops/cuda/mbconv.py): eval mode only
         (``mnasnet.py:134``), on the kernel route, when the block has a
-        shared-memory plan."""
+        shared-memory plan for its (padded) widths."""
         if self.training or impl != "kernel":
             return False
         return mbconv_fits_smem(
@@ -158,6 +182,8 @@ class InvertedResidual(nn.Module):
             self.kernel_size, self.stride, x.element_size())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train(x)
         expand, expand_bn, _, dw, dw_bn, _, project, project_bn = self.layers
         impl = resolve_impl(self.dw_impl, x)
         if self._use_fused_block(x, impl):
@@ -168,18 +194,62 @@ class InvertedResidual(nn.Module):
                 nhwc(x), expand.matrix(), se, be, dw.kernel(), sd, bd,
                 project.matrix(), sp, bp, kernel_size=self.kernel_size,
                 stride=self.stride, residual=self.apply_residual))
-        region = self.training and resolve_impl(self.bn_bwd, x) == "kernel"
-        y = _bn_relu(expand_bn, expand(x), region)
-        if not self.training and impl == "kernel":
+        y = torch.relu(expand_bn(expand(x)))
+        if impl != "torch":
             s, b = dw_bn.folded()
             y = nchw(depthwise_conv_bn_relu_fused(nhwc(y), dw.kernel(), s, b,
                                                   stride=self.stride, impl=impl))
         else:
-            y = _bn_relu(dw_bn, dw(y), region)
+            y = torch.relu(dw_bn(dw(y)))
         y = project_bn(project(y))  # linear bottleneck
         if self.apply_residual:
             y = y + x
         return y
+
+    def _train(self, x: torch.Tensor) -> torch.Tensor:
+        """The train-mode block. Under ``remat`` (with grad enabled) its body
+        runs under ``torch.utils.checkpoint`` (the reference's ``nn.remat``,
+        ``mnasnet.py:275-277``): the backward recomputes it, on the kernels
+        of its route. The body returns its BN moments and the running
+        statistics update here, outside the checkpointed region, once per
+        forward, as ``nn.remat`` returns the forward's ``batch_stats``. Under
+        sync-BN the recompute replays the forward's global sums
+        (``parallel/dist.py:taped_sums``): the same statistics, and no
+        collective of its own. No random numbers are drawn in the block, so
+        no RNG state is kept."""
+        region = resolve_impl(self.bn_bwd, x) == "kernel"
+        if self.remat and torch.is_grad_enabled():
+            replicas = self.layers[1].replicas
+            if replicas is None:
+                out = checkpoint(self._train_body, x, region, use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                tape = SumTape()
+
+                def body(x):
+                    with taped_sums(replicas, tape):
+                        return self._train_body(x, region)
+
+                out = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = self._train_body(x, region)
+        y, *moments = out
+        for bn, r, (mean, var) in zip((self.layers[1], self.layers[4], self.layers[7]),
+                                      (rows(x), rows(y), rows(y)),
+                                      zip(moments[::2], moments[1::2])):
+            bn.update_stats(r, mean, var)
+        return y
+
+    def _train_body(self, x: torch.Tensor, region: bool):
+        """The train-mode block without the running-stat updates: the output
+        and the three BNs' (mean, var)."""
+        expand, expand_bn, _, dw, dw_bn, _, project, project_bn = self.layers
+        y, m1, v1 = _bn_relu_train(expand_bn, expand(x), region)
+        y, m2, v2 = _bn_relu_train(dw_bn, dw(y), region)
+        y, m3, v3 = project_bn.train_forward(project(y))  # linear bottleneck
+        if self.apply_residual:
+            y = y + x
+        return y, m1, v1, m2, v2, m3, v3
 
 
 def _stack(in_ch, out_ch, kernel_size, stride, expansion, repeats, **kw):
@@ -189,6 +259,25 @@ def _stack(in_ch, out_ch, kernel_size, stride, expansion, repeats, **kw):
     return nn.Sequential(*blocks)
 
 
+def kernel_width_problem(depths: list[int], channel_pad: int) -> str | None:
+    """Why the kernel route cannot take these widths, or None: the dw kernel
+    needs every depthwise width a multiple of 8 (which also gives the BN
+    backward kernels their even widths). Only a ``channel_pad`` that is not
+    a multiple of 8 makes such a width."""
+    dw_widths = [depths[0]]
+    in_ch = depths[1]
+    for s, (_k, _stride, exp, repeats) in enumerate(STACKS):
+        for _ in range(repeats):
+            dw_widths.append(padded(in_ch * exp, channel_pad))
+            in_ch = depths[2 + s]
+    bad = sorted({c for c in dw_widths if c % 8})
+    if not bad:
+        return None
+    return (f"channel_pad={channel_pad} gives depthwise widths {bad}, which the dw kernel "
+            "cannot take (it needs multiples of 8): use a channel_pad that is a multiple "
+            "of 8, or dw_impl and bn_bwd 'torch'")
+
+
 class MNASNet(nn.Module):
     """MNASNet with depth multiplier ``alpha``.
 
@@ -196,19 +285,39 @@ class MNASNet(nn.Module):
     ``seed`` seeds the ``torch.Generator`` of the weight init, which is the
     reference's (Kaiming-normal fan_out convs, Kaiming-uniform fan_out
     classifier, zero bias, unit BN). The module is built in eval mode.
+
+    The reference's model knobs (``mnasnet.py:216-257``):
+
+      * ``remat``: each MBConv block's train-mode forward is recomputed in
+        the backward (:meth:`InvertedResidual._train`); the same step, less
+        activation memory;
+      * ``pw_lowering``: ``"dot"``, ``"conv"`` or ``"auto"`` for the blocks'
+        expand and project convs (``layers.py:PointwiseConv``); the
+        separable and head 1x1 convs stay matmuls, as the reference builds
+        them as ``nn.Conv``;
+      * ``channel_pad``: every width of :func:`get_depths` and every
+        expanded width rounded up to a multiple of it. A padded model loads
+        only a padded model's checkpoint (``convert/torch_converter.py:
+        check_state_dict``). Widths the kernel route cannot take raise at
+        construction on ``dw_impl``/``bn_bwd="kernel"`` and at the first
+        forward of a CUDA tensor on ``"auto"``: the route is never swapped.
     """
 
     def __init__(self, alpha: float, num_classes: int = 1000, dropout: float = 0.2,
                  dtype: torch.dtype = torch.float32, dw_impl: str = "auto", seed: int = 0,
                  bn_stats: str = "one_pass", bn_ema: str = "module",
                  bn_momentum: float = BN_MOMENTUM, stem_s2d: bool = False,
-                 bn_bwd: str = "auto"):
+                 bn_bwd: str = "auto", remat: bool = False, pw_lowering: str = "auto",
+                 channel_pad: int = 1):
         super().__init__()
-        for knob, value in (("dw_impl", dw_impl), ("bn_bwd", bn_bwd)):
-            if value not in IMPLS:
-                raise ValueError(f"unknown {knob} {value!r}; choices: {IMPLS}")
+        for knob, value, choices in (("dw_impl", dw_impl, IMPLS),
+                                     ("bn_bwd", bn_bwd, BN_BWD_IMPLS)):
+            if value not in choices:
+                raise ValueError(f"unknown {knob} {value!r}; choices: {choices}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, not {dtype}")
+        if channel_pad < 1:
+            raise ValueError(f"channel_pad must be >= 1, got {channel_pad}")
         self.alpha = alpha
         self.num_classes = num_classes
         self.dtype = dtype
@@ -216,14 +325,19 @@ class MNASNet(nn.Module):
         self.bn_bwd = bn_bwd
         self.bn_ema = bn_ema
         self.bn_momentum = bn_momentum
+        self.channel_pad = channel_pad
         kw = _bn_kw(bn_stats, bn_ema, bn_momentum)
-        d = get_depths(alpha)
+        d = [padded(w, channel_pad) for w in get_depths(alpha)]
+        self.width_problem = kernel_width_problem(d, channel_pad)
+        if self.width_problem and "kernel" in (dw_impl, bn_bwd):
+            raise ValueError(self.width_problem)
         stacks = []
         in_ch = d[1]
         for s, (k, stride, exp, repeats) in enumerate(STACKS):
             stacks.append(_stack(in_ch, d[2 + s], k, stride, exp, repeats, dw_impl=dw_impl,
                                  bn_stats=bn_stats, bn_ema=bn_ema, bn_momentum=bn_momentum,
-                                 bn_bwd=bn_bwd))
+                                 bn_bwd=bn_bwd, pw_lowering=pw_lowering,
+                                 mid_pad=channel_pad, remat=remat))
             in_ch = d[2 + s]
         self.layers = nn.Sequential(
             StemConv(d[0], s2d=stem_s2d),
@@ -257,12 +371,15 @@ class MNASNet(nn.Module):
         """Backbone up to the 1280-wide head feature map (pre-pool), NCHW."""
         L = self.layers
         x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
+        impl = resolve_impl(self.dw_impl, x)
         region = self.training and resolve_impl(self.bn_bwd, x) == "kernel"
+        if self.width_problem and (impl == "kernel" or region):
+            raise ValueError(self.width_problem)
         y = _bn_relu(L[1], L[0](x), region)
-        if not self.training and resolve_impl(self.dw_impl, y) == "kernel":
+        if not self.training and impl != "torch":
             s, b = L[4].folded()
             y = nchw(depthwise_conv_bn_relu_fused(nhwc(y), L[3].kernel(), s, b,
-                                                  stride=1, impl="kernel"))
+                                                  stride=1, impl=impl))
         else:
             y = _bn_relu(L[4], L[3](y), region)
         y = L[7](L[6](y))
@@ -357,8 +474,9 @@ def create_model(name: str, *, device="cuda", **kwargs) -> MNASNet:
     Registry names cover the reference ctor set plus 1.4; any other
     ``mnasnet<int>_<frac>`` spelling (e.g. ``mnasnet0_9``) builds that depth
     multiplier. ``kwargs`` go to :class:`MNASNet` (``num_classes``,
-    ``dropout``, ``dtype``, ``dw_impl``, ``seed``, and the training knobs
-    ``bn_stats``, ``bn_ema``, ``bn_momentum``, ``stem_s2d``, ``bn_bwd``). The
+    ``dropout``, ``dtype``, ``dw_impl``, ``seed``, the training knobs
+    ``bn_stats``, ``bn_ema``, ``bn_momentum``, ``stem_s2d``, ``bn_bwd``, and
+    the model knobs ``remat``, ``pw_lowering``, ``channel_pad``). The
     weights are made on the CPU from ``seed`` and moved, so a seed gives the
     same weights on every device. ``device="cuda"`` without a card raises.
     """

@@ -272,17 +272,9 @@ class _DepthwiseConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from mnasnet_tpu_torch.ops.depthwise import dw_grad_weights, dw_transposed_dx
+        from mnasnet_tpu_torch.ops.depthwise import depthwise_backward
 
-        x, kernel = ctx.saved_tensors
-        k, s = kernel.shape[0], ctx.stride
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = dw_transposed_dx(g.to(x.dtype), kernel, s, k // 2,
-                                  x.shape[1], x.shape[2]).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = dw_grad_weights(x, g, k, s, k // 2).to(kernel.dtype)
-        return dx, dw, None
+        return depthwise_backward(ctx, g)
 
 
 def depthwise_conv_train(x: torch.Tensor, kernel: torch.Tensor, *, stride: int) -> torch.Tensor:

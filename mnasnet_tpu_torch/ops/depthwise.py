@@ -1,4 +1,5 @@
-"""Depthwise-conv dispatch: a plain PyTorch route and the hand-written kernel.
+"""Depthwise-conv dispatch: a plain PyTorch route, the hand-written kernel,
+and the reference's training-side routes.
 
 Counterpart of ``mnasnet_tpu/ops/depthwise.py``:
 
@@ -14,11 +15,23 @@ Counterpart of ``mnasnet_tpu/ops/depthwise.py``:
   * ``impl="auto"``   — ``"kernel"`` on a CUDA tensor, ``"torch"`` elsewhere.
     The reference's ``auto -> XLA`` was a TPU measurement; this default is to
     be re-decided from the H100 times in ``PERF.md``.
+  * ``impl="taps"``   — ``_taps_depthwise`` (``depthwise.py:58-90``): the k²
+    strided slices of the zero-padded input times the fp32 per-channel
+    weight, accumulated in fp32 (u outer, v inner), cast back to x's dtype;
+    autograd's backward. Plain PyTorch ops.
+  * ``impl="taps2"``  — ``taps`` at stride 2, ``torch`` elsewhere.
+  * ``impl="hybrid"`` — where ``_hybrid_wins`` holds (stride 2, H >= 28,
+    ``depthwise.py:167-180``) the torch route's forward with the backward of
+    ``_dw_hybrid_bwd`` (``depthwise.py:155-161``): :func:`dw_transposed_dx`
+    and :func:`dw_grad_weights`; ``torch`` elsewhere.
+
+The last three are training routes, as in the reference: in inference
+:func:`depthwise_conv_bn_relu_fused` takes the torch route with the folded
+affine for them, and only ``"kernel"`` reaches a kernel. The CLIs offer the
+first three (:data:`CLI_IMPLS`); the others are library and tool knobs.
 
 Layout contract: x is NHWC, kernel is (k, k, 1, C) (HWIO with I == 1), the
 JAX package's layouts.
-
-The training-side routes ``taps``, ``taps2`` and ``hybrid`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,15 +41,18 @@ import torch.nn.functional as F
 
 from mnasnet_tpu_torch.ops.cuda.dw_conv import depthwise_conv_train, dw_conv_bn_act
 
-IMPLS = ("auto", "kernel", "torch")
+IMPLS = ("auto", "kernel", "torch", "taps", "taps2", "hybrid")
+# The routes of the BN+ReLU backward (``bn_bwd``): the first three of IMPLS.
+BN_BWD_IMPLS = ("auto", "kernel", "torch")
 # The CLIs' --fused-kernels values: the port's routes and the reference's
-# spellings of them.
+# spellings of them (the reference's flag offers auto, pallas and xla).
 CLI_IMPLS = {"auto": "auto", "kernel": "kernel", "torch": "torch", "pallas": "kernel",
              "xla": "torch"}
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
-    """The route ``impl`` takes for tensor ``x``: ``"kernel"`` or ``"torch"``."""
+    """The route ``impl`` takes for tensor ``x``: ``"auto"`` resolved to
+    ``"kernel"`` or ``"torch"``, any other route as it is."""
     if impl not in IMPLS:
         raise ValueError(f"unknown dw impl {impl!r}; choices: {IMPLS}")
     if impl == "auto":
@@ -53,6 +69,60 @@ def _torch_depthwise(x: torch.Tensor, kernel: torch.Tensor, stride: int,
     return y.permute(0, 2, 3, 1)
 
 
+def _taps_depthwise(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+                    padding: int) -> torch.Tensor:
+    """y[n,i,j,c] = Σ_{u,v} xp[n, i·s+u, j·s+v, c]·w[u,v,c], xp zero-padded:
+    each tap a strided slice of xp times the fp32 weight, summed in fp32 in
+    the reference's order (u outer, v inner), then cast to x's dtype."""
+    k = kernel.shape[0]
+    n, h, w, c = x.shape
+    ho = (h + 2 * padding - k) // stride + 1
+    wo = (w + 2 * padding - k) // stride + 1
+    xp = F.pad(x, (0, 0, padding, padding, padding, padding))
+    w32 = kernel.float()
+    acc = None
+    for u in range(k):
+        for v in range(k):
+            win = xp[:, u:u + (ho - 1) * stride + 1:stride, v:v + (wo - 1) * stride + 1:stride]
+            t = win.float() * w32[u, v, 0]
+            acc = t if acc is None else acc + t
+    return acc.to(x.dtype)
+
+
+def hybrid_wins(h: int, k: int, stride: int = 1) -> bool:
+    """Where ``"hybrid"`` takes its own backward (``_hybrid_wins``,
+    ``depthwise.py:167-180``): the stride-2 layers of 28 rows or more."""
+    return stride == 2 and h >= 28
+
+
+def depthwise_backward(ctx, g):
+    """The backward of a depthwise conv Function (the kernel's and
+    ``"hybrid"``'s) from its saved (x, kernel) and ``ctx.stride``:
+    :func:`dw_transposed_dx` in x's dtype and :func:`dw_grad_weights` summed
+    in fp32, cast to the kernel's dtype (``_dw_hybrid_bwd``)."""
+    x, kernel = ctx.saved_tensors
+    k, s = kernel.shape[0], ctx.stride
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = dw_transposed_dx(g.to(x.dtype), kernel, s, k // 2, x.shape[1], x.shape[2]).to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        dw = dw_grad_weights(x, g, k, s, k // 2).to(kernel.dtype)
+    return dx, dw, None
+
+
+class _HybridDepthwise(torch.autograd.Function):
+    """The torch route's forward with the port's depthwise backward
+    (``_dw_conv_hybrid``, ``depthwise.py:147-164``)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride):
+        ctx.save_for_backward(x, kernel)
+        ctx.stride = stride
+        return _torch_depthwise(x, kernel, stride, kernel.shape[0] // 2)
+
+    backward = staticmethod(depthwise_backward)
+
+
 def _kernel_padding(kernel: torch.Tensor, padding: int | None) -> int:
     k = kernel.shape[0]
     if padding is not None and padding != k // 2:
@@ -64,10 +134,17 @@ def depthwise_conv2d(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
                      padding: int | None = None, impl: str = "auto") -> torch.Tensor:
     """Depthwise 2-D convolution, NHWC / (k, k, 1, C); padding defaults to k//2."""
     k = kernel.shape[0]
-    if resolve_impl(impl, x) == "kernel":
+    route = resolve_impl(impl, x)
+    if route == "kernel":
         _kernel_padding(kernel, padding)
         return depthwise_conv_train(x, kernel, stride=stride)
-    return _torch_depthwise(x, kernel, stride, k // 2 if padding is None else padding)
+    pad = k // 2 if padding is None else padding
+    if route == "taps" or (route == "taps2" and stride == 2):
+        return _taps_depthwise(x, kernel, stride, pad)
+    if route == "hybrid" and hybrid_wins(x.shape[1], k, stride):
+        _kernel_padding(kernel, padding)
+        return _HybridDepthwise.apply(x, kernel, stride)
+    return _torch_depthwise(x, kernel, stride, pad)
 
 
 def dw_transposed_dx(g: torch.Tensor, kernel: torch.Tensor, stride: int, padding: int,
@@ -138,7 +215,8 @@ def depthwise_conv_bn_relu_fused(x: torch.Tensor, kernel: torch.Tensor,
     """Inference-time depthwise conv + folded-BN affine + optional ReLU.
 
     ``scale``/``bias`` are the folded BN factors
-    (:meth:`mnasnet_tpu_torch.models.layers.BatchNorm.folded`).
+    (:meth:`mnasnet_tpu_torch.models.layers.BatchNorm.folded`). ``"kernel"``
+    runs the dw kernel; every other route the torch route and the affine.
     """
     k = kernel.shape[0]
     if resolve_impl(impl, x) == "kernel":

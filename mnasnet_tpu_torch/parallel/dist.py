@@ -30,6 +30,7 @@ not ported.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Iterable, Optional
 
@@ -52,6 +53,7 @@ class Replicas:
         self.device = torch.device(device)
         self.group = group
         self.collectives = 0
+        self.tape: Optional[SumTape] = None
         self._rows_checked: set[int] = set()
 
     def __repr__(self) -> str:
@@ -157,13 +159,75 @@ class _AllReduceSum(torch.autograd.Function):
         return _AllReduceSum.apply(grad, ctx.replicas), None
 
 
+class _Replayed(torch.autograd.Function):
+    """A sum a :class:`SumTape` recorded, in place of :class:`_AllReduceSum`
+    on the same ``t``: the forward returns a copy of the recorded sum and
+    issues nothing, the backward is ``_AllReduceSum``'s."""
+
+    @staticmethod
+    def forward(ctx, t, recorded, replicas):
+        if recorded.shape != t.shape:
+            raise RuntimeError(f"the replayed sum has shape {tuple(recorded.shape)}, the "
+                               f"tensor {tuple(t.shape)}: the region ran otherwise")
+        ctx.replicas = replicas
+        return recorded.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.replicas), None, None
+
+
+class SumTape:
+    """The sums :func:`all_reduce_sum` gave in the first run of a region
+    (:func:`taped_sums`), in order, for each later run of the same region to
+    take in turn without a collective: the recompute of a rematerialised
+    block under sync-BN normalises with exactly the global moments its
+    forward used and issues no collective of its own."""
+
+    def __init__(self):
+        self.sums: Optional[list[torch.Tensor]] = None
+        self.replaying = False
+        self._next = 0
+
+    def take(self) -> torch.Tensor:
+        if self._next >= len(self.sums):
+            raise RuntimeError("the region asked for more sums than its first run made")
+        self._next += 1
+        return self.sums[self._next - 1]
+
+
+@contextlib.contextmanager
+def taped_sums(replicas: Optional[Replicas], tape: SumTape):
+    """Within: the first run records the sums of :func:`all_reduce_sum`
+    into ``tape``, every later run replays them (no collective, nothing
+    counted). A no-op without replicas."""
+    if replicas is None:
+        yield
+        return
+    tape.replaying = tape.sums is not None
+    if not tape.replaying:
+        tape.sums = []
+    tape._next = 0
+    previous, replicas.tape = replicas.tape, tape
+    try:
+        yield
+    finally:
+        replicas.tape = previous
+
+
 def all_reduce_sum(t: torch.Tensor, replicas: Optional[Replicas]) -> torch.Tensor:
     """The sum of ``t`` over the replicas as a new tensor, differentiable: the
     backward sums the gradient over the replicas again, one collective each
-    way."""
+    way. Inside :func:`taped_sums` the sum is recorded, or replayed."""
     if replicas is None:
         return t
-    return _AllReduceSum.apply(t, replicas)
+    tape = replicas.tape
+    if tape is not None and tape.replaying:
+        return _Replayed.apply(t, tape.take(), replicas)
+    out = _AllReduceSum.apply(t, replicas)
+    if tape is not None:
+        tape.sums.append(out.detach())
+    return out
 
 
 def all_reduce_max_(t: torch.Tensor, replicas: Optional[Replicas]) -> torch.Tensor:

@@ -43,8 +43,9 @@ def load_weights(model: MNASNet, sd: dict[str, torch.Tensor]) -> int:
     ``model.num_classes``, the backbone loads from the checkpoint and the
     classifier keeps the model's own. ``num_batches_tracked`` buffers missing
     from a file (they do not affect eval) are taken as 0. Returns the
-    checkpoint's classifier width."""
-    check_state_dict(sd, model.alpha)
+    checkpoint's classifier width. A padded model (``channel_pad``) takes
+    only a padded model's widths."""
+    check_state_dict(sd, model.alpha, model.channel_pad)
     sd = dict(sd)
     sd.pop("_version", None)
     own = model.state_dict()

@@ -23,8 +23,10 @@ Triton) in DIR across runs. The train step runs on the train route
 eager with ``--device cpu`` and with data parallelism; the environment
 variable ``MNASNET_TPU_TORCH_ROUTE=eager|graph|compile`` overrides it), and
 validation runs each batch size on the route measured fastest for it.
-``--profile-steps`` traces graph replays as it traces eager steps. ``--remat``, whose module is not ported, exits
-non-zero and says so.
+``--profile-steps`` traces graph replays as it traces eager steps.
+``--remat`` recomputes each MBConv block's forward in the backward (the same
+step, less activation memory; the checkpoints are the same with and without
+it).
 """
 
 from __future__ import annotations
@@ -90,7 +92,10 @@ def parse_args(argv=None):
                         "PyTorch (torch, or 'xla'), or auto (kernel on a GPU)")
     p.add_argument("--bn-stats", choices=["one_pass", "two_pass"], default="one_pass",
                    help="BN batch-statistics formulation (two_pass under --deterministic)")
-    p.add_argument("--remat", action="store_true", help="not ported: exits non-zero")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise the MBConv blocks: recompute each block's forward "
+                        "in the backward (less activation memory, more device time; the "
+                        "same step and checkpoints)")
     p.add_argument("--model-ema", type=float, default=0.0, metavar="DECAY",
                    help="keep a weight moving average with this decay and evaluate and "
                         "track best on it (the TF recipe's 0.9999 with the num_updates "
@@ -172,16 +177,6 @@ def parse_args(argv=None):
     return args
 
 
-def refuse_unported(args) -> None:
-    """Exit non-zero, naming the missing module, for a flag whose module is
-    not ported yet; never ignore one silently."""
-    missing = []
-    if args.remat:
-        missing.append("--remat: rematerialised MBConv blocks")
-    if missing:
-        raise SystemExit("not ported yet in mnasnet_tpu_torch: " + "; ".join(missing))
-
-
 def check_topology(args, world: int) -> None:
     """The reference's refusals of a data-parallel layout (``train.py:424-430``)
     at world size ``world``: ``--mesh-dcn`` needs sync-BN and must divide the
@@ -254,7 +249,6 @@ def _set_deterministic(device) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     # The layout as declared, before any process joins a group.
     declared = args.world_size if args.world_size > 0 else int(os.environ.get("WORLD_SIZE", 1))
     check_topology(args, declared)
@@ -319,7 +313,7 @@ def _train(args, device, replicas):
     impl = CLI_IMPLS[args.fused_kernels]
     model = create_model(
         args.arch, device=device, num_classes=args.num_classes, dtype=dtype, dw_impl=impl,
-        bn_bwd=impl, bn_stats=args.bn_stats,
+        bn_bwd=impl, remat=args.remat, bn_stats=args.bn_stats,
         bn_ema="external" if args.fused_updates else "module",
         stem_s2d=args.stem_s2d, seed=seed,
     )

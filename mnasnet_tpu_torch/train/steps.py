@@ -324,7 +324,8 @@ def step_collectives(model: nn.Module, sync_bn: bool = True, diagnostics: bool =
     any other sums the moments' gradients as often as its forward summed the
     moments. A BatchNorm is in a region when a ReLU follows it in its
     Sequential. The first step also checks each new plane size once
-    (``parallel.global_rows``)."""
+    (``parallel.global_rows``). ``remat`` adds none: a block's recompute
+    replays the sums of its forward (``parallel/dist.py:taped_sums``)."""
     n = 2 + int(diagnostics)
     if not sync_bn:
         return n

@@ -39,6 +39,8 @@ op (the BN+ReLU backward's too, ``ops/cuda/bn_bwd.py``).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
 import types
 
@@ -129,6 +131,22 @@ def default_train_route(device="cuda", replicas=None) -> str:
     if route is not None:
         return route
     return TRAIN_ROUTE if torch.device(device).type == "cuda" else "eager"
+
+
+@contextlib.contextmanager
+def _collector_off():
+    """No automatic garbage collection inside. A collection during a capture
+    may free a dead reference cycle that holds a CUDA graph (a routed
+    callable dropped earlier), and destroying a graph while a stream
+    captures is an error that loses the capture; this PyTorch no longer
+    collects before a capture. The cycle goes at the next collection."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _fresh_function(fn):
@@ -223,7 +241,8 @@ class BatchRouted:
         graph = torch.cuda.CUDAGraph()
         # thread_local: a loader thread may pin and copy the next batch
         # meanwhile, on its own stream, which the capture does not hold.
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+        with _collector_off(), torch.cuda.graph(graph, pool=self._pool,
+                                                capture_error_mode="thread_local"):
             out = self._fn(*static)
         self.replays[key] = 0
 
@@ -346,7 +365,8 @@ class TrainRouted:
         before = generator.get_state()
         # thread_local: a loader thread may pin and copy the next batch
         # meanwhile, on its own stream, which the capture does not hold.
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+        with _collector_off(), torch.cuda.graph(graph, pool=self._pool,
+                                                capture_error_mode="thread_local"):
             out = steps.device_step(*static, generator)
         if not torch.equal(generator.get_state(), before):
             raise RuntimeError("the capture of the train step moved the dropout generator")

@@ -246,13 +246,42 @@ def test_check_preempt_meta_tolerates_torn_or_missing(tmp_path):
     (["--grad-accum", "2", "--no-sync-bn"], "drop --no-sync-bn"),
     (["--dist-url", "tcp://localhost:1", "--world-size", "2", "--rank", "0", "--mesh-dcn",
       "3"], "--mesh-dcn 3 does not divide the world size 2"),
-    # Modules not ported.
-    (["--remat"], "rematerialised"),
 ])
 def test_cli_refuses_flags_whose_modules_are_not_ported(tmp_path, flags, message):
     with pytest.raises(SystemExit, match=message):
         train_cli.main([*BASE, *flags, "--output-dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_cli_remat_trains_and_its_checkpoint_resumes_without_it(tmp_path, capsys,
+                                                                 monkeypatch):
+    """``--remat`` trains (each block's body runs twice a step: the forward
+    and the backward's recompute), and its epoch checkpoint resumes without
+    ``--remat``: the state_dict is the same, and so is the step, so the
+    resumed run ends bit for bit where a run with ``--remat`` throughout
+    ends."""
+    from mnasnet_tpu_torch.models.mnasnet import InvertedResidual
+
+    bodies = []
+    orig = InvertedResidual._train_body
+
+    def counted(self, *a):
+        bodies.append(1)
+        return orig(self, *a)
+
+    monkeypatch.setattr(InvertedResidual, "_train_body", counted)
+    argv = _with(BASE, "--synthetic-size", 16)  # 2 steps an epoch
+    whole, half = tmp_path / "whole", tmp_path / "half"
+    train_cli.main([*argv, "--remat", "--epochs", "2", "--output-dir", str(whole)])
+    assert len(bodies) == 16 * 2 * 4
+    del bodies[:]
+    train_cli.main([*argv, "--remat", "--epochs", "1", "--output-dir", str(half)])
+    assert len(bodies) == 16 * 2 * 2
+    del bodies[:]
+    train_cli.main([*argv, "--epochs", "2", "--resume", str(half), "--output-dir", str(half)])
+    assert len(bodies) == 16 * 2
+    assert "Epoch: [1]" in capsys.readouterr().out
+    _assert_tree_equal(_latest_payload(whole), _latest_payload(half))
 
 
 @pytest.mark.parametrize("cli", ["train", "eval"])
@@ -354,7 +383,6 @@ def test_cli_flag_resolution():
     args = train_cli.parse_args(["--synthetic", "--no-scale-lr", "--world-size", "1",
                                  "--rank", "0"])
     assert args.scale_lr is False
-    train_cli.refuse_unported(args)
     for spelling, route in (("pallas", "kernel"), ("xla", "torch"), ("kernel", "kernel")):
         assert train_cli.CLI_IMPLS[train_cli.parse_args(["--fused-kernels", spelling])
                                 .fused_kernels] == route

@@ -7,6 +7,8 @@ JAX package, so it also runs on a machine with only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -758,11 +760,11 @@ def deterministic(cuda, monkeypatch):
     torch.use_deterministic_algorithms(previous)
 
 
-def _run(cuda, routes, batches, grad_accum=1, restore_at=None):
+def _run(cuda, routes, batches, grad_accum=1, restore_at=None, **model_kw):
     """Steps on ``routes`` (one per step) over ``batches``, on one state;
     with ``restore_at=(i, j)`` the state after step i is saved and loaded
     back, in place, after step j, and the steps after it run again."""
-    model, tx, state = _route_setup(cuda)
+    model, tx, state = _route_setup(cuda, **model_kw)
     steps = {r: make_train_step(model, tx, 0.1, grad_accum=grad_accum, route=r)
              for r in set(routes)}
     losses, saved, i = [], None, 0
@@ -908,3 +910,160 @@ def test_failed_capture_raises(cuda):
         routed(state, x, y)
     assert calls == [False, True] and not routed._cache
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("route", ["train", "serve"])
+def test_graph_capture_survives_a_collection_of_a_dead_graph(cuda, route):
+    """An earlier CUDA graph whose last reference sits in a reference cycle
+    that turns into garbage while the next graph captures, with the
+    collector set to run at every allocation: collecting it inside the
+    capture would destroy that graph there (an error that loses the
+    capture), so the routes keep the collector off while they capture; the
+    step and the forward then run and replay."""
+    from mnasnet_tpu_torch.train.steps import make_predict_fn
+    from mnasnet_tpu_torch.utils.routing import BatchRouted
+
+    dead = torch.cuda.CUDAGraph()
+    x = torch.zeros(4, device=cuda)
+    with torch.cuda.graph(dead):
+        x.add_(1)
+    holder = {"graph": dead}
+    del dead
+
+    def dropping(fn):
+        def call(*a):
+            if torch.cuda.is_current_stream_capturing() and holder:
+                cycle = [holder.pop("graph")]
+                cycle.append(cycle)
+                del cycle
+            return fn(*a)
+        return call
+
+    model, tx, state = _route_setup(cuda)
+    images, labels = _route_batch(cuda)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        if route == "train":
+            step = make_train_step(model, tx, 0.1, route="graph")
+            step._steps.device_step = dropping(step._steps.device_step)
+            for _ in range(2):
+                state, metrics = step(state, images, labels)
+            out = metrics["loss"]
+        else:
+            fn = BatchRouted(dropping(make_predict_fn(model)), route_for=lambda b: "graph")
+            for _ in range(2):
+                out = fn(images)
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not holder and bool(torch.isfinite(out).all())
+
+
+# ------------------------------------------------------ the model knobs
+
+
+def test_remat_graph_route_is_bitwise_eager_and_the_plain_step(deterministic):
+    """5 steps with ``remat`` (dropout, a changing rate, the model EMA): the
+    graph route bit for bit the eager ``remat`` route and the step without
+    ``remat``; the dw kernel launches 17 + 16 times a counted step (each
+    block's recompute), the BN backward kernels 35 times each."""
+    cuda = deterministic
+    batches = [_route_batch(cuda)] * 5
+    lp, sp, _ = _run(cuda, ["eager"] * 5, batches)
+    le, se, _ = _run(cuda, ["eager"] * 5, batches, remat=True)
+    before = (dw_conv_bn_act.launches, bn_bwd_reduce.launches, bn_bwd_dx.launches)
+    lg, sg, steps = _run(cuda, ["graph"] * 5, batches, remat=True)
+    counted = steps["graph"].counted()
+    assert (dw_conv_bn_act.launches - before[0], bn_bwd_reduce.launches - before[1],
+            bn_bwd_dx.launches - before[2]) == (33 * counted, 35 * counted, 35 * counted)
+    assert lp == le == lg
+    _assert_same(sp, se)
+    _assert_same(se, sg)
+
+
+# The four stride-2 depthwise layers of mnasnet1_0@224: (H, C, k).
+STRIDE_2_SHAPES = [(112, 48, 3), (56, 72, 5), (28, 240, 5), (14, 576, 5)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-4)),
+                                       (torch.bfloat16, (2.0 ** -7, 2.0 ** -6))])
+@pytest.mark.parametrize("impl", ["taps", "hybrid"])
+@pytest.mark.parametrize("hw,c,k", STRIDE_2_SHAPES)
+def test_taps_and_hybrid_gradients_match_the_torch_route(cuda, dtype, tol, impl, hw, c, k):
+    """The forward and (dx, dw) of ``taps`` and ``hybrid`` against the torch
+    route at the stride-2 shapes of mnasnet1_0@224 (batch 4), within the dw
+    training op's bars (chip_smoke.py): fp32 1e-4; bf16 one ulp for y and
+    dx, 2^-6 for dw, which the torch route rounds to bf16 and these routes
+    sum in fp32. ``taps``' bf16 dx is autograd's of its casts: each of the
+    k² taps' gradients is rounded to bf16 and summed in bf16 (as the
+    reference's autodiff of ``_taps_depthwise`` does), so it is held to k²
+    half-ulps, k²·2^-8."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, hw, hw, c, device=cuda, generator=g).to(dtype)
+    w = torch.randn(k, k, 1, c, device=cuda, generator=g) * 0.3
+    out = []
+    for route in (impl, "torch"):
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = depthwise_conv2d(xr, wr, stride=2, impl=route)
+        cot = torch.randn(y.shape, device=cuda, generator=torch.Generator(device=cuda)
+                          .manual_seed(6)).to(dtype)
+        out.append((y, *torch.autograd.grad(y, (xr, wr), cot)))
+    (y, dx, dw), (ty, tdx, tdw) = out
+    assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == torch.float32
+    _close(y.detach(), ty.detach(), tol[0])
+    taps_bf16 = impl == "taps" and dtype == torch.bfloat16
+    _close(dx, tdx, k * k * 2.0 ** -8 if taps_bf16 else tol[0])
+    _close(dw, tdw, tol[1])
+
+
+def test_channel_pad_64_kernel_route_matches_torch_route(cuda):
+    """mnasnet0_5 with ``channel_pad=64`` (every width a multiple of 64): the
+    eval forward (1 dw and 16 MBConv launches where the planner admits every
+    padded block) within 1e-4 of the torch route's largest logit, and one
+    fp32 train step within the kernel-vs-torch step bars."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 3, 64, 64))
+                         .astype(np.float32)).to(cuda)
+    ref = create_model("mnasnet0_5", num_classes=10, dw_impl="torch", channel_pad=64)
+    model = create_model("mnasnet0_5", num_classes=10, dw_impl="auto", channel_pad=64)
+    model.load_state_dict(ref.state_dict())
+    blocks = [m for m in model.modules() if isinstance(m, InvertedResidual)]
+    assert all(m.mid_ch % 64 == 0 for m in blocks)
+    before = (dw_conv_bn_act.launches, mbconv_fused.launches)
+    with torch.no_grad():
+        out = model(x)
+        torch.cuda.synchronize()
+        fused = mbconv_fused.launches - before[1]
+        assert dw_conv_bn_act.launches - before[0] == 1 + 16 - fused
+        _close(out, ref(x), 1e-4)
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal((8, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 8)
+    steps = []
+    for route in ("kernel", "torch"):
+        m = create_model("mnasnet0_5", num_classes=10, dropout=0.0, dw_impl=route,
+                         bn_bwd=route, bn_ema="external", stem_s2d=True, seed=2,
+                         channel_pad=64)
+        tx = create_optimizer("rmsprop", 1e-4, fused="small")
+        state = TrainState.create(m, tx)
+        state, metrics = make_train_step(m, tx, 0.1)(state, images, labels)
+        steps.append((float(metrics["loss"]), m.state_dict()))
+    (lk, sk), (lt, st) = steps
+    assert abs(lk - lt) <= 1e-5 * abs(lt)
+    for k in st:
+        if k.endswith(("running_mean", "running_var")):
+            _close(sk[k], st[k], 1e-5)
+        elif not k.endswith("num_batches_tracked"):
+            torch.testing.assert_close(sk[k], st[k], rtol=5e-3, atol=1e-4)
+
+
+def test_channel_pad_the_kernel_route_cannot_take_raises_on_the_card(cuda):
+    """``auto`` with widths the dw kernel cannot take raises at the first
+    forward of a CUDA tensor, naming ``channel_pad``; it never swaps the
+    route."""
+    model = create_model("mnasnet0_35", channel_pad=12)
+    with pytest.raises(ValueError, match="channel_pad=12"):
+        model(torch.zeros(1, 3, 32, 32, device=cuda))
+    with torch.no_grad():
+        create_model("mnasnet0_35", channel_pad=12, dw_impl="torch", bn_bwd="torch")(
+            torch.zeros(1, 3, 32, 32, device=cuda))

@@ -253,6 +253,28 @@ def test_sync_bn_step_collectives_are_the_predicted_ones(runs):
     assert runs["ranks"][0]["local"]["collectives"] == [step_collectives(model, sync_bn=False)]
 
 
+@pytest.mark.parametrize("key", ["sync_dropout", "sync"])
+def test_sync_bn_remat_step_is_the_step_bit_for_bit(runs, key):
+    """Sync-BN with rematerialised blocks (one_pass with dropout over 2
+    steps; two_pass): on each rank the losses, counts, parameters and BN
+    statistics of the step without ``remat``, bit for bit (that step is
+    held against one process above), and the same collectives, which
+    ``step_collectives`` predicts: the recompute normalises with the
+    forward's global moments and issues none."""
+    for rank in runs["ranks"]:
+        plain, remat = rank[key], rank[f"{key}_remat"]
+        assert remat["losses"] == plain["losses"] and remat["counts"] == plain["counts"]
+        # The first step of a process also checks each new BN plane size
+        # once; the plain run came first.
+        assert remat["collectives"][-1] == plain["collectives"][-1]
+        for field in ("params", "stats"):
+            _assert_tree_equal(remat[field], plain[field])
+    stats = "one_pass" if key == "sync_dropout" else "two_pass"
+    model = W._model(None, 0.2, stats, remat=True)
+    assert runs["ranks"][0][f"{key}_remat"]["collectives"][-1] == step_collectives(model)
+    _assert_replicated(runs["ranks"], f"{key}_remat")
+
+
 def _close_to_jax(ours, ref, moved, what):
     ours, ref, moved = np.asarray(ours), np.asarray(ref), np.asarray(moved)
     spread = float(np.abs(ref - moved).max())

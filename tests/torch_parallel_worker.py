@@ -83,22 +83,23 @@ def step_case(seed=11):
     return images, labels
 
 
-def _model(sd, dropout, stats):
+def _model(sd, dropout, stats, remat=False):
     model = create_model("mnasnet0_35", device="cpu", num_classes=CLASSES, dropout=dropout,
                          bn_stats=stats, bn_ema="external", stem_s2d=True, dw_impl="kernel",
-                         bn_bwd="kernel")
+                         bn_bwd="kernel", remat=remat)
     if sd is not None:
         model.load_state_dict(sd, strict=True)
     return model
 
 
 def port_step(sd, images, labels, *, replicas=None, local_bn=False, dropout=0.0,
-              stats="two_pass", grad_accum=1, steps=1):
+              stats="two_pass", grad_accum=1, steps=1, remat=False):
     """``steps`` train steps from the weights ``sd`` on this process's batch:
     the sync-BN step, the local-BN step, or (no replicas) the one-process
-    step. Returns the losses, the counts, the parameters, the BN statistics
-    and the collectives of each step."""
-    model = _model(sd, dropout, stats)
+    step, of the model with rematerialised blocks under ``remat``. Returns
+    the losses, the counts, the parameters, the BN statistics and the
+    collectives of each step."""
+    model = _model(sd, dropout, stats, remat)
     tx = create_optimizer("rmsprop", 1e-4, fused="small")
     state = TrainState.create(model, tx, seed=0)
     if local_bn:
@@ -251,7 +252,10 @@ def run(rank: int, rendezvous: str, work: str) -> None:
                                                  replicas)
         out["sync_dropout"] = port_step(sd, x, y, replicas=replicas, dropout=0.2,
                                         stats="one_pass", steps=2)
+        out["sync_dropout_remat"] = port_step(sd, x, y, replicas=replicas, dropout=0.2,
+                                              stats="one_pass", steps=2, remat=True)
         out["sync"] = port_step(sd, x, y, replicas=replicas)
+        out["sync_remat"] = port_step(sd, x, y, replicas=replicas, remat=True)
         out["local"] = port_step(sd, x, y, replicas=replicas, local_bn=True)
         out["local_dropout"] = port_step(sd, x, y, replicas=replicas, local_bn=True,
                                          dropout=0.2, stats="one_pass")
