@@ -119,29 +119,47 @@ Phases, in order; any failure raises and exits non-zero:
      with no model, the CPU count and the workers;
  10. dist: data-parallel training on the same production configuration.
      (a) NCCL at world size 1: ``python -m torch.distributed.run --standalone
-     --nproc_per_node 1 chip_smoke.py --dist-worker OUT ARGV`` runs the
-     train CLI's ``main(ARGV)`` (``--synthetic``, bf16, ``--fused-kernels
-     kernel``, 12 steps of 128) in the process torchrun starts, with its
-     environment; every step must make exactly 17 / 35 / 35 / 0 launches and,
-     from the second on, exactly the collectives ``Trainer.
-     collectives_per_step`` predicts (the first adds the epoch's stop flag
-     and one check of each of the 5 BN plane sizes); images/s of steps 2-12
-     (2-9 with ``--profile``) beside the trainer phase's; with ``--profile``
-     the collectives' host time and NCCL's device time per step from a trace
-     of steps 10-11; before the CLI run, ms per step of the sync-BN step
-     against the one-process step on the fixed batch, in turns, the
-     collectives' cost at world 1. (b) two ranks on the one card
-     over gloo (both on cuda:0; gloo carries CUDA tensors for all_reduce and
-     broadcast, the only collectives of the port), fp32, TF32 off, kernel
-     route, 64 images a rank of the train phase's fixed batch: the sync-BN
-     step against the one-process step on the 128 (dropout on), the local-BN
-     step against the one-process ``grad_accum=2`` step; each rank must make
-     17 / 35 / 35 / 0 launches per step, and the two ranks must end with the
-     same state, bit for bit. Gloo is only the way to two ranks on one card,
-     never a stand-in for a failed NCCL run. On a machine with N cards both
-     parts run over NCCL at world N instead, one card a rank: (a) at 128
-     images a rank, (b) with the 128 split N ways and local BN against
-     ``grad_accum=N``.
+     --nproc_per_node 1 chip_smoke.py --dist-fixed OUT``, then ``...
+     chip_smoke.py --dist-worker OUT ARGV`` (one group a process). In the
+     first, on the fixed batch: the sync-BN, local-BN
+     and sync-BN ``remat`` steps, 3 each with dropout, a changing rate and
+     the model EMA under deterministic algorithms, on the graph route (the
+     warm-up step, the capture with NCCL's all-reduces inside, two replays)
+     bit for bit the eager route (losses, parameters, BN buffers with
+     ``num_batches_tracked``, optimizer state, generator); then, in turns,
+     ms per step and peak memory of the one-process step and the sync-BN
+     step, each eager and on the graph route (and the eager sync-BN step
+     with ``dist.all_reduce`` a no-op: what the port's own code around the
+     collectives costs). In the second, the train CLI's ``main(ARGV)``
+     (``--synthetic``, bf16, ``--fused-kernels kernel``, 12 steps of 128)
+     with the environment torchrun gives it, on the graph route: every step
+     must make exactly 17 / 35 / 35 / 0 launches per counted step and the
+     collectives ``Trainer.collectives_per_step`` predicts per counted step,
+     beside the stop flag each step issues eagerly (a graph's first call
+     counts its warm-up and its capture, a replay nothing; the first step
+     adds the epoch's stop flag and one check of each of the 5 BN plane
+     sizes); images/s of steps 2-12 (2-9 with ``--profile``) beside the
+     trainer phase's; with ``--profile`` the collectives' host time and
+     NCCL's device time per step from a trace of steps 10-11, whose NCCL
+     kernels per step must equal the step's collectives plus the stop
+     flag's across ranks (none at world 1: NCCL launches no kernel for an
+     in-place sum over one rank). (b) two ranks on the one card over gloo
+     (both on cuda:0; gloo carries CUDA tensors for all_reduce and
+     broadcast, the only collectives of the port; its collectives run on
+     the host, so its route is eager), fp32, TF32 off, kernel route, 64
+     images a rank of the train phase's fixed batch: the sync-BN step
+     against the one-process step on the 128 (dropout on), the local-BN
+     step against the one-process ``grad_accum=2`` step; each rank must
+     make 17 / 35 / 35 / 0 launches per step, and the two ranks must end
+     with the same state, bit for bit.
+     Gloo is only the way to two ranks on one card, never a stand-in for a
+     failed NCCL run. (c) ``mnasnet_tpu_torch.entry.dryrun_multichip(1)``:
+     the dry run's tiny sync-BN and local-BN steps and the production-shape
+     capture, on the card. On a machine with N cards all three run over
+     NCCL at world N instead, one card a rank: (a) at 128 images a rank,
+     the graph route bit for bit eager on every rank, and no no-op
+     collective; (b) with the 128 split N ways, on the graph route, local
+     BN against ``grad_accum=N``; (c) ``dryrun_multichip(N)``.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
@@ -191,7 +209,8 @@ Tolerances (normalised by the largest magnitude of the reference):
     (``_held_to_one_ulp``);
   * trainer: launches and checkpoints exactly, the eval CLI's acc1 equal to
     the trainer's as printed (3 decimals), the resumed run bit for bit;
-  * dist: launches and collectives exactly; the ranks against one process:
+  * dist: launches and collectives exactly; the graph route bit for bit
+    eager at every world; the ranks against one process:
     loss within 1e-5 relative, the step's BN moments within 1e-5 (each mean
     in units of its channel's standard deviation, each variance relative),
     the update within 1e-2 relative RMS (the fp32 kernel-vs-torch step's
@@ -211,6 +230,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import io
 import json
 import os
@@ -232,6 +252,7 @@ from mnasnet_tpu_torch.data import native_decoder
 from mnasnet_tpu_torch.data.dataset import ImageFolderDataset, SyntheticDataset
 from mnasnet_tpu_torch.data.pipeline import DataLoader, prefetch_to_device
 from mnasnet_tpu_torch.data.transforms import eval_transform, train_transform
+from mnasnet_tpu_torch.entry import dryrun_multichip
 from mnasnet_tpu_torch.models.layers import PW_AUTO, BatchNorm, nchw, set_replicas
 from mnasnet_tpu_torch.ops.cuda import _build
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
@@ -254,7 +275,7 @@ from mnasnet_tpu_torch.ops.cuda.dw_conv import plan as dw_plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import kernel_args, mbconv_fused, mbconv_reference, plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import launch as mb_launch
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
-from mnasnet_tpu_torch.parallel import close, init_distributed
+from mnasnet_tpu_torch.parallel import all_reduce_max_, close, init_distributed
 from mnasnet_tpu_torch.serving import load_serving
 from mnasnet_tpu_torch.tools.tune_plans import (
     BATCH,
@@ -329,6 +350,14 @@ LAUNCHES_PER_RECAL_FORWARD = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 0, "bn_bwd_
                               "mbconv_block": 0}
 THROUGHPUT_STEPS = 10
 DIST_STEPS = 12
+# The fixed-batch data-parallel runs: their kinds held graph against eager,
+# the steps of each, and the steps timed per kind (the same on every rank).
+DP_KINDS = ("sync", "local", "sync_remat")
+DP_STEPS = 3
+DP_TIMED = 10
+# The bound on one torchrun worker's whole run (the fixed-batch runs and the
+# CLI's epoch take ~1-2 minutes at world 1).
+DIST_WORKER_S = 300
 # The torchrun run's profiled window, steps 10 and 11 of 12 (the profiler
 # stops before the last step): starting and stopping it takes seconds and
 # leaves the process slower, so the images/s are those of the steps before.
@@ -1762,7 +1791,8 @@ def _one_step(kind, images, labels, replicas=None) -> dict:
     before = replicas.collectives if replicas is not None else 0
     state, metrics = step(state, images, labels)
     torch.cuda.synchronize()
-    return {"launches": counts(), "loss": float(metrics["loss"]),
+    return {"launches": counts(), "loss": float(metrics["loss"]), "route": step.route,
+            "counted": step.counted(),
             "collectives": (replicas.collectives if replicas is not None else 0) - before,
             "p0": p0, "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
             "stats": {n: b.cpu() for n, b in model.named_buffers()
@@ -1846,10 +1876,12 @@ def ranks_vs_one_process(work: Path, world: int, backend: str) -> dict:
         cmp = _vs_one_process(a, _one_step(ref_kind, images, labels),
                               _one_step(ref_kind, nudged, labels))
         model = create_model("mnasnet1_0", device="cpu", bn_bwd="kernel")
-        predicted = step_collectives(model, sync_bn=kind == "sync") + (
+        # A graph's first call counts twice (its warm-up step and its capture).
+        counted = a["counted"]
+        predicted = step_collectives(model, sync_bn=kind == "sync") * counted + (
             BN_PLANE_SIZES if kind == "sync" else 0)
-        row = {**cmp, "ranks_bitwise_equal": replicated,
-               "launches": [b["launches"] for b in mine],
+        row = {**cmp, "ranks_bitwise_equal": replicated, "route": a["route"],
+               "counted": counted, "launches": [b["launches"] for b in mine],
                "collectives": [b["collectives"] for b in mine],
                "collectives_predicted": predicted, "against": ref_kind}
         out[kind] = row
@@ -1857,9 +1889,11 @@ def ranks_vs_one_process(work: Path, world: int, backend: str) -> dict:
             f"({ref_kind}): {json.dumps(row)}")
         if not replicated:
             raise RuntimeError(f"the ranks' {kind} steps ended in different states")
-        if any(b["launches"] != LAUNCHES_PER_STEP for b in mine):
+        if a["route"] != ("eager" if backend == "gloo" else TRAIN_ROUTE):
+            raise RuntimeError(f"{kind} over {backend} took the {a['route']} route")
+        if any(b["launches"] != _scaled(LAUNCHES_PER_STEP, counted) for b in mine):
             raise RuntimeError(f"{kind}: launches per rank {row['launches']}, expected "
-                               f"{LAUNCHES_PER_STEP}")
+                               f"{LAUNCHES_PER_STEP} x {counted}")
         if row["collectives"] != [predicted] * world:
             raise RuntimeError(f"{kind}: collectives {row['collectives']}, predicted {predicted}")
         if cmp["loss_rel_diff"] > 1e-5 or cmp["moments_max_diff"] > 1e-5 \
@@ -1868,15 +1902,30 @@ def ranks_vs_one_process(work: Path, world: int, backend: str) -> dict:
     return out
 
 
+def fixed_worker(out: Path) -> int:
+    """(a), first torchrun: :func:`fixed_batch_routes` in each process it
+    starts; the record goes to ``out/fixed_rank<R>.json``."""
+    # A rank that waits on its peers past this bound prints every thread's
+    # stack and exits, which ends the others' run too.
+    faulthandler.dump_traceback_later(DIST_WORKER_S, exit=True)
+    record = fixed_batch_routes()
+    (out / f"fixed_rank{os.environ.get('RANK', 0)}.json").write_text(json.dumps(record))
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
 def dist_worker(out: Path, argv: list) -> int:
-    """(a), in each process torchrun starts: at world 1 first the fixed-batch
-    cost of the collectives (:func:`collectives_cost`), then the train CLI's
-    ``main(argv)``, recording each step's launches and collectives and the
-    images/s of the steps after the first (before the profiled window, when
-    there is one); the record goes to ``out/rank<R>.json``."""
+    """(a), second torchrun, in each process it starts: the train CLI's
+    ``main(argv)``, recording each step's launches, collectives and counted
+    steps (``TrainRouted.counted``: a graph's first call counts its warm-up
+    and its capture, a replay nothing) and the images/s of the steps after
+    the first (before the profiled window, when there is one); the record
+    goes to ``out/rank<R>.json``. A process joins one group only: a second
+    ``env://`` group in the same torchrun would meet the first one's keys
+    in torchrun's store."""
     world = int(os.environ.get("WORLD_SIZE", 1))
-    # Before the CLI run, whose profiler would slow the process.
-    record: dict = {"argv": argv, "fixed_batch": collectives_cost() if world == 1 else None}
+    faulthandler.dump_traceback_later(DIST_WORKER_S, exit=True)
+    record: dict = {"argv": argv}
     steps = []
     marks = {}
     last = (DIST_PROFILE_STEPS[0] if "--profile-steps" in argv else DIST_STEPS) - 1
@@ -1887,61 +1936,159 @@ def dist_worker(out: Path, argv: list) -> int:
                  start_step=0):
             record["collectives_per_step"] = self.collectives_per_step()
             record["replicas"] = repr(self.replicas)
-            before.update(launches=counts(), collectives=self.replicas.collectives)
+            record["route"] = self.route.route
+            before.update(launches=counts(), collectives=self.replicas.collectives,
+                          counted=self.route.counted())
 
             def mark(state, gstep):
-                c, k = self.replicas.collectives, counts()
+                c, k, n = self.replicas.collectives, counts(), self.route.counted()
                 steps.append({"launches": _delta(before["launches"], k),
-                              "collectives": c - before["collectives"]})
-                before.update(launches=k, collectives=c)
+                              "collectives": c - before["collectives"],
+                              "counted": n - before["counted"]})
+                before.update(launches=k, collectives=c, counted=n)
                 if gstep in (0, last):
                     torch.cuda.synchronize()
                     marks[gstep] = time.perf_counter()
 
-            return orig(self, state, loader, epoch, step_callback=mark, step_callback_freq=1,
-                        start_step=start_step)
+            out = orig(self, state, loader, epoch, step_callback=mark, step_callback_freq=1,
+                       start_step=start_step)
+            record["replays"] = sum(self.route.replays.values())
+            return out
         return call
 
     for fn in COUNTERS.values():  # the main path: counts set to 0 just before
         fn.launches = 0
+    base = memory_base(torch.device("cuda"))
     with _patched(Trainer, "train_epoch", with_record):
         train_cli.main(argv)
     torch.cuda.synchronize()
     record.update(steps=steps, launches=counts(), steps_timed=last, world=world,
-                  images_per_s=last * BATCH * world / (marks[last] - marks[0]))
+                  images_per_s=last * BATCH * world / (marks[last] - marks[0]),
+                  peak_allocated_gb=(torch.cuda.max_memory_allocated() - base[0]) / 1e9)
     (out / f"rank{os.environ.get('RANK', 0)}.json").write_text(json.dumps(record))
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
-def collectives_cost() -> dict:
-    """At world 1 under torchrun: ms per step on the train phase's fixed batch
-    (bf16, production configuration) of the one-process step ("plain"), the
-    sync-BN step ("sync") and the sync-BN step with ``dist.all_reduce`` made
-    a no-op ("sync_no_collective": at world 1 a sum over one rank is the
-    identity, so the result is the same), in turns. sync − plain is what
-    the collectives cost the step; sync_no_collective − plain is the part
-    of it that is the port's own code around them (sums, copies, Python)."""
+def _dp_setup(kind, replicas, route):
+    """The production configuration in bf16 (seed 2, dropout, a warmup-cosine
+    rate that changes every step, the model EMA with warmup) and its
+    data-parallel step on ``route``: ``kind`` "sync", "local" or
+    "sync_remat"."""
+    model, state, first = _train_setup(torch.bfloat16, "auto", seed=2, step_route="eager",
+                                       schedule=True, model_ema=0.999,
+                                       remat=kind == "sync_remat")
+    tx = first._steps.tx
+    if kind == "local":
+        return model, state, make_local_bn_train_step(model, tx, 0.1, replicas, route=route)
+    set_replicas(model, replicas)
+    return model, state, make_train_step(model, tx, 0.1, replicas=replicas, route=route)
+
+
+def _dp_bitwise(replicas, images, labels) -> dict:
+    """Per kind (sync, local, sync_remat): ``DP_STEPS`` steps with dropout, a
+    changing rate and the model EMA under deterministic algorithms, on the
+    graph route (its warm-up step, the capture with the collectives inside,
+    replays) and eagerly, from the same weights: the losses, parameters, BN
+    buffers with ``num_batches_tracked``, optimizer state and generator bit
+    for bit, at every world: at world N NCCL reduces in one order inside a
+    graph and eagerly (measured on four cards). A kind that is not bit for
+    bit on any rank fails the phase on every rank."""
+    out = {}
+    for kind in DP_KINDS:
+        runs = {}
+        for route in ("eager", "graph"):
+            model, state, step = _dp_setup(kind, replicas, route)
+            losses = []
+            with deterministic():
+                for _ in range(DP_STEPS):
+                    state, metrics = step(state, images, labels)
+                    losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            runs[route] = {"losses": [float(v) for v in losses], **_snapshot(model, step, state),
+                           "replays": sum(step.replays.values()), "counted": step.counted()}
+            del model, state, step
+        same = {"losses": runs["graph"]["losses"] == runs["eager"]["losses"],
+                **{k: _tree_equal(runs["graph"][k], runs["eager"][k])
+                   for k in ("model", "tx", "generator")}}
+        row = {"bitwise": same, "losses": runs["eager"]["losses"],
+               "graph_replays": runs["graph"]["replays"],
+               "graph_counted": runs["graph"]["counted"]}
+        log(f"[dist] rank {replicas.rank} of {replicas.world}: {kind} graph route vs eager "
+            f"over {DP_STEPS} steps, bitwise: {same}")
+        if runs["graph"]["replays"] != DP_STEPS - 1 or runs["graph"]["counted"] != 2:
+            raise RuntimeError(f"{kind}: the graph run made {runs['graph']['replays']} "
+                               f"replays and {runs['graph']['counted']} counted steps")
+        # Every rank raises together (a rank that went on alone would wait
+        # in the next collective for the others forever).
+        differs = torch.tensor([0.0 if all(same.values()) else 1.0], device=replicas.device)
+        if all_reduce_max_(differs, replicas).item():
+            raise RuntimeError(f"{kind} at world {replicas.world}: the graph route differs "
+                               f"from eager on a rank (this rank: {same})")
+        out[kind] = row
+    return out
+
+
+def _fixed_ms(step, state, images, labels, warmup: int = 3, iters: int = DP_TIMED) -> float:
+    """ms per step from CUDA events over ``iters`` steps after ``warmup``;
+    fixed counts, so that every rank issues the same collectives."""
+    for _ in range(warmup):
+        state, _ = step(state, images, labels)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        state, _ = step(state, images, labels)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def fixed_batch_routes() -> dict:
+    """Under torchrun (the group from its environment, NCCL): on the train
+    phase's fixed batch (bf16, production configuration, 128 images a rank)
+    (1) the graph route bit for bit eager for the sync-BN, local-BN and
+    sync-BN ``remat`` steps (:func:`_dp_bitwise`); (2) in turns, ms per step
+    and peak memory of the one-process step ("plain") and of the sync-BN
+    step eagerly ("sync") and on the graph route ("graph_plain",
+    "graph_sync"); at world 1 also the eager sync-BN step with
+    ``dist.all_reduce`` made a no-op ("sync_no_collective": a sum over one
+    rank is the identity). sync − plain is what the collectives cost the
+    eager step, graph_sync − graph_plain what they cost inside the graph,
+    sync_no_collective − plain the port's own code around them."""
     import torch.distributed as dist
 
     replicas = init_distributed()  # torchrun's environment, a new group
     try:
         images, labels = train_batch()
-        order = ("plain", "sync", "sync_no_collective", "sync_no_collective", "sync", "plain")
+        bitwise = _dp_bitwise(replicas, images, labels)
+        order = ("plain", "sync", "graph_plain", "graph_sync", "sync_no_collective",
+                 "sync_no_collective", "graph_sync", "graph_plain", "sync", "plain")
+        if replicas.world > 1:  # the no-op sum is the identity at world 1 only
+            order = tuple(k for k in order if k != "sync_no_collective")
         ms: dict = {kind: [] for kind in order}
+        peak: dict = {kind: [] for kind in order}
         for kind in order:
+            base = memory_base(torch.device("cuda"))
+            route = "graph" if kind.startswith("graph") else "eager"
             model = create_model("mnasnet1_0", dtype=torch.bfloat16, bn_ema="external",
                                  stem_s2d=True)
             tx = create_optimizer("rmsprop", TRAIN_LR, fused="small")
             state = TrainState.create(model, tx)
-            group = None if kind == "plain" else replicas
+            group = None if kind.endswith("plain") else replicas
             set_replicas(model, group)
-            step = make_train_step(model, tx, 0.1, replicas=group, route="eager")
+            step = make_train_step(model, tx, 0.1, replicas=group, route=route)
             no_op = (lambda *a, **kw: None) if kind == "sync_no_collective" else dist.all_reduce
             with _patched(dist, "all_reduce", lambda orig: no_op):
-                ms[kind].append(time_ms(lambda: step(state, images, labels), target_ms=1000.0))
+                ms[kind].append(_fixed_ms(step, state, images, labels))
+            peak[kind].append((torch.cuda.max_memory_allocated() - base[0]) / 1e9)
             del model, tx, state, step
-        return {"ms_per_step": ms, "collectives_per_step": step_collectives(
-            create_model("mnasnet1_0", device="cpu", bn_bwd="kernel"))}
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        log(f"[dist] rank {replicas.rank} of {replicas.world}, fixed batch, ms per step: "
+            f"{json.dumps(mean)}")
+        return {"bitwise": bitwise, "ms_per_step": ms, "ms_per_step_mean": mean,
+                "peak_allocated_gb": peak, "world": replicas.world,
+                "collectives_per_step": step_collectives(
+                    create_model("mnasnet1_0", device="cpu", bn_bwd="kernel"))}
     finally:
         close(replicas)
 
@@ -1964,54 +2111,92 @@ def _collective_ms_per_step(trace: Path, steps: int) -> dict:
             "profiled_steps": steps}
 
 
+def _torchrun(work: Path, nproc: int, args: list, name: str) -> None:
+    """``chip_smoke.py ARGS`` in ``nproc`` processes under torchrun; raises
+    unless it exits 0. The ranks' output goes to a file as it comes, so that
+    a run cut at its time limit still shows how far it got."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), str(REPO / "chip_smoke.py"), *args]
+    log(f"[dist] {' '.join(cmd)}")
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    with open(work / f"{name}.log", "w") as f:
+        try:
+            rc = subprocess.run(cmd, cwd=REPO, stdout=f, stderr=subprocess.STDOUT, env=env,
+                                timeout=DIST_WORKER_S + 60).returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+    text = (work / f"{name}.log").read_text(errors="replace")
+    log(f"[dist] torchrun ({name}) rc {rc}:\n{text[-10000:]}")
+    if rc != 0:
+        raise RuntimeError(f"the torchrun NCCL run ({name}) failed with rc {rc}")
+
+
 def nccl_torchrun(work: Path, profile_dir: Path | None, nproc: int) -> dict:
-    """(a): torchrun, ``nproc`` processes (one card each), NCCL, the train
-    CLI at 128 images a process."""
+    """(a): torchrun, ``nproc`` processes (one card each), NCCL: the
+    fixed-batch runs, then the train CLI at 128 images a process on the
+    graph route."""
     out = work / "nccl"
     out.mkdir()
+    _torchrun(work, nproc, ["--dist-fixed", str(out)], "fixed_batch")
     argv = ["--synthetic", "--synthetic-size", str(DIST_STEPS * BATCH * nproc), "--batch-size",
             str(BATCH * nproc), "--epochs", "1", "--fused-kernels", "kernel", "--dtype",
             "bfloat16", "--workers", str(max(1, min((os.cpu_count() or 1) // nproc, 16))),
             "--print-freq", "1", "--seed", "0", "--output-dir", str(work / "run")]
     if profile_dir is not None:
         argv += ["--profile-steps", "{}:{}".format(*DIST_PROFILE_STEPS)]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(nproc), str(REPO / "chip_smoke.py"), "--dist-worker", str(out), *argv]
-    log(f"[dist] {' '.join(cmd)}")
-    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
-    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600, env=env)
-    log(f"[dist] torchrun rc {r.returncode}:\n{r.stdout[-2500:]}{r.stderr[-4000:]}")
-    if r.returncode != 0:
-        raise RuntimeError(f"the torchrun NCCL run failed with rc {r.returncode}")
+    _torchrun(work, nproc, ["--dist-worker", str(out), *argv], "cli")
     res = json.loads((out / "rank0.json").read_text())
+    res["fixed_batch"] = json.loads((out / "fixed_rank0.json").read_text())
     per_step = res.pop("steps")
-    predicted = res["collectives_per_step"]
+    predicted = res["collectives_per_step"]  # the step's and the stop flag
     res["launches_per_step"] = [s["launches"] for s in per_step]
     res["collectives_by_step"] = [s["collectives"] for s in per_step]
-    first = predicted + 1 + BN_PLANE_SIZES
+    res["counted_by_step"] = [s["counted"] for s in per_step]
     for r in range(nproc):
-        steps = json.loads((out / f"rank{r}.json").read_text())["steps"]
+        rec = json.loads((out / f"rank{r}.json").read_text())
+        steps = rec["steps"]
+        if rec["route"] != TRAIN_ROUTE or rec["replays"] != DIST_STEPS - 1:
+            raise RuntimeError(f"rank {r}: the CLI took the {rec['route']} route with "
+                               f"{rec['replays']} replays, expected {TRAIN_ROUTE} with "
+                               f"{DIST_STEPS - 1}")
         if len(steps) != DIST_STEPS:
             raise RuntimeError(f"rank {r}: {len(steps)} steps recorded, expected {DIST_STEPS}")
-        if any(s["launches"] != LAUNCHES_PER_STEP for s in steps):
-            raise RuntimeError(f"rank {r}: launches per step "
-                               f"{[s['launches'] for s in steps]}, expected {LAUNCHES_PER_STEP}")
-        if [s["collectives"] for s in steps] != [first] + [predicted] * (DIST_STEPS - 1):
-            raise RuntimeError(f"rank {r}: collectives per step "
-                               f"{[s['collectives'] for s in steps]}, predicted {first} then "
-                               f"{predicted}")
+        # Launches and the step's collectives come with the counted steps: the
+        # first call's warm-up and capture, none at a replay; the stop flag
+        # is issued eagerly at every step, and the first step adds the
+        # epoch's flag and one check of each BN plane size.
+        expected = [{"launches": _scaled(LAUNCHES_PER_STEP, s["counted"]),
+                     "collectives": 1 + (predicted - 1) * s["counted"]
+                     + (1 + BN_PLANE_SIZES if i == 0 else 0)}
+                    for i, s in enumerate(steps)]
+        got = [{"launches": s["launches"], "collectives": s["collectives"]} for s in steps]
+        if got != expected or [s["counted"] for s in steps] != [2] + [0] * (DIST_STEPS - 1):
+            raise RuntimeError(f"rank {r}: per step {got} over counted steps "
+                               f"{[s['counted'] for s in steps]}, expected {expected}")
     if profile_dir is not None:
         shutil.copy(work / "run" / "profile" / "kernels.txt",
                     profile_dir / f"profile_dist_nccl_world{nproc}.txt")
-        res["profile"] = _collective_ms_per_step(work / "run" / "profile" / "trace.json",
-                                                 DIST_PROFILE_STEPS[1] - DIST_PROFILE_STEPS[0])
+        prof = _collective_ms_per_step(work / "run" / "profile" / "trace.json",
+                                       DIST_PROFILE_STEPS[1] - DIST_PROFILE_STEPS[0])
+        res["profile"] = prof
+        # Each replayed step issues the step's collectives from the graph
+        # and the stop flag's eagerly: one NCCL kernel each across ranks.
+        # Over one rank NCCL launches nothing for an in-place sum (there is
+        # nothing to add or move), so world 1 shows none.
+        expected = predicted if nproc > 1 else 0
+        prof["nccl_kernels_expected"] = expected
+        if prof["nccl_kernels_per_step"] != expected:
+            raise RuntimeError(f"the profiled steps ran {prof['nccl_kernels_per_step']} NCCL "
+                               f"kernels a step, expected {expected} (step_collectives "
+                               f"{predicted - 1} and the stop flag, at world {nproc})")
     return res
 
 
 def dist_phase(timing: bool, card: str, trainer: dict | None,
                profile_dir: Path | None) -> dict:
-    """(a) and (b). With one card: NCCL at world 1, then two gloo ranks on
-    the card; with N cards: NCCL at world N for both, one card a rank."""
+    """(a), (b) and (c). With one card: NCCL at world 1, two gloo ranks on
+    the card, the dry run at world 1; with N cards: NCCL at world N for all
+    three, one card a rank."""
     nproc = torch.cuda.device_count()
     work = REPO / "build" / "chip_smoke_dist"
     shutil.rmtree(work, ignore_errors=True)
@@ -2019,18 +2204,25 @@ def dist_phase(timing: bool, card: str, trainer: dict | None,
     try:
         nccl = nccl_torchrun(work, profile_dir, nproc)
         with_data = ((trainer or {}).get("throughput") or {}).get("images_per_s_with_data")
-        log(f"[dist] NCCL world {nproc} through torchrun: launches per step "
-            f"{nccl['launches_per_step'][-1]}, collectives per step "
-            f"{nccl['collectives_by_step']} (predicted {nccl['collectives_per_step']} from "
-            f"step 2), {nccl['images_per_s']:.1f} images/s with the data path against "
+        log(f"[dist] NCCL world {nproc} through torchrun on the {TRAIN_ROUTE} route: launches "
+            f"per step {nccl['launches_per_step'][:2]}... over counted steps "
+            f"{nccl['counted_by_step']}, collectives per step {nccl['collectives_by_step']} "
+            f"(a replay issues {nccl['collectives_per_step'] - 1} from the graph and the stop "
+            f"flag's), {nccl['images_per_s']:.1f} images/s with the data path against "
             f"{with_data if with_data is None else round(with_data, 1)} in the trainer phase "
-            f"(one process, no group), on {card}; fixed batch "
-            f"{json.dumps(nccl.get('fixed_batch'))}; profile {json.dumps(nccl.get('profile'))}")
+            f"(one process, no group), peak {nccl['peak_allocated_gb']:.2f} GB, on {card}; "
+            f"fixed batch {json.dumps(nccl.get('fixed_batch'))}; "
+            f"profile {json.dumps(nccl.get('profile'))}")
         ranks = (ranks_vs_one_process(work / "ranks", 2, "gloo") if nproc == 1
                  else ranks_vs_one_process(work / "ranks", nproc, "nccl"))
+        t0 = time.perf_counter()
+        dryrun_multichip(nproc)
+        dryrun_s = time.perf_counter() - t0
+        log(f"[dist] dryrun_multichip({nproc}) on the card: ok in {dryrun_s:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"nccl": nccl, "ranks": ranks, "trainer_images_per_s_with_data": with_data}
+    return {"nccl": nccl, "ranks": ranks, "trainer_images_per_s_with_data": with_data,
+            "dryrun_multichip": {"world": nproc, "s": dryrun_s}}
 
 
 def trainer_phase(timing: bool, card: str, fixed_batch: dict | None) -> dict:
@@ -2152,6 +2344,8 @@ def main() -> int:
                          "serving deployment phase only; 'knobs' the model knobs phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
+    if sys.argv[1:2] == ["--dist-fixed"]:
+        return fixed_worker(Path(sys.argv[2]))
     args = ap.parse_args()
     timing = not args.no_timing
     if args.profile is not None:

@@ -115,7 +115,10 @@ class BatchNorm(nn.Module):
     def update_stats(self, rows: int, mean: torch.Tensor, var: torch.Tensor) -> None:
         """The running-statistics update of one train forward whose batch
         moments were ``mean`` and ``var`` over ``rows`` rows per channel on
-        this replica."""
+        this replica. Under sync-BN the global count comes from
+        :func:`~mnasnet_tpu_torch.parallel.global_rows`, which reads nothing
+        on the host once the step's eager warm-up has seen ``rows``, so a
+        CUDA graph captures this update."""
         n = global_rows(rows, self.replicas)
         bessel = n / max(n - 1, 1)
         if self.ema == "external":

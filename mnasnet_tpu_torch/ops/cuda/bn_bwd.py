@@ -30,6 +30,13 @@ gives the output's shape; nothing falls back from one to the other. A launch
 adds one to the wrapper's ``launches``; a CUDA-graph replay launches without
 it. With ``replicas`` the all-reduce between the two launches stays outside
 the ops.
+
+Under a CUDA-graph capture of a data-parallel step (NCCL), the region's
+backward is captured whole: the reduce launch, the all-reduce of its
+(2, C) sums on NCCL's stream, the dx launch. The global count the dx kernel
+takes is an argument fixed on the host (:func:`~mnasnet_tpu_torch.parallel.
+global_rows` checked it at the eager warm-up step), so a replay reads
+nothing on the host.
 """
 
 from __future__ import annotations
@@ -77,7 +84,9 @@ def batch_moments(x: torch.Tensor, stats: str, replicas: Replicas | None = None
     sums the (2, C) ``[Σx, Σx²]`` over the replicas in one collective,
     ``two_pass`` sums Σx and then Σ(x − μ)², and both divide by the global
     count (:func:`~mnasnet_tpu_torch.parallel.global_rows`). The sums are
-    differentiable (the backward sums the gradient over the replicas)."""
+    differentiable (the backward sums the gradient over the replicas). No
+    host read once the warm-up step has checked the count: a CUDA graph
+    captures the sums."""
     if stats not in STATS:
         raise ValueError(f"unknown BN stats {stats!r}; choices: {STATS}")
     x32 = x.float()
@@ -437,7 +446,8 @@ def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None 
     collective, before the dx kernel runs with those global sums and the
     global count. The dγ and dβ returned are this replica's own sums, the
     gradient of its share of the loss, as for any other parameter: the step
-    sums the gradients over the replicas."""
+    sums the gradients over the replicas. The three run from autograd's
+    device thread; a capture of the step records them in this order."""
     inv = torch.rsqrt(var + eps)  # the forward's own rsqrt(var + eps)
     dy = dy.to(x.dtype).contiguous()
     sums = _reduce(x, dy, mean, inv, gamma, beta)

@@ -20,7 +20,22 @@ NCCL and over gloo, which carries CUDA tensors for those two only. A
 ``Replicas`` handle of ``None`` means one process: every helper is then a
 no-op that launches nothing. Each helper adds one to ``Replicas.collectives``
 for each collective it issues (the backward of :func:`all_reduce_sum` too),
-so a run can be held to the number the code predicts.
+so a run can be held to the number the code predicts. A helper counts when
+it runs: eagerly, or once while a CUDA graph captures it; a replay of the
+graph issues the captured collectives again without counting them.
+
+Capture (the train step's graph route over NCCL, ``utils/routing.py``):
+the helpers the step reaches (:func:`all_reduce_sum_`, :func:`all_reduce_sum`
+and its backward, the replayed sums of :func:`taped_sums`,
+:func:`all_reduce_max_`, :func:`global_rows` for a size it has seen) issue
+device work only, so a capture records them; NCCL runs each on the group's
+own stream, joined to the captured stream by events. The one host read,
+:func:`global_rows`' first check of a plane size, belongs to the eager
+warm-up step, and raises inside a capture. A gloo collective runs on the
+host and cannot be captured (``Replicas.backend``). NCCL frees a
+communicator only once every CUDA graph that captured its collectives is
+gone, so a capture registers its graph (``Replicas.add_graph``) and
+:func:`close` resets each before it leaves the group.
 
 ``--mesh-dcn N`` (multi-slice) adds no code path: NCCL's topology already
 reduces within a node before it crosses nodes, which is what the reference's
@@ -32,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import weakref
 from typing import Iterable, Optional
 
 import torch
@@ -45,7 +61,8 @@ class ReplicaMismatch(RuntimeError):
 class Replicas:
     """The data-parallel replicas of a run: ``group`` (None: the default
     group), this process's ``rank``, the ``world`` size and this rank's
-    ``device``. ``collectives`` counts the collectives the helpers issued."""
+    ``device``. ``collectives`` counts the collectives the helpers issued;
+    :attr:`backend` names the group's backend."""
 
     def __init__(self, rank: int, world: int, device, group=None):
         self.rank = rank
@@ -55,6 +72,17 @@ class Replicas:
         self.collectives = 0
         self.tape: Optional[SumTape] = None
         self._rows_checked: set[int] = set()
+        self._graphs: weakref.WeakSet = weakref.WeakSet()
+
+    @property
+    def backend(self) -> str:
+        """The group's backend, ``"nccl"`` or ``"gloo"``."""
+        return str(dist.get_backend(self.group))
+
+    def add_graph(self, graph) -> None:
+        """Register a ``torch.cuda.CUDAGraph`` that captures (or is about to
+        capture) this group's collectives: :func:`close` resets it."""
+        self._graphs.add(graph)
 
     def __repr__(self) -> str:
         return f"Replicas(rank={self.rank}, world={self.world}, device={self.device})"
@@ -105,8 +133,18 @@ def init_distributed(dist_url: Optional[str] = None, world: int = -1, rank: int 
 
 
 def close(replicas: Optional[Replicas]) -> None:
-    """Leave the default group that :func:`init_distributed` joined."""
+    """Leave the default group that :func:`init_distributed` joined.
+
+    NCCL destroys a communicator only once every CUDA graph that captured
+    its collectives is destroyed, and waits for that. A graph outlives its
+    step wherever something still refers to it: a step held by the caller,
+    a reference cycle not yet collected, or the traceback of an exception
+    in flight through this call. So each graph registered with
+    :meth:`Replicas.add_graph` is reset first, whoever holds it; a step
+    whose graph was reset raises if it is called again."""
     if replicas is not None and dist.is_initialized():
+        for graph in list(replicas._graphs):
+            graph.reset()
         dist.destroy_process_group()
 
 
@@ -332,6 +370,12 @@ def assert_replicated(tensors: Iterable[torch.Tensor], replicas: Optional[Replic
                            f"(tensor {bad} of {len(mine)})")
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False where
+    this PyTorch sees no card)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def global_rows(m: int, replicas: Optional[Replicas]) -> int:
     """The rows of a BN plane summed over the replicas, ``m`` on each: the
     count that sync-BN's moments and its backward divide by. Sync-BN takes
@@ -340,10 +384,17 @@ def global_rows(m: int, replicas: Optional[Replicas]) -> int:
     the host without a collective. The first time a value of ``m`` is seen
     it is checked, with one collective read on the host: Σm and Σm² over the
     replicas equal ``m·world`` and ``m²·world`` only when every replica has
-    ``m`` rows."""
+    ``m`` rows. A capture forbids that read, so a size first met while the
+    current stream captures a CUDA graph raises: the eager warm-up step
+    before a capture meets every size of the step."""
     if replicas is None:
         return m
     if m not in replicas._rows_checked:
+        if _capturing():
+            raise RuntimeError(
+                f"sync-BN meets a plane of {m} rows per channel for the first time inside "
+                "a CUDA graph capture; its check reads a collective on the host, which a "
+                "capture forbids: run the step eagerly once before capturing it")
         t = torch.tensor([float(m), float(m) * m], dtype=torch.float64, device=replicas.device)
         dist.all_reduce(t, group=replicas.group)
         replicas.collectives += 1

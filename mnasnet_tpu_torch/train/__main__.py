@@ -20,9 +20,11 @@ writes the checkpoints; every rank prints its own decoder-fallback count.
 ``--compilation-cache DIR`` keeps the compiled routes' caches (Inductor,
 Triton) in DIR across runs. The train step runs on the train route
 (``utils/routing.py:default_train_route``: ``TRAIN_ROUTE`` on the card,
-eager with ``--device cpu`` and with data parallelism; the environment
-variable ``MNASNET_TPU_TORCH_ROUTE=eager|graph|compile`` overrides it), and
-validation runs each batch size on the route measured fastest for it.
+one process or NCCL replicas under ``torchrun``; eager with ``--device
+cpu``, whose replicas are gloo's; the environment variable
+``MNASNET_TPU_TORCH_ROUTE=eager|graph|compile`` overrides it, and a route
+the replicas cannot take raises), and validation runs each batch size on
+the route measured fastest for it.
 ``--profile-steps`` traces graph replays as it traces eager steps.
 ``--remat`` recomputes each MBConv block's forward in the backward (the same
 step, less activation memory; the checkpoints are the same with and without

@@ -127,7 +127,14 @@ def make_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     microbatch, normalised with the moments of all replicas' i-th
     microbatches. The reference reshapes the global batch instead
     (``steps.py:185-188``), so its microbatch i holds other rows; the math
-    of each group is the same. With replicas the step runs eagerly.
+    of each group is the same. With NCCL replicas on the card the default
+    route is the graph, as the reference jits its data-parallel step: a
+    replay issues the step's kernels and its :func:`step_collectives`
+    all-reduces on the device, and the host issues nothing but the replay
+    (the host part, ``tx.prepare()``, writes the step scalars before it).
+    Gloo replicas run eager (a gloo collective runs on the host); the
+    compile route is not taken with replicas
+    (``utils/routing.py:check_replicas_route``).
     """
     if replicas_of(model) is not replicas:
         raise ValueError("sync-BN: the model's BatchNorms must hold the step's replica "
@@ -152,7 +159,8 @@ def make_local_bn_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     replicas' masks differ, as the reference's ``fold_in(step_rng,
     axis_index)`` makes them (``steps.py:283``). The step equals the
     single-process ``grad_accum=world`` step on the concatenated shards.
-    ``route`` as in :func:`make_train_step`."""
+    ``route`` as in :func:`make_train_step`: over NCCL a replay issues the
+    two all-reduces with the step's kernels."""
     if replicas_of(model) is not None:
         raise ValueError("local BN: the model's BatchNorms must hold no replica handle")
     parts = _StepParts(model, tx, label_smoothing, False, 1, replicas, local_bn=True)
@@ -162,9 +170,6 @@ def make_local_bn_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
 def _routed(parts, route, replicas, compile_kwargs) -> TrainRouted:
     if route is None:
         route = default_train_route(parts.device, replicas)
-    elif route != "eager" and replicas is not None:
-        raise ValueError(f"the {route!r} train route is not taken with replicas: the "
-                         "data-parallel step runs eagerly")
     return TrainRouted(parts, route, **compile_kwargs)
 
 
@@ -305,9 +310,10 @@ class _StepParts:
                     all_reduce_max_(maxl, replicas)
             ups = self.update(grads, old, new)
             if self.diagnostics:
-                metrics["grad_norm"] = _global_norm(grads)
-                metrics["update_norm"] = _global_norm(ups)
-                metrics["param_norm"] = _global_norm(self.params)
+                with torch.no_grad():  # no autograd record of the norms
+                    metrics["grad_norm"] = _global_norm(grads)
+                    metrics["update_norm"] = _global_norm(ups)
+                    metrics["param_norm"] = _global_norm(self.params)
                 metrics["max_abs_logit"] = maxl
         finally:
             model.train(was_training)
@@ -325,7 +331,11 @@ def step_collectives(model: nn.Module, sync_bn: bool = True, diagnostics: bool =
     moments. A BatchNorm is in a region when a ReLU follows it in its
     Sequential. The first step also checks each new plane size once
     (``parallel.global_rows``). ``remat`` adds none: a block's recompute
-    replays the sums of its forward (``parallel/dist.py:taped_sums``)."""
+    replays the sums of its forward (``parallel/dist.py:taped_sums``).
+
+    On the graph route this is what one replay issues on the device, NCCL
+    kernels all; the counters see them at the warm-up step and the capture
+    of a shape's first call (twice that call), and at no replay."""
     n = 2 + int(diagnostics)
     if not sync_bn:
         return n

@@ -24,9 +24,13 @@ replicas' shards; meters, prints and the TensorBoard writer are rank 0's.
 The eval step is batch-routed as the reference's (``trainer.py:133,300-312``):
 each batch size runs on the route measured fastest for it on the card
 (``utils/routing.py``). The train step runs on the train route
-(``default_train_route``: ``TRAIN_ROUTE`` on the card, eager off it and with
-replicas), the counterpart of the reference's one jitted step with donated
-state (``trainer.py:122-128``); ``MNASNET_TPU_TORCH_ROUTE`` overrides it.
+(``default_train_route``: ``TRAIN_ROUTE`` on the card, with NCCL replicas
+too, where one CUDA graph per input shape holds the step with its
+collectives; eager off the card and with gloo replicas), the counterpart
+of the reference's one jitted step with donated state
+(``trainer.py:122-128``); ``MNASNET_TPU_TORCH_ROUTE`` overrides it. The
+agreed stop flag, validation and recalibration stay outside the graph, on
+the host.
 The train graph keeps a memory pool of its own, apart from the eval graphs'. Every
 path that changes the model or the optimizer between steps (checkpoint
 restore, BN recalibration, :func:`swapped_params`) writes in place, so a
@@ -134,6 +138,12 @@ class Trainer:
             self._train_step = make_local_bn_train_step(model, tx, label_smoothing, replicas)
         self._eval_step = BatchRouted(make_eval_step(model), batch_arg=0, device=self.device)
 
+    @property
+    def route(self):
+        """The train step's :class:`~mnasnet_tpu_torch.utils.routing.TrainRouted`
+        (its ``route``, ``calls``, ``replays`` and ``counted()``)."""
+        return self._train_step
+
     def create_state(self, seed: int = 0) -> TrainState:
         """Bind the optimizer to the model (fresh state) and seed the dropout
         generator."""
@@ -141,7 +151,10 @@ class Trainer:
 
     def collectives_per_step(self) -> int:
         """The collectives a step of ``train_epoch`` issues with replicas: the
-        step's (``steps.step_collectives``) and the stop flag."""
+        step's (``steps.step_collectives``) and the stop flag. On the graph
+        route a replay issues the step's on the device, and
+        ``Replicas.collectives`` counts them at the warm-up and capture of a
+        shape's first call only (``route.counted()``)."""
         return step_collectives(self.model, *self._layout) + 1
 
     def request_stop(self) -> None:

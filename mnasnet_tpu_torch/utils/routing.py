@@ -35,6 +35,17 @@ scalars, ``train/optim.py``), so the step is split there
 (``train/steps.py:_StepParts``), and the dropout generator is registered
 with the graph. ``torch.compile`` needs every kernel as a ``torch.library``
 op (the BN+ReLU backward's too, ``ops/cuda/bn_bwd.py``).
+
+With data-parallel replicas over NCCL the graph route is taken too, as the
+reference jits its data-parallel step over the mesh: the graph holds the
+whole sync-BN (or local-BN) step with its collectives, and a replay issues
+on the device, in the step's order, the step's kernels and its
+``train/steps.py:step_collectives`` NCCL all-reduces (the BN moments, the
+(2, C) sums of each BN+ReLU region's backward between its two kernels,
+the global count and the one flat buffer of the gradients and metrics),
+each on NCCL's stream joined to the graph's by events. A gloo collective
+runs on the host and cannot be captured, so gloo replicas run eager; the
+compile route is not taken with replicas.
 """
 
 from __future__ import annotations
@@ -119,18 +130,30 @@ def default_train_route(device="cuda", replicas=None) -> str:
 
     Resolution order: the ``MNASNET_TPU_TORCH_ROUTE`` environment variable
     (as :func:`default_route` reads it) -> :data:`TRAIN_ROUTE` on a CUDA
-    device -> eager elsewhere. With ``replicas`` (data parallelism, whose
-    collectives run between the step's launches) the route is eager, and
-    an environment that asks for another raises."""
+    device -> eager elsewhere. With ``replicas`` (data parallelism) and
+    no variable, NCCL replicas on the card take :data:`TRAIN_ROUTE` and
+    gloo replicas, whose collectives run on the host, run eager; a route
+    the replicas cannot take (asked for by the variable) raises when the
+    step is built (:func:`check_replicas_route`, in :class:`TrainRouted`)."""
     route = _env_route()
-    if replicas is not None:
-        if route not in (None, "eager"):
-            raise ValueError(f"{_ENV_KEY} asks for the {route!r} train route, which is "
-                             "not taken with replicas: the data-parallel step runs eagerly")
-        return "eager"
-    if route is not None:
-        return route
-    return TRAIN_ROUTE if torch.device(device).type == "cuda" else "eager"
+    if route is None:
+        on_card = torch.device(device).type == "cuda"
+        route = TRAIN_ROUTE if on_card and (
+            replicas is None or replicas.backend == "nccl") else "eager"
+    return route
+
+
+def check_replicas_route(route: str, replicas) -> None:
+    """Raise unless the train step of ``replicas`` can run on ``route``: the
+    graph route captures the collectives, which NCCL runs on the device and
+    gloo on the host; the compile route is not taken with replicas."""
+    if route == "compile":
+        raise ValueError(f"the 'compile' train route is not taken with replicas (set "
+                         f"{_ENV_KEY}=graph or eager, or pass route='graph' or 'eager')")
+    if route == "graph" and replicas.backend != "nccl":
+        raise ValueError(f"the 'graph' train route is not taken with {replicas.backend} "
+                         f"replicas: a {replicas.backend} collective runs on the host and "
+                         "cannot be captured into a CUDA graph (NCCL's can)")
 
 
 @contextlib.contextmanager
@@ -289,16 +312,33 @@ class TrainRouted:
         the cold compile of mnasnet1_0@224 take 464 s on the card.)
 
     ``calls`` counts the calls per key and ``replays`` the graph replays: a
-    kernel's launch counter advances at eager and compiled calls and at a
-    graph's first call (its warm-up and its capture), not at a replay.
+    kernel's launch counter, and ``Replicas.collectives``, advance at eager
+    and compiled calls and at a graph's first call (its warm-up and its
+    capture), not at a replay (:meth:`counted`).
     Parameters, buffers and optimizer state are written in place by every
     path that changes them (checkpoint restore, BN recalibration,
     ``swapped_params``), so a captured graph stays valid across them.
+
+    Replicas over NCCL (``steps.replicas``): the warm-up step makes every
+    host-side first: NCCL's communicator (created at the group's first
+    collective), each BN plane size's check (``parallel.global_rows``,
+    which raises if the capture meets a new one), the kernels' plans.
+    Every replica takes the same input shape, so every replica captures at
+    the same call; a replay issues the step's collectives with its kernels.
+    Each graph is registered with the replicas (``Replicas.add_graph``),
+    so that ``parallel.close`` resets it before it leaves the group.
+    ``capture_error_mode="thread_local"`` leaves other threads free to
+    call the CUDA runtime while this one captures: the loader's thread and
+    the process group's watchdog, which polls the events of collectives
+    issued eagerly (the captured ones are not handed to it).
     """
 
     def __init__(self, steps, route: str, **compile_kwargs):
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}; choices: {ROUTES}")
+        self._replicas = getattr(steps, "replicas", None)
+        if self._replicas is not None:
+            check_replicas_route(route, self._replicas)
         if route == "graph" and steps.device.type != "cuda":
             raise ValueError(f"the graph route runs on a CUDA device, not {steps.device}")
         self.route = route
@@ -361,10 +401,13 @@ class TrainRouted:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        if self._replicas is not None:
+            self._replicas.add_graph(graph)
         graph.register_generator_state(generator)
         before = generator.get_state()
         # thread_local: a loader thread may pin and copy the next batch
-        # meanwhile, on its own stream, which the capture does not hold.
+        # meanwhile, on its own stream, which the capture does not hold, and
+        # the process group's watchdog polls its eager collectives' events.
         with _collector_off(), torch.cuda.graph(graph, pool=self._pool,
                                                 capture_error_mode="thread_local"):
             out = steps.device_step(*static, generator)

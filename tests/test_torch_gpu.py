@@ -1067,3 +1067,124 @@ def test_channel_pad_the_kernel_route_cannot_take_raises_on_the_card(cuda):
     with torch.no_grad():
         create_model("mnasnet0_35", channel_pad=12, dw_impl="torch", bn_bwd="torch")(
             torch.zeros(1, 3, 32, 32, device=cuda))
+
+
+# ------------------------------------------- the data-parallel graph route
+
+
+@pytest.fixture
+def nccl_world1(deterministic, tmp_path):
+    """A one-rank NCCL group in this process (``file://`` rendezvous) and its
+    replica handle; deterministic algorithms on."""
+    import torch.distributed as dist
+
+    from mnasnet_tpu_torch.parallel import Replicas, close
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    replicas = Replicas(0, 1, cuda)
+    try:
+        yield cuda, replicas
+    finally:
+        close(replicas)
+
+
+def _dp_run(cuda, replicas, route, kind, steps=3):
+    """``steps`` data-parallel steps (``kind``: sync, local or sync_remat) on
+    ``route`` from the same weights, with dropout, a changing rate and the
+    model EMA; the losses, the state, the routed step and the collectives
+    the helpers counted."""
+    from mnasnet_tpu_torch.models.layers import set_replicas
+    from mnasnet_tpu_torch.train.steps import make_local_bn_train_step
+
+    model, tx, state = _route_setup(cuda, remat=kind == "sync_remat")
+    if kind == "local":
+        step = make_local_bn_train_step(model, tx, 0.1, replicas, route=route)
+    else:
+        set_replicas(model, replicas)
+        step = make_train_step(model, tx, 0.1, replicas=replicas, route=route)
+    batch = _route_batch(cuda)
+    before = replicas.collectives
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, *batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    return ([float(v) for v in losses], _snapshot(model, tx, state), step,
+            replicas.collectives - before, model)
+
+
+@pytest.mark.parametrize("kind", ["sync", "local", "sync_remat"])
+def test_nccl_graph_route_is_bitwise_eager(nccl_world1, kind):
+    """World 1 over NCCL, 3 steps with dropout, a changing rate and the model
+    EMA: the graph route (the warm-up step, the capture with the
+    collectives inside, two replays) equals the eager data-parallel step bit
+    for bit, the BN buffers with ``num_batches_tracked``, the optimizer
+    state and the generator included; the helpers count the collectives of
+    the warm-up and the capture, none of a replay."""
+    from mnasnet_tpu_torch.train.steps import step_collectives
+
+    cuda, replicas = nccl_world1
+    le, se, eager, ce, model = _dp_run(cuda, replicas, "eager", kind)
+    lg, sg, graph, cg, _ = _dp_run(cuda, replicas, "graph", kind)
+    assert le == lg
+    _assert_same(se, sg)
+    assert list(graph.replays.values()) == [2] and graph.counted() == 2
+    per_step = step_collectives(model, sync_bn=kind != "local")
+    planes = len({(64 // s) ** 2 for s in (2, 4, 8, 16, 32)}) if kind != "local" else 0
+    assert ce == 3 * per_step + planes  # the eager run met the plane sizes first
+    assert cg == 2 * per_step
+
+
+def test_nccl_replicas_take_the_graph_route_by_default(nccl_world1, monkeypatch):
+    from mnasnet_tpu_torch.models.layers import set_replicas
+    from mnasnet_tpu_torch.train.steps import make_local_bn_train_step
+    cuda, replicas = nccl_world1
+    env = "MNASNET_TPU_TORCH_ROUTE"
+    monkeypatch.delenv(env, raising=False)
+    model, tx, _ = _route_setup(cuda)
+    assert make_local_bn_train_step(model, tx, 0.1, replicas).route == "graph"
+    set_replicas(model, replicas)
+    assert make_train_step(model, tx, 0.1, replicas=replicas).route == "graph"
+    monkeypatch.setenv(env, "eager")
+    assert make_train_step(model, tx, 0.1, replicas=replicas).route == "eager"
+    with pytest.raises(ValueError, match="compile"):
+        make_train_step(model, tx, 0.1, replicas=replicas, route="compile")
+
+
+CLOSE_BOUND_S = 300
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_close_returns_while_an_exception_holds_a_captured_step(cuda, tmp_path, world):
+    """A rank raises after its graph-route step captured the group's
+    collectives, and ``parallel.close`` runs in a ``finally`` while the
+    exception's traceback still holds the step (``tests/torch_close_worker.py``).
+    NCCL's ``destroy_process_group`` waits for every graph that captured the
+    group; ``close`` resets the graphs the replicas registered, so each rank
+    closes and exits with the exception within the bound. Over one rank
+    NCCL captures nothing for an in-place sum; over two (two cards) the
+    graph holds NCCL's kernels."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    procs = [subprocess.Popen(
+        [sys.executable, str(repo / "tests" / "torch_close_worker.py"), str(rank), str(world),
+         str(tmp_path / "rendezvous")], cwd=repo, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(world)]
+    try:
+        outs = [p.communicate(timeout=CLOSE_BOUND_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert f"rank {rank}: 1 replay, 1 graph registered" in out, (out, err)
+        assert f"rank {rank}: closed" in out, (out, err)
+        assert p.returncode == 1 and "Raised: raised past the capture" in err, err

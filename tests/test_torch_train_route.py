@@ -12,7 +12,8 @@ BN+ReLU backward ops and the optimizer's step scalars, on the CPU.
   tests/test_torch_train.py (its one-ulp spread of the reference); and the
   step-scalar update bit for bit against the same formulas with the scalars
   as Python floats, on the same gradients.
-* Route resolution; the graph route refused off the card and with replicas.
+* Route resolution; the graph route refused off the card and with gloo
+  replicas, the compile route with any replicas.
 * The compile route for two steps against eager. One Inductor compile of
   the small train step takes minutes on this CPU, so the route runs with
   Dynamo's ``aot_eager`` backend (Dynamo with ``fullgraph=True`` and
@@ -390,12 +391,12 @@ def test_unknown_train_route_raises():
 @pytest.mark.parametrize("route", ["graph", "compile"])
 def test_routes_other_than_eager_raise_with_replicas(monkeypatch, route):
     model, tx, _ = _setup()
-    replicas = types.SimpleNamespace(world=2, rank=0)
+    replicas = types.SimpleNamespace(world=2, rank=0, backend="gloo")
     with pytest.raises(ValueError, match="replicas"):
         make_local_bn_train_step(model, tx, 0.1, replicas, route=route)
     monkeypatch.setenv(ENV, route)
-    with pytest.raises(ValueError, match="replicas"):
-        default_train_route("cuda", replicas)
+    with pytest.raises(ValueError, match="replicas"):  # raised where the step is built
+        make_local_bn_train_step(model, tx, 0.1, replicas)
     monkeypatch.delenv(ENV)
     assert default_train_route("cuda", replicas) == "eager"
     assert make_local_bn_train_step(model, tx, 0.1, replicas).route == "eager"
