@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only dist    # the data-parallel phase only
     python3 chip_smoke.py --only serve   # the serving deployment phase only
     python3 chip_smoke.py --only knobs   # the model knobs phase only
+    python3 chip_smoke.py --only deadrank  # the dead-rank phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -160,6 +161,28 @@ Phases, in order; any failure raises and exits non-zero:
      the graph route bit for bit eager on every rank, and no no-op
      collective; (b) with the 128 split N ways, on the graph route, local
      BN against ``grad_accum=N``; (c) ``dryrun_multichip(N)``.
+ 11. deadrank: a dead rank and the recovery, through the train CLI on the
+     same production configuration (synthetic, ``DEADRANK_STEPS`` steps of
+     128 images a rank an epoch, the kernel route, ``DEADRANK_EPOCHS``
+     epochs; ``mnasnet_tpu_torch/tools/deadrank_probe.py:kill_run``). (a)
+     Two gloo ranks as processes of their own on cuda:0 (global batch 256;
+     gloo cannot be captured, so the eager route); once rank 0 prints
+     step ``DEADRANK_KILL_STEP`` of epoch 1 (the steps after it already
+     issued, mid-epoch) and the epoch-0 checkpoint is on disk, rank 1 is
+     SIGKILLed, and rank 0 must exit non-zero within
+     ``DEADRANK_GLOO_BOUND_S``. (b) In this process, one process
+     ``--resume``s that checkpoint at global batch 256 and finishes the
+     run on the default (graph) route: exactly 17 dw, 35 bn_bwd_reduce,
+     35 bn_bwd_dx and 0 MBConv launches per counted train step, the counts
+     set to 0 just before and read just after, every kernel of the path
+     launched. (c) On a machine with two or more cards: two NCCL ranks,
+     one card each, on the graph route (the step's all-reduces replayed
+     from a CUDA graph, which no watchdog watches); rank 1 is SIGKILLed
+     at the same point, while rank 0 replays steps, and rank 0 must exit non-zero
+     within ``DIST_TIMEOUT_S`` + 60 s, ended by the host's deadline
+     (``parallel/dist.py:Deadline``: exit 1 once the event behind a replay
+     or an eager collective is ``DIST_TIMEOUT_S`` old). Each child has a
+     hard time limit.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
@@ -219,6 +242,10 @@ Tolerances (normalised by the largest magnitude of the reference):
     and the gradients' sums taken in another order, a rounding that the
     batch-statistic BN backward amplifies at random init as it amplifies
     that one-ulp change (measured: 8.4e-3 against an own move of 9.5e-3);
+  * deadrank: the survivor's exit non-zero within 60 s over gloo (a dead
+    peer's socket closes, so its next collective raises at once) and
+    within ``DIST_TIMEOUT_S`` + 60 s over NCCL (the host deadline's
+    timeout, its poll and the exit); the resumed run's launches exactly;
   * whole model, bf16: max |kernel route - torch route| <= 0.25 of the
     largest logit, and the kernel route's relative RMS error against the fp32
     reference at most 1.25x the torch route's plus 0.01. Random weights make
@@ -234,6 +261,7 @@ import faulthandler
 import io
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -275,8 +303,9 @@ from mnasnet_tpu_torch.ops.cuda.dw_conv import plan as dw_plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import kernel_args, mbconv_fused, mbconv_reference, plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import launch as mb_launch
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
-from mnasnet_tpu_torch.parallel import all_reduce_max_, close, init_distributed
+from mnasnet_tpu_torch.parallel import all_reduce_max_, close, dist_timeout, init_distributed
 from mnasnet_tpu_torch.serving import load_serving
+from mnasnet_tpu_torch.tools import deadrank_probe
 from mnasnet_tpu_torch.tools.tune_plans import (
     BATCH,
     IMAGE,
@@ -365,6 +394,18 @@ DIST_PROFILE_STEPS = (DIST_STEPS - 3, DIST_STEPS - 1)
 # The BN planes of mnasnet1_0@224 (112², 56², 28², 14², 7²): sync-BN checks
 # each size once, on the first step.
 BN_PLANE_SIZES = 5
+# The deadrank phase: steps of BATCH images a rank an epoch, epochs (rank 1
+# dies in epoch 1, the resume runs the rest), the step of epoch 1 whose
+# printed line kills rank 1 (metrics print one step late, so the next step
+# is issued by then and more remain: the kill lands mid-epoch, among the
+# survivor's replays), the bound on the ranks' reaching it, and on the gloo
+# survivor's exit (its collective raises as soon as the dead peer's socket
+# closes).
+DEADRANK_STEPS = 8
+DEADRANK_EPOCHS = 3
+DEADRANK_KILL_STEP = 3
+DEADRANK_START_S = 300
+DEADRANK_GLOO_BOUND_S = 60
 
 
 def log(msg: str) -> None:
@@ -2225,6 +2266,87 @@ def dist_phase(timing: bool, card: str, trainer: dict | None,
             "dryrun_multichip": {"world": nproc, "s": dryrun_s}}
 
 
+def deadrank_argv(world: int, workers: int) -> list:
+    """The deadrank phase's train CLI: the production configuration,
+    ``DEADRANK_STEPS`` synthetic steps of ``BATCH`` images a rank an epoch
+    (global batch ``BATCH * world``), the kernel route."""
+    return ["--synthetic", "--synthetic-size", str(DEADRANK_STEPS * BATCH * world),
+            "--batch-size", str(BATCH * world), "--epochs", str(DEADRANK_EPOCHS),
+            "--fused-kernels", "kernel", "--dtype", "bfloat16", "--workers", str(workers),
+            "--print-freq", "1", "--seed", "0"]
+
+
+def _killed(what: str, res: dict, bound_s: float, card: str) -> dict:
+    rc, latency = res["survivor_exit_code"], res["detection_latency_s"]
+    log(f"[deadrank] {what}: the survivor exited {rc} {latency:.1f} s after rank 1's "
+        f"SIGKILL (bound {bound_s:.0f} s), on {card}")
+    log(f"[deadrank] {what}: the survivor's last line: {res['survivor_last_line']}")
+    if rc in (0, None) or latency >= bound_s:
+        raise RuntimeError(f"{what}: the survivor of a SIGKILLed peer exited {rc} after "
+                           f"{latency:.1f} s; expected non-zero within {bound_s:.0f} s:\n"
+                           f"{Path(res['log']).read_text(errors='replace')[-4000:]}")
+    return {"survivor_exit_code": rc, "detection_latency_s": latency,
+            "bound_s": bound_s, "survivor_last_line": res["survivor_last_line"]}
+
+
+def deadrank_phase(card: str) -> dict:
+    """(a) two gloo ranks of the train CLI on cuda:0 (eager: gloo cannot be
+    captured), rank 1 SIGKILLed mid-epoch 1, the survivor
+    out within ``DEADRANK_GLOO_BOUND_S``; (b) one process ``--resume``s that
+    checkpoint in this process, on the default (graph) route, counted; (c)
+    with two or more cards, two NCCL ranks on the graph route, the survivor
+    out within ``DIST_TIMEOUT_S + 60`` s."""
+    workers = max(1, min((os.cpu_count() or 1) // 2, 8))
+    work = REPO / "build" / "chip_smoke_deadrank"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out: dict = {"dist_timeout_s": dist_timeout()}
+    try:
+        run = str(work / "gloo")
+        trigger = re.compile(rf"Epoch: \[1\]\[\s*{DEADRANK_KILL_STEP}/")
+        res = deadrank_probe.kill_run(deadrank_argv(2, workers), run, work, device="cuda:0",
+                                      backend="gloo", bound_s=DEADRANK_GLOO_BOUND_S,
+                                      start_s=DEADRANK_START_S, trigger=trigger)
+        out["gloo_one_card"] = _killed("(a) gloo, two ranks on cuda:0", res,
+                                       DEADRANK_GLOO_BOUND_S, card)
+
+        calls: list = []
+        for fn in COUNTERS.values():  # the main path: counts set to 0 just before
+            fn.launches = 0
+        with recorded_calls(calls):
+            text = run_cli([*deadrank_argv(1, workers), "--output-dir", run, "--resume", run])
+        torch.cuda.synchronize()
+        launches = counts()
+        train = [c for c in calls if c["kind"] == "train_epoch"]
+        counted = sum(c["counted_steps"] for c in train)
+        step_launches = {k: sum(c["launches"][k] for c in train) for k in launches}
+        res = {"launches": launches, "train_launches": step_launches, "counted_steps": counted,
+               "routes": sorted({c["route"] for c in train}),
+               "final_step": train[-1]["steps"], "epochs": len(train)}
+        log(f"[deadrank] (b) one process --resume on the {res['routes']} route: {res}")
+        if "=> resumed from epoch 0" not in text or len(train) != DEADRANK_EPOCHS - 1:
+            raise RuntimeError("(b) the resume did not run epochs 1.. from epoch 0's checkpoint")
+        if res["routes"] != [TRAIN_ROUTE] or step_launches != _scaled(LAUNCHES_PER_STEP, counted) \
+                or not all(launches[k] for k, v in LAUNCHES_PER_STEP.items() if v):
+            raise RuntimeError(f"(b) the resumed run: {res}; expected the {TRAIN_ROUTE} route "
+                               f"and {LAUNCHES_PER_STEP} per counted step")
+        out["resume_one_process"] = res
+
+        if torch.cuda.device_count() >= 2:
+            bound = dist_timeout() + 60
+            res = deadrank_probe.kill_run(deadrank_argv(2, workers), str(work / "nccl"), work,
+                                          device="cuda", bound_s=bound,
+                                          start_s=DEADRANK_START_S, trigger=trigger)
+            out["nccl_graph_two_cards"] = _killed(
+                f"(c) NCCL on the {TRAIN_ROUTE} route, two cards", res, bound, card)
+        else:
+            log("[deadrank] (c) NCCL on the graph route: not run, it needs two cards "
+                "(NCCL refuses two ranks on one card)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def trainer_phase(timing: bool, card: str, fixed_batch: dict | None) -> dict:
     workers = min(os.cpu_count() or 1, 16)
     decoder = ("native-fast" if native_decoder.available()
@@ -2271,7 +2393,7 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
 
 
 def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trainer,
-                 dist, knobs) -> dict:
+                 dist, knobs, deadrank) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -2282,7 +2404,8 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trai
     paths = {"serving": serving["launches"], "artifact": serve["artifact"]["launches"],
              "artifact_routes": serve["routes_launches"], "train": train["launches"],
              "trainer": trainer["launches"], "dist_torchrun": dist["nccl"]["launches"],
-             "dist_ranks_rank0": dist["ranks"]["launches"], "knobs_remat": knobs["launches"]}
+             "dist_ranks_rank0": dist["ranks"]["launches"], "knobs_remat": knobs["launches"],
+             "deadrank_resume": deadrank["resume_one_process"]["launches"]}
 
     def by_path(name):
         return {p: launches.get(name, 0) for p, launches in paths.items()}
@@ -2336,12 +2459,13 @@ def main() -> int:
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
     ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve",
-                                       "knobs"),
+                                       "knobs", "deadrank"),
                     default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
                          "phase only; 'dist' the data-parallel phase only; 'serve' the "
-                         "serving deployment phase only; 'knobs' the model knobs phase only")
+                         "serving deployment phase only; 'knobs' the model knobs phase only; "
+                         "'deadrank' the dead-rank phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--dist-fixed"]:
@@ -2399,6 +2523,10 @@ def main() -> int:
         log(json.dumps({"knobs": phase("knobs", knobs_phase, timing, card)}, default=str))
         log(card)
         return 0
+    if args.only == "deadrank":
+        log(json.dumps({"deadrank": phase("deadrank", deadrank_phase, card)}))
+        log(card)
+        return 0
     if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
         serve = phase("serve", serve_phase, timing, card)
@@ -2411,12 +2539,14 @@ def main() -> int:
         knobs = phase("knobs", knobs_phase, timing, card)
         trainer = phase("trainer", trainer_phase, timing, card, train)
         dist = phase("dist", dist_phase, timing, card, trainer, args.profile)
+        deadrank = phase("deadrank", deadrank_phase, card)
         log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train,
-                                    trainer, dist, knobs)))
+                                    trainer, dist, knobs, deadrank)))
         log(json.dumps({"serving": serving}))
         log(json.dumps({"serve": serve}))
         log(json.dumps({"trainer": trainer}))
         log(json.dumps({"dist": dist}))
+        log(json.dumps({"deadrank": deadrank}))
         log(json.dumps({"knobs": knobs}, default=str))
     log(json.dumps({"train": train, "dw_train": dw_train}))
     log(card)

@@ -74,9 +74,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
 
 
 def _rank(rank: int, world: int, kind: str, rendezvous: str) -> None:
-    import torch.distributed as dist
-
     from mnasnet_tpu_torch.parallel import Replicas, close
+    from mnasnet_tpu_torch.parallel.dist import join_group
 
     if kind == "cuda":
         dev = torch.device("cuda", rank)
@@ -84,8 +83,7 @@ def _rank(rank: int, world: int, kind: str, rendezvous: str) -> None:
     else:
         dev = torch.device("cpu")
         torch.set_num_threads(1)
-    dist.init_process_group("nccl" if kind == "cuda" else "gloo",
-                            init_method=f"file://{rendezvous}", world_size=world, rank=rank)
+    join_group("nccl" if kind == "cuda" else "gloo", f"file://{rendezvous}", world, rank)
     replicas = Replicas(rank, world, dev)
     try:
         _dryrun(replicas)

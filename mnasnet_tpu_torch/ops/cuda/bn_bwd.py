@@ -454,7 +454,7 @@ def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None 
     own, n = sums, x.numel() // x.shape[-1]
     if replicas is not None:
         own = sums.clone()
-        all_reduce_sum_([sums], replicas)
+        all_reduce_sum_([sums], replicas, "all_reduce (BN backward sums)")
         n = global_rows(n, replicas)
     dg, db = sums.unbind()
     dx = torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(x, dy, mean, inv, gamma, beta, dg, db, n)

@@ -37,6 +37,26 @@ communicator only once every CUDA graph that captured its collectives is
 gone, so a capture registers its graph (``Replicas.add_graph``) and
 :func:`close` resets each before it leaves the group.
 
+Failure (a dead or stalled peer): every wait at a collective is bounded.
+The group is made with ``timeout=`` :func:`dist_timeout` (``DIST_TIMEOUT_S``
+unless ``MNASNET_TPU_TORCH_DIST_TIMEOUT`` names other seconds). Over gloo a
+collective that a dead peer's closed socket or the timeout ends raises in
+the call; the helpers then mark the replicas failed
+(``Replicas.failed``) and raise :class:`CollectiveFailed` naming this rank
+and the collective. Over NCCL a collective is only enqueued, and the host
+waits later (on an event, a copy to the host) for a result that a dead
+peer never completes. The process group's watchdog times the eagerly
+issued collectives out, but on H100s it caught the timeout and did not end
+the process (PERF.md), and it never sees a collective replayed from a CUDA
+graph. So an NCCL group gets a :class:`Deadline` of the host's own: each
+eager collective, and each replay of a graph that holds collectives
+(:meth:`Replicas.watch`, called by ``utils/routing.py:TrainRouted``),
+records a CUDA event behind it, and a thread ends the process (one line,
+exit 1) when one has not completed within the timeout. Whatever the host
+then blocks in, a copy to the host or a synchronize behind a replay that
+spins on a dead peer, an event behind that replay is pending.
+:func:`close` leaves a failed group by abort, which waits on nothing.
+
 ``--mesh-dcn N`` (multi-slice) adds no code path: NCCL's topology already
 reduces within a node before it crosses nodes, which is what the reference's
 ``('dcn', 'data')`` axes give GSPMD. Spatial partitioning (``spatial``) is
@@ -45,8 +65,13 @@ not ported.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import datetime
+import faulthandler
 import os
+import threading
+import time
 import weakref
 from typing import Iterable, Optional
 
@@ -54,15 +79,93 @@ import torch
 import torch.distributed as dist
 
 
+# The bound on every wait at a collective of the port's process group, in
+# seconds. What it bounds is the skew between ranks: how long one rank
+# waits at a collective for its slowest peer. Every rank issues the same
+# collectives and leaves each one when the last peer arrives, so a healthy
+# skew is at most the longest stretch of work between two collectives, and
+# is mostly much less: the ranks hold equal shards of the same batches.
+# The longest stretch is the validation pass before its sums, which grows
+# with the validation set: at ImageNet's 50,000 images over two ranks, 35 s
+# at the data path's measured 710 images/s a rank (PERF.md). Other
+# stretches are short: a step, a checkpoint save before its barrier, the
+# first step's kernel build (~20 s on a fresh machine). 120 s is over 3
+# times the longest, and short enough that the survivor of a dead peer
+# exits within the reference's 300 s.
+DIST_TIMEOUT_S = 120.0
+TIMEOUT_ENV = "MNASNET_TPU_TORCH_DIST_TIMEOUT"
+
+
 class ReplicaMismatch(RuntimeError):
     """State that should be the same on every replica is not."""
+
+
+class CollectiveFailed(RuntimeError):
+    """A collective raised: a peer died (its socket closed), stalled past the
+    group's timeout, or the group failed otherwise."""
+
+
+class Deadline:
+    """The host's bound on the collectives of an NCCL group: each eager
+    collective, and each replay of a graph that holds some, records a CUDA
+    event behind it (:meth:`issued`), and a daemon thread checks every
+    ``POLL_S`` whether the oldest has completed (``query``, which never
+    blocks). Once one is ``limit_s`` old and not complete, or a query
+    raises, the thread writes every thread's stack and one line to stderr
+    and calls ``exit(1)`` (``os._exit``: the main thread may be blocked in
+    a CUDA call for good)."""
+
+    POLL_S = 1.0
+
+    def __init__(self, rank: int, device, limit_s: float, exit=os._exit):
+        self.rank = rank
+        self.limit_s = limit_s
+        self._device = device
+        self._exit = exit
+        self._pending: collections.deque = collections.deque()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="collective-deadline",
+                                        daemon=True)
+        self._thread.start()
+
+    def issued(self, event, what: str) -> None:
+        self._pending.append((time.monotonic(), event, what))
+
+    def _run(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+        while not self._stop.wait(self.POLL_S):
+            try:
+                while self._pending and self._pending[0][1].query():
+                    self._pending.popleft()
+            except RuntimeError as e:  # the context failed: nothing will complete
+                self._end(f"{self._pending[0][2]} cannot be queried ({e})")
+                return
+            if self._pending:
+                at, _, what = self._pending[0]
+                age = time.monotonic() - at
+                if age > self.limit_s:
+                    self._end(f"{what} has not completed {age:.0f} s after it was "
+                              "issued (a dead or stalled peer)")
+                    return
+
+    def _end(self, why: str) -> None:
+        faulthandler.dump_traceback(all_threads=True)
+        os.write(2, f"[rank {self.rank}] {why}; exiting\n".encode())
+        self._exit(1)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
 
 
 class Replicas:
     """The data-parallel replicas of a run: ``group`` (None: the default
     group), this process's ``rank``, the ``world`` size and this rank's
     ``device``. ``collectives`` counts the collectives the helpers issued;
-    :attr:`backend` names the group's backend."""
+    :attr:`backend` names the group's backend. ``failed`` is None until a
+    collective raises, then says which and why. ``deadline`` is the
+    :class:`Deadline` of an NCCL group (None otherwise)."""
 
     def __init__(self, rank: int, world: int, device, group=None):
         self.rank = rank
@@ -70,6 +173,8 @@ class Replicas:
         self.device = torch.device(device)
         self.group = group
         self.collectives = 0
+        self.failed: Optional[str] = None
+        self.deadline: Optional[Deadline] = None
         self.tape: Optional[SumTape] = None
         self._rows_checked: set[int] = set()
         self._graphs: weakref.WeakSet = weakref.WeakSet()
@@ -83,6 +188,17 @@ class Replicas:
         """Register a ``torch.cuda.CUDAGraph`` that captures (or is about to
         capture) this group's collectives: :func:`close` resets it."""
         self._graphs.add(graph)
+
+    def watch(self, what: str) -> None:
+        """Put an event behind the work the current stream has been given so
+        far, for the :class:`Deadline` (if any) to hold to the timeout:
+        after an eager collective, and after each replay of a graph that
+        holds collectives, which no watchdog sees. Nothing while the stream
+        captures."""
+        if self.deadline is not None and not _capturing():
+            event = torch.cuda.Event()
+            event.record()
+            self.deadline.issued(event, what)
 
     def __repr__(self) -> str:
         return f"Replicas(rank={self.rank}, world={self.world}, device={self.device})"
@@ -98,8 +214,15 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def dist_timeout() -> float:
+    """The seconds every collective may wait: ``MNASNET_TPU_TORCH_DIST_TIMEOUT``
+    when it is set, else ``DIST_TIMEOUT_S``."""
+    return float(os.environ.get(TIMEOUT_ENV, DIST_TIMEOUT_S))
+
+
 def init_distributed(dist_url: Optional[str] = None, world: int = -1, rank: int = -1,
-                     backend: Optional[str] = None, device="cuda") -> Optional[Replicas]:
+                     backend: Optional[str] = None, device="cuda",
+                     timeout: Optional[float] = None) -> Optional[Replicas]:
     """Join the default process group when this process is one of several.
 
     ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -109,7 +232,10 @@ def init_distributed(dist_url: Optional[str] = None, world: int = -1, rank: int 
     neither, returns None: one process. The backend is ``nccl`` on a CUDA
     device and ``gloo`` on the CPU, unless ``backend`` names one. A CUDA rank
     runs on ``cuda:LOCAL_RANK`` (``rank`` modulo the cards when there is no
-    ``LOCAL_RANK``) unless ``device`` names an index."""
+    ``LOCAL_RANK``) unless ``device`` names an index. Every collective of the
+    group waits at most ``timeout`` seconds (default :func:`dist_timeout`);
+    an NCCL group also gets the host's :class:`Deadline` on the same
+    bound."""
     if "WORLD_SIZE" in os.environ:
         init_method = "env://"
         world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
@@ -128,8 +254,21 @@ def init_distributed(dist_url: Optional[str] = None, world: int = -1, rank: int 
                                else rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
-    return Replicas(rank, world, dev)
+    seconds = dist_timeout() if timeout is None else float(timeout)
+    join_group(backend, init_method, world, rank, seconds)
+    replicas = Replicas(rank, world, dev)
+    if backend == "nccl":
+        replicas.deadline = Deadline(rank, dev, seconds)
+    return replicas
+
+
+def join_group(backend: str, init_method: str, world: int, rank: int,
+               timeout: Optional[float] = None) -> None:
+    """``init_process_group`` with every collective's wait bounded by
+    ``timeout`` seconds (default :func:`dist_timeout`)."""
+    seconds = dist_timeout() if timeout is None else float(timeout)
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=seconds))
 
 
 def close(replicas: Optional[Replicas]) -> None:
@@ -141,11 +280,34 @@ def close(replicas: Optional[Replicas]) -> None:
     a reference cycle not yet collected, or the traceback of an exception
     in flight through this call. So each graph registered with
     :meth:`Replicas.add_graph` is reset first, whoever holds it; a step
-    whose graph was reset raises if it is called again."""
+    whose graph was reset raises if it is called again. After a collective
+    failed (``Replicas.failed``) the group is aborted instead of destroyed:
+    a destroy may wait on the peer that is gone."""
+    if replicas is not None and replicas.deadline is not None:
+        replicas.deadline.stop()
+        replicas.deadline = None
     if replicas is not None and dist.is_initialized():
         for graph in list(replicas._graphs):
             graph.reset()
-        dist.destroy_process_group()
+        if replicas.failed is not None:
+            from torch.distributed.distributed_c10d import _abort_process_group
+
+            _abort_process_group()
+        else:
+            dist.destroy_process_group()
+
+
+def _issue(replicas: Replicas, what: str, collective, *args, **kwargs) -> None:
+    """Issue one collective of ``replicas``' group and count it, or mark the
+    replicas failed and raise :class:`CollectiveFailed` naming this rank and
+    ``what``; an NCCL group's :class:`Deadline` watches it."""
+    try:
+        collective(*args, group=replicas.group, **kwargs)
+    except RuntimeError as e:
+        replicas.failed = f"{what} failed: {(str(e).splitlines() or [repr(e)])[0]}"
+        raise CollectiveFailed(f"rank {replicas.rank}: {replicas.failed}") from e
+    replicas.collectives += 1
+    replicas.watch(what)
 
 
 def _flat_buffer(tensors: list[torch.Tensor], dtype, device) -> torch.Tensor:
@@ -158,23 +320,22 @@ def _scatter_back_(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
             t.copy_(part.view_as(t))
 
 
-def all_reduce_sum_(tensors: Iterable[torch.Tensor], replicas: Optional[Replicas]) -> None:
-    """Sum each tensor over the replicas, in place, with one collective. One
-    contiguous fp32 tensor is reduced where it lies; several (of any dtype
-    that fp32 holds exactly, such as counts) go through one flat fp32
-    buffer on the replica's device and back."""
+def all_reduce_sum_(tensors: Iterable[torch.Tensor], replicas: Optional[Replicas],
+                    what: str = "all_reduce") -> None:
+    """Sum each tensor over the replicas, in place, with one collective
+    (named ``what`` if it fails). One contiguous fp32 tensor is reduced
+    where it lies; several (of any dtype that fp32 holds exactly, such as
+    counts) go through one flat fp32 buffer on the replica's device and
+    back."""
     if replicas is None:
         return
     tensors = list(tensors)
     if (len(tensors) == 1 and tensors[0].dtype == torch.float32
             and tensors[0].is_contiguous() and tensors[0].device == replicas.device):
-        flat = tensors[0]
-        dist.all_reduce(flat, group=replicas.group)
-        replicas.collectives += 1
+        _issue(replicas, what, dist.all_reduce, tensors[0])
         return
     flat = _flat_buffer(tensors, torch.float32, replicas.device)
-    dist.all_reduce(flat, group=replicas.group)
-    replicas.collectives += 1
+    _issue(replicas, what, dist.all_reduce, flat)
     _scatter_back_(flat, tensors)
 
 
@@ -188,8 +349,7 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, t, replicas):
         ctx.replicas = replicas
         out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=replicas.group)
-        replicas.collectives += 1
+        _issue(replicas, "all_reduce (sync-BN)", dist.all_reduce, out)
         return out
 
     @staticmethod
@@ -268,19 +428,21 @@ def all_reduce_sum(t: torch.Tensor, replicas: Optional[Replicas]) -> torch.Tenso
     return out
 
 
-def all_reduce_max_(t: torch.Tensor, replicas: Optional[Replicas]) -> torch.Tensor:
+def all_reduce_max_(t: torch.Tensor, replicas: Optional[Replicas],
+                    what: str = "all_reduce (max)") -> torch.Tensor:
     """The elementwise maximum of ``t`` over the replicas, in place."""
     if replicas is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=replicas.group)
-        replicas.collectives += 1
+        _issue(replicas, what, dist.all_reduce, t, op=dist.ReduceOp.MAX)
     return t
 
 
 class Flag:
     """A boolean agreed over the replicas (true if it is true on any), issued
-    without waiting: :meth:`get` reads it. On a CUDA device the result is
-    copied to pinned host memory behind an event, so reading it waits for
-    the collective alone, not for work issued after it."""
+    without waiting: :meth:`get` reads it. On a CUDA device nothing in the
+    issue waits for the card (the value is filled in on the device, not
+    copied from pageable host memory, which would wait for the stream), and
+    the result is copied to pinned host memory behind an event, so reading
+    it waits for the collective alone, not for work issued after it."""
 
     def __init__(self, value: bool, replicas: Optional[Replicas]):
         self._host = None
@@ -288,8 +450,8 @@ class Flag:
         if replicas is None:
             self._value = value
             return
-        t = torch.tensor([float(value)], device=replicas.device)
-        all_reduce_max_(t, replicas)
+        t = torch.full((1,), float(value), device=replicas.device)
+        all_reduce_max_(t, replicas, "all_reduce (the stop flag)")
         if t.device.type == "cuda":
             self._host = torch.empty(1, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
@@ -311,8 +473,20 @@ def barrier(replicas: Optional[Replicas]) -> None:
     element, read on the host."""
     if replicas is not None:
         t = torch.ones(1, device=replicas.device)
-        all_reduce_sum_([t], replicas)
+        all_reduce_sum_([t], replicas, "all_reduce (barrier)")
         t.item()
+
+
+def gather_int(value: int, replicas: Optional[Replicas], what: str) -> list[int]:
+    """Every rank's ``value``, by rank, on every rank: one all-reduce of a
+    vector that holds this rank's value at its own index (float64 holds
+    integers exactly to 2^53)."""
+    if replicas is None:
+        return [value]
+    t = torch.zeros(replicas.world, dtype=torch.float64, device=replicas.device)
+    t[replicas.rank] = value
+    _issue(replicas, what, dist.all_reduce, t)
+    return [int(v) for v in t.tolist()]
 
 
 def broadcast_(tensors: Iterable[torch.Tensor], replicas: Optional[Replicas],
@@ -326,8 +500,7 @@ def broadcast_(tensors: Iterable[torch.Tensor], replicas: Optional[Replicas],
         by_dtype.setdefault(t.dtype, []).append(t)
     for dtype, group in by_dtype.items():
         flat = _flat_buffer(group, dtype, replicas.device)
-        dist.broadcast(flat, src, group=replicas.group)
-        replicas.collectives += 1
+        _issue(replicas, "broadcast", dist.broadcast, flat, src)
         _scatter_back_(flat, group)
 
 
@@ -396,8 +569,7 @@ def global_rows(m: int, replicas: Optional[Replicas]) -> int:
                 "a CUDA graph capture; its check reads a collective on the host, which a "
                 "capture forbids: run the step eagerly once before capturing it")
         t = torch.tensor([float(m), float(m) * m], dtype=torch.float64, device=replicas.device)
-        dist.all_reduce(t, group=replicas.group)
-        replicas.collectives += 1
+        _issue(replicas, "all_reduce (sync-BN rows)", dist.all_reduce, t)
         if t.tolist() != [float(m) * replicas.world, float(m) * m * replicas.world]:
             raise ValueError(f"sync-BN needs the same batch shape on every replica; rank "
                              f"{replicas.rank} has {m} rows per channel, the replicas "

@@ -11,7 +11,8 @@ Counterpart of ``tools/supervise.py``::
     --nproc_per_node N -m mnasnet_tpu_torch.train <args>`` (one process per
     card);
   * exit 0: done; any other exit (a dead peer, out of memory, a fault of
-    the machine): launch again, with ``--resume OUTPUT_DIR`` appended once
+    the machine; a signal, such as the SIGABRT of NCCL's watchdog, named in
+    the restart line): launch again, with ``--resume OUTPUT_DIR`` appended once
     OUTPUT_DIR holds a restorable checkpoint in the layout of
     ``train/checkpoint.py`` (a numeric epoch directory, or one under
     ``preempt/``, holding its checkpoint file) and the arguments name no
@@ -38,6 +39,20 @@ import time
 
 TRAIN_MODULE = "mnasnet_tpu_torch.train"
 FAST_FAILURE_S = 60.0
+
+
+def describe_exit(rc: int) -> str:
+    """A child's exit code as the restart line says it: a signal by name
+    (Popen gives -N for a child killed by signal N; a shell reports it as
+    128 + N)."""
+    for code in (-rc, rc - 128):
+        if 0 < code < signal.NSIG:
+            try:
+                name = signal.Signals(code).name
+            except ValueError:
+                continue
+            return f"killed by {name}" if rc < 0 else f"exited {rc} (128 + {name})"
+    return f"exited {rc}"
 
 
 def parse_output_dir(train_args: list) -> str:
@@ -142,7 +157,7 @@ def main(argv=None, module: str = TRAIN_MODULE) -> int:
                 print(f"[supervise] {fast_failures} consecutive fast failures (a crash "
                       f"loop): giving up with exit {rc}", flush=True)
                 return rc
-            print(f"[supervise] attempt {attempt} exited {rc} after {elapsed:.0f} s: "
+            print(f"[supervise] attempt {attempt} {describe_exit(rc)} after {elapsed:.0f} s: "
                   f"restarting{' from checkpoint' if has_checkpoint(outdir) else ''}",
                   flush=True)
     finally:

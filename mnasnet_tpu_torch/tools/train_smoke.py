@@ -115,6 +115,9 @@ def parse_args(argv=None):
     ap.add_argument("--eval-every", type=int, default=1,
                     help="score in eval mode every N epochs (the last epoch always)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weight init, the shuffle and augmentation, and the "
+                         "dropout masks (the images are the same at every seed)")
     return ap.parse_args(argv)
 
 
@@ -134,12 +137,12 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = create_model(args.arch, device=device, num_classes=10, dtype=dtype,
-                         bn_momentum=args.bn_momentum, bn_ema="external")
+                         bn_momentum=args.bn_momentum, bn_ema="external", seed=args.seed)
     train_ds = GratingDataset(args.train_size, args.image_size, seed=1)
     val_ds = GratingDataset(args.val_size, args.image_size, seed=2)
     train_loader = DataLoader(
         train_ds, args.batch_size, lambda img, rng: train_transform(img, args.image_size, rng),
-        shuffle=True, drop_last=True, seed=0, workers=args.workers)
+        shuffle=True, drop_last=True, seed=args.seed, workers=args.workers)
     val_loader = DataLoader(
         val_ds, args.batch_size, lambda img: eval_transform(img, args.image_size),
         shuffle=False, drop_last=False, seed=0, workers=args.workers, augment=False)
@@ -152,7 +155,7 @@ def main(argv=None) -> int:
     trainer = Trainer(model, tx, device=device, label_smoothing=0.1, compute_dtype=dtype,
                       schedule=schedule, print_freq=10, diagnostics=True,
                       grad_accum=args.grad_accum)
-    state = trainer.create_state(0)
+    state = trainer.create_state(args.seed)
     stat_buffers = [b for n, b in model.named_buffers()
                     if n.endswith(("running_mean", "running_var"))]
 

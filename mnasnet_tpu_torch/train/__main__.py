@@ -29,6 +29,16 @@ the route measured fastest for it.
 ``--remat`` recomputes each MBConv block's forward in the backward (the same
 step, less activation memory; the checkpoints are the same with and without
 it).
+
+A dead or stalled peer: every collective waits at most ``DIST_TIMEOUT_S``
+(``parallel/dist.py``; ``MNASNET_TPU_TORCH_DIST_TIMEOUT`` overrides it).
+Over gloo the collective raises (at once for a dead peer, at the timeout for
+a stalled one) and the rank prints one line to stderr, ``[rank R] <the
+collective> failed: <why>; exiting``, aborts the group and exits 1; a
+SIGTERM whose stop agreement fails so writes no preemption checkpoint. Over
+NCCL the host's deadline (``parallel/dist.py:Deadline``) ends the process
+with one line and exit 1 once an eager collective, or a replay of the
+step's graph, has not completed within the timeout.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import argparse
 import json
 import os
 import signal
+import sys
 import time
 
 from mnasnet_tpu_torch.ops.depthwise import CLI_IMPLS
@@ -215,8 +226,6 @@ def _check_preempt_meta(pre_dir: str, spe: int) -> None:
     steps_per_epoch, which meta.json pins; a mismatched resume is refused. A
     missing or unreadable meta.json skips the check with a warning (the
     checkpoint itself is written atomically)."""
-    import sys
-
     meta_path = os.path.join(pre_dir, "meta.json")
     try:
         with open(meta_path) as f:
@@ -279,6 +288,15 @@ def main(argv=None):
         if args.deterministic:
             _set_deterministic(device)
         _train(args, device, replicas)
+    except Exception as e:
+        if replicas is None or replicas.failed is None:
+            raise
+        # A dead or stalled peer: one line, and a non-zero exit that waits on
+        # nothing (close aborts the failed group). A stop asked by SIGTERM
+        # whose agreement failed writes no preemption checkpoint.
+        print(f"[rank {replicas.rank}] {replicas.failed}; exiting", file=sys.stderr,
+              flush=True)
+        raise SystemExit(1) from e
     finally:
         torch.use_deterministic_algorithms(prev_deterministic)
         torch.backends.cudnn.benchmark = prev_benchmark
@@ -286,41 +304,14 @@ def main(argv=None):
         close(replicas)
 
 
-def _train(args, device, replicas):
-    import torch
-
-    from mnasnet_tpu_torch import create_model
+def build_loaders(args, seed: int, world: int, rank: int, say=print):
+    """The train loader (shuffled, augmented, ``drop_last``) and the val
+    loader of replica ``rank`` of ``world``: its shard of the data in host
+    batches of ``--batch-size / world``."""
     from mnasnet_tpu_torch.data.dataset import ImageFolderDataset, SyntheticDataset
     from mnasnet_tpu_torch.data.pipeline import DataLoader
     from mnasnet_tpu_torch.data.transforms import eval_transform, train_transform
-    from mnasnet_tpu_torch.parallel import ReplicaMismatch, broadcast_seed, broadcast_state_
-    from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
-    from mnasnet_tpu_torch.train.optim import create_optimizer, get_ema_params
-    from mnasnet_tpu_torch.train.schedules import make_schedule, scale_lr_for_batch
-    from mnasnet_tpu_torch.train.trainer import Trainer, swapped_params
 
-    world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
-    is_main = rank == 0
-
-    def say(*a, **kw):
-        """print on rank 0 only: every replica runs the same run."""
-        if is_main:
-            print(*a, **kw)
-
-    seed = args.seed if args.seed is not None else int(time.time()) % (2**31)
-    # Processes can read different seconds; the shuffle, the augmentation
-    # and the dropout masks need one seed everywhere.
-    seed = broadcast_seed(seed, replicas)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    impl = CLI_IMPLS[args.fused_kernels]
-    model = create_model(
-        args.arch, device=device, num_classes=args.num_classes, dtype=dtype, dw_impl=impl,
-        bn_bwd=impl, remat=args.remat, bn_stats=args.bn_stats,
-        bn_ema="external" if args.fused_updates else "module",
-        stem_s2d=args.stem_s2d, seed=seed,
-    )
-
-    # ---- data -------------------------------------------------------------
     if args.synthetic:
         train_ds = SyntheticDataset(args.synthetic_size, args.image_size, args.num_classes,
                                     seed=seed)
@@ -362,6 +353,46 @@ def _train(args, device, replicas):
         shuffle=False, drop_last=False, seed=seed, workers=args.workers, augment=False,
         shard_id=rank, num_shards=world, bytes_transform=val_bytes_tf,
     )
+    return train_loader, val_loader
+
+
+def _train(args, device, replicas):
+    import torch
+
+    from mnasnet_tpu_torch import create_model
+    from mnasnet_tpu_torch.parallel import (
+        ReplicaMismatch,
+        broadcast_seed,
+        broadcast_state_,
+        gather_int,
+    )
+    from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
+    from mnasnet_tpu_torch.train.optim import create_optimizer, get_ema_params
+    from mnasnet_tpu_torch.train.schedules import make_schedule, scale_lr_for_batch
+    from mnasnet_tpu_torch.train.trainer import Trainer, swapped_params
+
+    world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
+    is_main = rank == 0
+
+    def say(*a, **kw):
+        """print on rank 0 only: every replica runs the same run."""
+        if is_main:
+            print(*a, **kw)
+
+    seed = args.seed if args.seed is not None else int(time.time()) % (2**31)
+    # Processes can read different seconds; the shuffle, the augmentation
+    # and the dropout masks need one seed everywhere.
+    seed = broadcast_seed(seed, replicas)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    impl = CLI_IMPLS[args.fused_kernels]
+    model = create_model(
+        args.arch, device=device, num_classes=args.num_classes, dtype=dtype, dw_impl=impl,
+        bn_bwd=impl, remat=args.remat, bn_stats=args.bn_stats,
+        bn_ema="external" if args.fused_updates else "module",
+        stem_s2d=args.stem_s2d, seed=seed,
+    )
+
+    train_loader, val_loader = build_loaders(args, seed, world, rank, say)
 
     # ---- optimizer + schedule --------------------------------------------
     steps_per_epoch = train_loader.steps_per_epoch()
@@ -406,8 +437,8 @@ def _train(args, device, replicas):
         if not args.fused_updates:
             raise SystemExit("--grad-accum requires --fused-updates "
                              "(external BN EMA: one EMA per optimizer update)")
-        if host_batch % args.grad_accum:
-            raise SystemExit(f"the per-process batch {host_batch} not divisible "
+        if train_loader.batch_size % args.grad_accum:
+            raise SystemExit(f"the per-process batch {train_loader.batch_size} not divisible "
                              f"by --grad-accum {args.grad_accum}")
     elif args.grad_accum == 0:
         # Auto. The reference accumulates only on a TPU, where it measured a
@@ -545,6 +576,13 @@ def _train(args, device, replicas):
                     f"saved (validate skipped). Continue with: --resume {args.output_dir}",
                     flush=True)
             else:
+                # Every replica must stop before the same step: the stop flag
+                # agrees by construction, and this records it.
+                steps_by_rank = gather_int(trainer.next_global_step, replicas,
+                                           "all_reduce (the preemption's step)")
+                if len(set(steps_by_rank)) != 1:
+                    raise ReplicaMismatch(f"the replicas stopped before different global "
+                                          f"steps {steps_by_rank}")
                 # Keyed by the next global step to run.
                 pdir = os.path.join(os.path.abspath(args.output_dir), "preempt")
                 pmgr = CheckpointManager(pdir, max_to_keep=1, track_best=False,
@@ -557,7 +595,8 @@ def _train(args, device, replicas):
                     # and renamed: a kill mid-write leaves no torn meta.json.
                     meta_path = os.path.join(pdir, "meta.json")
                     with open(meta_path + ".tmp", "w") as f:
-                        json.dump({"steps_per_epoch": spe, "global_batch": args.batch_size}, f)
+                        json.dump({"steps_per_epoch": spe, "global_batch": args.batch_size,
+                                   "steps_by_rank": steps_by_rank}, f)
                     os.replace(meta_path + ".tmp", meta_path)
                 say(f"=> preempted at global step {trainer.next_global_step}; checkpoint "
                     f"saved to {pdir}. Continue with: --resume {args.output_dir}",

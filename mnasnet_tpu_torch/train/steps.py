@@ -263,7 +263,7 @@ class _StepParts:
             total = None
             if self.weighted:
                 total = (y >= 0).sum().float()
-                all_reduce_sum_([total], replicas)
+                all_reduce_sum_([total], replicas, "all_reduce (label count)")
                 total = total.clamp(min=1)
             old = _flat(stats) if self.ema_decay is not None else None
             grads = loss = counts = new = None
@@ -299,7 +299,8 @@ class _StepParts:
                 shared = ((new if self.ema_decay is not None else _flat(stats))
                           if local_bn else None)
                 all_reduce_sum_([*grads, *metrics.values(),
-                                 *([shared] if local_bn else [])], replicas)
+                                 *([shared] if local_bn else [])], replicas,
+                                "all_reduce (gradients)")
                 if local_bn:
                     shared = shared / world
                     if self.ema_decay is not None:
@@ -307,7 +308,7 @@ class _StepParts:
                     else:
                         _unflat_(shared, stats)
                 if self.diagnostics:
-                    all_reduce_max_(maxl, replicas)
+                    all_reduce_max_(maxl, replicas, "all_reduce (max logit)")
             ups = self.update(grads, old, new)
             if self.diagnostics:
                 with torch.no_grad():  # no autograd record of the norms

@@ -310,7 +310,7 @@ def run_validation(eval_step, loader, *, device, compute_dtype: torch.dtype = to
     if replicas is not None:
         sums = torch.tensor([total[k] for k in ("loss", "top1", "top5", "count")],
                             dtype=torch.float64)
-        all_reduce_sum_([sums], replicas)
+        all_reduce_sum_([sums], replicas, "all_reduce (validation sums)")
         total = dict(zip(("loss", "top1", "top5", "count"), sums.tolist()))
     c = max(total["count"], 1)
     acc1 = 100.0 * total["top1"] / c

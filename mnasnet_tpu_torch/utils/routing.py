@@ -327,10 +327,13 @@ class TrainRouted:
     the same call; a replay issues the step's collectives with its kernels.
     Each graph is registered with the replicas (``Replicas.add_graph``),
     so that ``parallel.close`` resets it before it leaves the group.
+    A replay's collectives reach no watchdog, so each replay puts an event
+    behind it for the replicas' host deadline (``Replicas.watch``), which
+    ends the process if a dead peer keeps it from completing.
     ``capture_error_mode="thread_local"`` leaves other threads free to
-    call the CUDA runtime while this one captures: the loader's thread and
-    the process group's watchdog, which polls the events of collectives
-    issued eagerly (the captured ones are not handed to it).
+    call the CUDA runtime while this one captures: the loader's thread,
+    the process group's watchdog and the host deadline's thread, which
+    poll the events of collectives issued eagerly.
     """
 
     def __init__(self, steps, route: str, **compile_kwargs):
@@ -407,7 +410,7 @@ class TrainRouted:
         before = generator.get_state()
         # thread_local: a loader thread may pin and copy the next batch
         # meanwhile, on its own stream, which the capture does not hold, and
-        # the process group's watchdog polls its eager collectives' events.
+        # the watchdog and the host deadline poll eager collectives' events.
         with _collector_off(), torch.cuda.graph(graph, pool=self._pool,
                                                 capture_error_mode="thread_local"):
             out = steps.device_step(*static, generator)
@@ -422,6 +425,10 @@ class TrainRouted:
             static[0].copy_(images)
             static[1].copy_(labels)
             graph.replay()
+            if self._replicas is not None:
+                # The replayed collectives reach no watchdog; the host's
+                # deadline holds this event to the group's timeout.
+                self._replicas.watch("the replayed train step")
             self.replays[key] += 1
             return _clone(out)
 

@@ -1188,3 +1188,56 @@ def test_close_returns_while_an_exception_holds_a_captured_step(cuda, tmp_path, 
         assert f"rank {rank}: 1 replay, 1 graph registered" in out, (out, err)
         assert f"rank {rank}: closed" in out, (out, err)
         assert p.returncode == 1 and "Raised: raised past the capture" in err, err
+
+
+def test_a_replay_that_holds_collectives_is_watched_before_the_host_blocks(cuda, tmp_path):
+    """Each replay of a graph-route step over NCCL puts an event behind it
+    for the host's deadline (``Replicas.watch``), so a replay that spins on
+    a dead peer is held to the timeout whatever the host blocks in next. A
+    stand-in step that sleeps on the card and all-reduces, captured over a
+    one-rank NCCL group and replayed: right after the call the deadline's
+    newest event is the replay's and has not completed; after a
+    synchronize it has, and nothing ended the process."""
+    from types import SimpleNamespace
+
+    from mnasnet_tpu_torch.parallel import dist as pdist
+    from mnasnet_tpu_torch.utils.routing import TrainRouted
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pdist.join_group("nccl", f"file://{tmp_path / 'rendezvous'}", 1, 0)
+    replicas = pdist.Replicas(0, 1, dev)
+    exits = []
+    replicas.deadline = pdist.Deadline(0, dev, limit_s=600.0, exit=exits.append)
+
+    class Steps:
+        device = dev
+
+        def __init__(self):
+            self.replicas = replicas
+
+        def inputs(self, images, labels):
+            return images, labels
+
+        def host(self, state):
+            pass
+
+        def device_step(self, images, labels, generator):
+            torch.cuda._sleep(2_000_000_000)  # ~1 s of clock cycles
+            total = images.sum().reshape(1)
+            pdist.all_reduce_sum_([total], replicas, "all_reduce (the step)")
+            return {"loss": total}
+
+    try:
+        step = TrainRouted(Steps(), "graph")
+        state = SimpleNamespace(generator=torch.Generator(device=dev))
+        images, labels = torch.ones(4, 8, device=dev), torch.zeros(4, device=dev)
+        step(state, images, labels)  # the warm-up and the capture
+        torch.cuda.synchronize()
+        _, metrics = step(state, images, labels)  # a replay
+        at, event, what = replicas.deadline._pending[-1]
+        assert what == "the replayed train step" and not event.query()
+        torch.cuda.synchronize()
+        assert event.query() and float(metrics["loss"]) == 32.0 and exits == []
+        assert step.replays[next(iter(step.replays))] == 1
+    finally:
+        pdist.close(replicas)

@@ -63,7 +63,8 @@ def test_two_step_run_writes_the_reference_keys(tmp_path):
     rc, result = _run(tmp_path, "--bn-recalibrate")
     assert rc == (0 if result["reached_target"] else 1)
     assert RESULT_KEYS <= set(result) and set(result["recipe"]) == RECIPE_KEYS
-    assert set(result["config"]) == CONFIG_KEYS | {"device"}
+    # the port's own flags beside the reference's: --device and --seed
+    assert set(result["config"]) == CONFIG_KEYS | {"device", "seed"}
     assert result["total_steps"] == 2 and result["completed"] and result["backend"] == "cpu"
     (row,) = result["curve"]
     assert ROW_KEYS | {"val_top1_recal", "val_loss_recal"} <= set(row)
