@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only serve   # the serving deployment phase only
     python3 chip_smoke.py --only knobs   # the model knobs phase only
     python3 chip_smoke.py --only deadrank  # the dead-rank phase only
+    python3 chip_smoke.py --only tools   # the measurement tools phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -91,8 +92,8 @@ Phases, in order; any failure raises and exits non-zero:
      planner still admits); the knobs' tests of ``tests/test_torch_gpu.py``
      in a child pytest. With timing (``tools/train_variants.py``): ms
      per step, images/s, peak memory and launches per step of the variants
-     on the graph route (and eager for the dw routes): ``pw_lowering`` dot
-     and conv in six alternating fresh builds (the faster one, or "within
+     on the graph route: ``pw_lowering`` dot
+     and conv in four alternating fresh builds (the faster one, or "within
      noise" where the means differ by no more than one lowering's spread),
      ``remat`` off and on at bs128 and bs512, the padded models, the dw
      routes; the serving forward per ``pw_lowering`` at bs1 and bs128 on
@@ -183,6 +184,17 @@ Phases, in order; any failure raises and exits non-zero:
      (``parallel/dist.py:Deadline``: exit 1 once the event behind a replay
      or an eager collective is ``DIST_TIMEOUT_S`` old). Each child has a
      hard time limit.
+ 12. tools: each measurement tool of ``mnasnet_tpu_torch/tools`` once, in
+     this process, at a reduced size (``TOOL_RUNS``): ``memory_probe`` at B
+     256 with K 1 and 2 (17K dw, 35K + 35K BN and 0 MBConv launches per
+     counted step; K 2 saving at most 0.55 of K 1's activations),
+     ``bench_latency`` and ``export_latency`` at bs 1 and 128 on the graph
+     route (1 dw and 16 MBConv launches per serving forward on the kernel
+     route, none on the torch route; the artifact's eager logits bit for
+     bit the live forward's), ``e2e_infer`` on 512 JPEGs with one loader
+     worker and PIL, and ``sweep_grid`` at 0.35@96 and 1.4@224, serving
+     only (16 fused blocks and 1 dw launch a forward, no shape refused);
+     each record's keys, and the card's name and power limit in it.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
@@ -242,6 +254,7 @@ Tolerances (normalised by the largest magnitude of the reference):
     and the gradients' sums taken in another order, a rounding that the
     batch-statistic BN backward amplifies at random init as it amplifies
     that one-ulp change (measured: 8.4e-3 against an own move of 9.5e-3);
+  * tools: launches, keys and the artifact's logits exactly;
   * deadrank: the survivor's exit non-zero within 60 s over gloo (a dead
     peer's socket closes, so its next collective raises at once) and
     within ``DIST_TIMEOUT_S`` + 60 s over NCCL (the host deadline's
@@ -305,7 +318,14 @@ from mnasnet_tpu_torch.ops.cuda.mbconv import launch as mb_launch
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.parallel import all_reduce_max_, close, dist_timeout, init_distributed
 from mnasnet_tpu_torch.serving import load_serving
-from mnasnet_tpu_torch.tools import deadrank_probe
+from mnasnet_tpu_torch.tools import (
+    bench_latency,
+    deadrank_probe,
+    e2e_infer,
+    export_latency,
+    memory_probe,
+    sweep_grid,
+)
 from mnasnet_tpu_torch.tools.tune_plans import (
     BATCH,
     IMAGE,
@@ -338,6 +358,7 @@ from mnasnet_tpu_torch.tools.train_variants import (
 )
 from mnasnet_tpu_torch.tools.train_variants import train_batch as variant_batch
 from mnasnet_tpu_torch.train.trainer import Trainer
+from mnasnet_tpu_torch.utils.card import card_line
 from mnasnet_tpu_torch.utils.routing import (
     GRAPH_WARMUP,
     ROUTES,
@@ -366,7 +387,7 @@ KNOB_STEPS = 3
 REMAT_BIG_BATCH = 512
 KNOB_TARGET_MS = 1000.0
 # conv and dot in alternating runs, each a fresh build.
-PW_ORDER = ("dot", "conv", "conv", "dot", "dot", "conv")
+PW_ORDER = ("dot", "conv", "conv", "dot")
 # The port's kernels by a part of their CUDA function names, for profiles.
 KERNEL_NAMES = {"dw_conv_bn_act": "dw_conv_kernel", "mbconv_block": "mbconv_",
                 "bn_bwd_reduce": "bn_reduce_", "bn_bwd_dx": "bn_dx_kernel"}
@@ -410,13 +431,6 @@ DEADRANK_GLOO_BOUND_S = 60
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
 
 
 def bound(nbytes: int, flops: int, dtype_name: str) -> tuple[float, str]:
@@ -1473,8 +1487,7 @@ def knob_timing(images, labels, card) -> dict:
     for pad in (64, 128):
         train(f"best-cpad{pad}", TRAIN_ROUTE, channel_pad=pad)
     for name, impl in (("best-taps", "taps"), ("best-taps2", "taps2"), ("best-hyb2", "hybrid")):
-        for route in ("eager", TRAIN_ROUTE):
-            train(name, route, dw_impl=impl)
+        train(name, TRAIN_ROUTE, dw_impl=impl)
     train("best", "eager")
     serving = []
     for dw_impl in ("auto", "torch"):
@@ -2371,6 +2384,104 @@ def trainer_phase(timing: bool, card: str, fixed_batch: dict | None) -> dict:
     return out
 
 
+# The tools phase: each tool's reduced drive (tool, record name, argv) and
+# the keys its record must hold beside utils/card.py:card_info's.
+TOOL_RUNS = (
+    (memory_probe, "memory_probe", ["--batch-sizes", "256", "--accums", "1,2", "--repeats", "2",
+                                    "--target-ms", "100"]),
+    (bench_latency, "bench_latency", ["--batches", "1,128", "--routes", "graph", "--repeats",
+                                      "2", "--target-ms", "50"]),
+    (export_latency, "export_latency", ["--batches", "1,128", "--routes", "graph",
+                                        "--repeats", "2", "--target-ms", "50"]),
+    (e2e_infer, "e2e_infer", ["--n-images", "512", "--workers", "1", "--decoders", "pil",
+                              "--repeats", "1"]),
+    (sweep_grid, "sweep_grid_0_35", ["--alphas", "0.35", "--sizes", "96", "--repeats", "2",
+                                     "--target-ms", "50"]),
+    (sweep_grid, "sweep_grid_1_4", ["--alphas", "1.4", "--sizes", "224", "--repeats", "2",
+                                    "--target-ms", "50"]),
+)
+TOOL_KEYS = {
+    "memory_probe": {"arch", "image_size", "route", "argument_bytes", "rows", "auto_rule"},
+    "bench_latency": {"arch", "image_size", "table", "kernel_wins_at_batches",
+                      "route_table_disagrees_at"},
+    "export_latency": {"arch", "image_size", "artifact", "rows", "by_batch",
+                       "route_table_disagrees_at"},
+    "e2e_infer": {"config", "native_decoder_available", "device_only_ips", "table", "best",
+                  "native_fast_vs_pil_e2e", "conclusion"},
+    "sweep_grid": {"batch_size", "route", "rows", "kernel_slower_than_torch_at"},
+}
+SERVING_LAUNCHES = {"dw_conv_bn_act": 1, "mbconv_block": 16}
+NO_SERVING_LAUNCHES = {"dw_conv_bn_act": 0, "mbconv_block": 0}
+
+
+def tools_phase(card: str) -> dict:
+    """Each measurement tool's ``main(argv)`` at a reduced size, its record
+    checked: the keys, the card, and the launches its rows count."""
+    work = Path(tempfile.mkdtemp(prefix="tools_", dir=REPO / "build"))
+    out: dict = {}
+    try:
+        for tool, name, argv in TOOL_RUNS:
+            t0 = time.perf_counter()
+            path = work / f"{name}.json"
+            if tool.main(["--out", str(path), *argv]) != 0:
+                raise RuntimeError(f"{name} exited non-zero")
+            rec = json.loads(path.read_text())
+            kind = rec["tool"]
+            missing = (TOOL_KEYS[kind] | {"card", "power_limit", "nvidia_smi", "torch",
+                                          "cuda"}) - set(rec)
+            if missing or rec["card"] != torch.cuda.get_device_name(0) \
+                    or rec["nvidia_smi"] != card:
+                raise RuntimeError(f"{name}: record without {sorted(missing)} or another "
+                                   f"card: {rec.get('card')}, {rec.get('nvidia_smi')}")
+            out[name] = {"s": time.perf_counter() - t0, **check_tool_record(kind, rec)}
+            log(f"[tools] {name}: {json.dumps(out[name])}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def check_tool_record(kind: str, rec: dict) -> dict:
+    """What the phase holds each tool's record to; returns what it read."""
+    if kind == "memory_probe":
+        rows = {r["grad_accum"]: r for r in rec["rows"]}
+        for k, row in rows.items():
+            want = {"dw_conv_bn_act": 17 * k, "mbconv_block": 0, "bn_bwd_reduce": 35 * k,
+                    "bn_bwd_dx": 35 * k}
+            if row["oom"] or row["launches_per_step"] != want or not row["peak_allocated_gb"]:
+                raise RuntimeError(f"memory_probe K={k}: {row}")
+        if rows[2]["saved_activation_bytes"] > 0.55 * rows[1]["saved_activation_bytes"]:
+            raise RuntimeError(f"memory_probe: K=2 saves {rows[2]['saved_activation_bytes']} "
+                               f"bytes against K=1's {rows[1]['saved_activation_bytes']}")
+        return {k: {key: rows[k][key] for key in ("ms_per_step", "peak_allocated_gb",
+                                                   "saved_activation_mib")} for k in rows}
+    if kind == "bench_latency":
+        for row in rec["table"]:
+            if row["launches_per_forward"] != {"kernel": SERVING_LAUNCHES,
+                                               "torch": NO_SERVING_LAUNCHES} \
+                    or not row["kernel_graph_ms"] or not row["torch_graph_ms"]:
+                raise RuntimeError(f"bench_latency bs{row['batch']}: {row}")
+        return {r["batch"]: [r["kernel_graph_ms"], r["torch_graph_ms"]] for r in rec["table"]}
+    if kind == "export_latency":
+        for summary in rec["by_batch"]:
+            if not summary["eager_bitwise"] \
+                    or summary["artifact_launches_per_call"] != SERVING_LAUNCHES:
+                raise RuntimeError(f"export_latency: {summary}")
+        if not all(r["live_ms"] and r["artifact_ms"] for r in rec["rows"]):
+            raise RuntimeError(f"export_latency: untimed rows {rec['rows']}")
+        return {r["batch"]: r["artifact_vs_live_pct"] for r in rec["rows"]}
+    if kind == "e2e_infer":
+        (row,) = rec["table"]
+        if not rec["device_only_ips"] or not row["e2e_ips"] or row["decoder"] != "pil":
+            raise RuntimeError(f"e2e_infer: {rec}")
+        return {"device_only_ips": rec["device_only_ips"], "e2e_ips": row["e2e_ips"]}
+    (row,) = rec["rows"]
+    if row["refused"] or row["fused_mbconv_blocks"] != 16 or row["dw_launches"] != 1 \
+            or row["launches_per_forward"]["torch"] != NO_SERVING_LAUNCHES \
+            or not row["infer_kernel_ips"] or not row["infer_torch_ips"]:
+        raise RuntimeError(f"sweep_grid: {row}")
+    return {"kernel_ips": row["infer_kernel_ips"], "torch_ips": row["infer_torch_ips"]}
+
+
 def _bn_entry(name, rows, serving_free_launches, replaces):
     bf = [r for r in rows if r["dtype"] == "bfloat16"]
     kind = "reduce" if name == "bn_bwd_reduce" else "dx"
@@ -2459,13 +2570,14 @@ def main() -> int:
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
     ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve",
-                                       "knobs", "deadrank"),
+                                       "knobs", "deadrank", "tools"),
                     default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
                          "phase only; 'dist' the data-parallel phase only; 'serve' the "
                          "serving deployment phase only; 'knobs' the model knobs phase only; "
-                         "'deadrank' the dead-rank phase only")
+                         "'deadrank' the dead-rank phase only; 'tools' the measurement "
+                         "tools phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--dist-fixed"]:
@@ -2485,6 +2597,8 @@ def main() -> int:
     # from the first cuBLAS call of this process on.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = card_line()
+    if card is None:
+        raise RuntimeError("nvidia-smi is missing: the card's name and power limit are unread")
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
@@ -2527,6 +2641,10 @@ def main() -> int:
         log(json.dumps({"deadrank": phase("deadrank", deadrank_phase, card)}))
         log(card)
         return 0
+    if args.only == "tools":
+        log(json.dumps({"tools": phase("tools", tools_phase, card)}))
+        log(card)
+        return 0
     if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
         serve = phase("serve", serve_phase, timing, card)
@@ -2540,6 +2658,7 @@ def main() -> int:
         trainer = phase("trainer", trainer_phase, timing, card, train)
         dist = phase("dist", dist_phase, timing, card, trainer, args.profile)
         deadrank = phase("deadrank", deadrank_phase, card)
+        tools = phase("tools", tools_phase, card)
         log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train,
                                     trainer, dist, knobs, deadrank)))
         log(json.dumps({"serving": serving}))
@@ -2547,6 +2666,7 @@ def main() -> int:
         log(json.dumps({"trainer": trainer}))
         log(json.dumps({"dist": dist}))
         log(json.dumps({"deadrank": deadrank}))
+        log(json.dumps({"tools": tools}))
         log(json.dumps({"knobs": knobs}, default=str))
     log(json.dumps({"train": train, "dw_train": dw_train}))
     log(card)

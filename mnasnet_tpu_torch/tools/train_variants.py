@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 from pathlib import Path
 
@@ -86,19 +87,22 @@ def train_batch(batch: int, device, image: int = IMAGE, seed: int = 5):
 
 
 def time_train(knobs: dict, route: str, images, labels, target_ms: float = 2000.0,
-               seed: int = 0) -> dict:
-    """One variant (mnasnet1_0, bf16, ``knobs`` for the model and "fused"
+               seed: int = 0, grad_accum: int = 1, arch: str = ARCH,
+               repeats: int = 1) -> dict:
+    """One variant (``arch``, bf16, ``knobs`` for the model and "fused"
     for RMSProp) on one train route: ms per step, images/s, peak memory and
     launches per counted step (the first two calls: a graph's warm-up and
-    capture, or two eager or compiled steps)."""
+    capture, or two eager or compiled steps). ``grad_accum`` microbatches a
+    step; ``repeats`` windows of about ``target_ms`` each, whose median is
+    ``ms_per_step`` (each in ``ms_repeats``)."""
     device = images.device
     base = memory_base(device)
     knobs = dict(knobs)
     fused = knobs.pop("fused", False)
-    model = create_model(ARCH, device=device, dtype=torch.bfloat16, seed=seed, **knobs)
+    model = create_model(arch, device=device, dtype=torch.bfloat16, seed=seed, **knobs)
     tx = create_optimizer("rmsprop", LR, fused=fused)
     state = TrainState.create(model, tx, seed=seed)
-    step = make_train_step(model, tx, label_smoothing=0.1, route=route)
+    step = make_train_step(model, tx, label_smoothing=0.1, route=route, grad_accum=grad_accum)
     before = counts()
     for _ in range(2):
         state, _ = step(state, images, labels)
@@ -112,7 +116,8 @@ def time_train(knobs: dict, route: str, images, labels, target_ms: float = 2000.
     def one():
         step(state, images, labels)
 
-    row["ms_per_step"] = time_ms(one, target_ms=target_ms)
+    row["ms_repeats"] = [time_ms(one, target_ms=target_ms) for _ in range(repeats)]
+    row["ms_per_step"] = statistics.median(row["ms_repeats"])
     row["images_per_s"] = images.shape[0] / row["ms_per_step"] * 1e3
     del model, tx, state, step
     return row

@@ -369,6 +369,7 @@ def _train(args, device, replicas):
     from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
     from mnasnet_tpu_torch.train.optim import create_optimizer, get_ema_params
     from mnasnet_tpu_torch.train.schedules import make_schedule, scale_lr_for_batch
+    from mnasnet_tpu_torch.train.steps import resolve_auto_grad_accum
     from mnasnet_tpu_torch.train.trainer import Trainer, swapped_params
 
     world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
@@ -441,10 +442,14 @@ def _train(args, device, replicas):
             raise SystemExit(f"the per-process batch {train_loader.batch_size} not divisible "
                              f"by --grad-accum {args.grad_accum}")
     elif args.grad_accum == 0:
-        # Auto. The reference accumulates only on a TPU, where it measured a
-        # microbatch cliff (MICROBATCH_LIMIT); off a TPU auto is the direct
-        # step, and the H100's threshold has not been measured.
-        args.grad_accum = 1
+        # Auto. The reference accumulates on its TPU, where it measured a
+        # microbatch cliff at 128 (MICROBATCH_LIMIT); on an H100 the direct
+        # step beat 128-image microbatches at B 256 and 512 (train/steps.py:
+        # CUDA_MICROBATCH_LIMIT, H100_MEMORY_PROBE_pr12.json), so CUDA
+        # resolves to 1 unless that limit is set.
+        args.grad_accum = resolve_auto_grad_accum(
+            args.batch_size, world, device.type, sync_bn=args.sync_bn,
+            fused_updates=args.fused_updates)
     elif args.grad_accum < 0:
         raise SystemExit(f"--grad-accum {args.grad_accum} invalid (0 = auto, >=1 explicit)")
 

@@ -34,9 +34,19 @@ from mnasnet_tpu_torch.utils.routing import TrainRouted, default_train_route
 
 # The reference's microbatch limit: on its TPU the bs128->bs256 train step
 # lost ~14% to a conv-tiling cliff, so ``auto_grad_accum`` keeps per-chip
-# microbatches at or below 128. That is a TPU measurement; the threshold on
-# an H100 has not been measured (PERF.md), and this value is kept until it is.
+# microbatches at or below 128 (``mnasnet_tpu/train/steps.py:22-29``).
 MICROBATCH_LIMIT = 128
+
+# The microbatch limit of ``--grad-accum 0`` on CUDA, or None for the direct
+# step. ``python -m mnasnet_tpu_torch.tools.memory_probe`` times the
+# production step of mnasnet1_0@224 at B 256 and 512, direct against
+# microbatches of MICROBATCH_LIMIT, twice in turns. On an H100 80GB HBM3 at
+# 700 W the direct step won both by more than the runs' spread: 61.17 /
+# 60.05 against 69.76 / 69.75 ms at 256 (2x128), 110.32 / 110.33 against
+# 135.83 / 135.87 ms at 512 (4x128), for 6.96 against 3.63 GB and 13.61
+# against 3.80 GB of peak memory (H100_MEMORY_PROBE_pr12.json, PERF.md). So
+# the H100 has no cliff at 128, and auto is the direct step.
+CUDA_MICROBATCH_LIMIT: int | None = None
 
 
 def auto_grad_accum(per_chip_batch: int, limit: int = MICROBATCH_LIMIT) -> int:
@@ -50,6 +60,21 @@ def auto_grad_accum(per_chip_batch: int, limit: int = MICROBATCH_LIMIT) -> int:
     for k in range(k0, 2 * k0 + 1):
         if per_chip_batch % k == 0:
             return k
+    return 1
+
+
+def resolve_auto_grad_accum(batch_size: int, batch_shards: int, backend: str, *,
+                            sync_bn: bool, fused_updates: bool,
+                            limit: int | None = CUDA_MICROBATCH_LIMIT) -> int:
+    """``--grad-accum 0`` (auto), as the reference's ``train.py:262-280``
+    resolves it on its TPU: :func:`auto_grad_accum` of the per-process batch
+    at ``limit``, on CUDA only, and only with sync-BN and fused updates (the
+    prerequisites of accumulation) and a global batch that divides over the
+    ``batch_shards`` processes; else the direct step, 1. ``limit`` None (the
+    measured H100 rule, :data:`CUDA_MICROBATCH_LIMIT`) is always 1."""
+    if (backend == "cuda" and limit is not None and sync_bn and fused_updates
+            and batch_size % batch_shards == 0):
+        return auto_grad_accum(batch_size // batch_shards, limit)
     return 1
 
 

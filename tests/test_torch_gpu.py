@@ -1241,3 +1241,92 @@ def test_a_replay_that_holds_collectives_is_watched_before_the_host_blocks(cuda,
         assert step.replays[next(iter(step.replays))] == 1
     finally:
         pdist.close(replicas)
+
+
+# ---- the measurement tools (mnasnet_tpu_torch/tools), each at a small size --------
+
+SERVING_LAUNCHES = {"dw_conv_bn_act": 1, "mbconv_block": 16}
+
+
+def _tool(module, tmp_path, *argv) -> dict:
+    import json
+
+    out = tmp_path / "out.json"
+    assert module.main(["--out", str(out), *argv]) == 0
+    data = json.loads(out.read_text())
+    assert data["device"].startswith("cuda") and data["card"] == torch.cuda.get_device_name(0)
+    assert data["nvidia_smi"] and data["power_limit"] and data["cuda"] == torch.version.cuda
+    return data
+
+
+def test_tool_memory_probe(cuda, tmp_path):
+    from mnasnet_tpu_torch.tools import memory_probe
+
+    data = _tool(memory_probe, tmp_path, "--arch", "mnasnet0_35", "--image-size", "96",
+                 "--batch-sizes", "128", "--accums", "1,2", "--repeats", "2",
+                 "--target-ms", "50")
+    rows = {r["grad_accum"]: r for r in data["rows"]}
+    assert sorted(rows) == [1, 2] and data["route"] == "graph"
+    for k, row in rows.items():
+        assert row["oom"] is False and len(row["ms_runs"]) == 2 and row["ms_per_step"] > 0
+        assert row["peak_allocated_gb"] > 0 and row["peak_reserved_gb"] >= 0
+        assert row["launches_per_step"] == {"dw_conv_bn_act": 17 * k, "mbconv_block": 0,
+                                            "bn_bwd_reduce": 35 * k, "bn_bwd_dx": 35 * k}
+    assert rows[2]["saved_activation_bytes"] <= 0.55 * rows[1]["saved_activation_bytes"]
+    assert rows[2]["peak_allocated_gb"] < rows[1]["peak_allocated_gb"]
+
+
+def test_tool_bench_latency(cuda, tmp_path):
+    from mnasnet_tpu_torch.tools import bench_latency
+
+    data = _tool(bench_latency, tmp_path, "--arch", "mnasnet0_35", "--image-size", "96",
+                 "--batches", "1,8", "--repeats", "2", "--target-ms", "20")
+    for row in data["table"]:
+        assert row["launches_per_forward"] == {
+            "kernel": SERVING_LAUNCHES, "torch": {"dw_conv_bn_act": 0, "mbconv_block": 0}}
+        for impl in ("kernel", "torch"):
+            for route in ("eager", "graph"):
+                assert row[f"{impl}_{route}_ms"] > 0
+        assert row["kernel_route"] in ("eager", "graph") and row["kernel_speedup"] > 0
+
+
+def test_tool_export_latency(cuda, tmp_path):
+    from mnasnet_tpu_torch.tools import export_latency
+
+    data = _tool(export_latency, tmp_path, "--arch", "mnasnet0_35", "--image-size", "96",
+                 "--batches", "1,8", "--routes", "eager,graph", "--repeats", "2",
+                 "--target-ms", "20")
+    for summary in data["by_batch"]:
+        assert summary["eager_bitwise"]
+        assert summary["artifact_launches_per_call"] == SERVING_LAUNCHES
+        assert summary["fastest_route"] in ("eager", "graph")
+    assert {(r["batch"], r["route"]) for r in data["rows"]} == \
+        {(1, "eager"), (1, "graph"), (8, "eager"), (8, "graph")}
+    for row in data["rows"]:
+        assert row["live_ms"] > 0 and row["artifact_ms"] > 0
+        assert row["artifact_vs_live_pct"] is not None
+
+
+def test_tool_e2e_infer(cuda, tmp_path):
+    from mnasnet_tpu_torch.tools import e2e_infer
+
+    data = _tool(e2e_infer, tmp_path, "--arch", "mnasnet0_35", "--image-size", "96",
+                 "--batch-size", "16", "--n-images", "64", "--workers", "1",
+                 "--decoders", "pil", "--repeats", "1")
+    assert data["device_only_ips"] > 0
+    (row,) = data["table"]
+    assert row["e2e_ips"] > 0 and row["loader_only_ips"] > 0 and row["fallback_count"] == 0
+    assert data["best"] == row
+
+
+def test_tool_sweep_grid(cuda, tmp_path):
+    from mnasnet_tpu_torch.tools import sweep_grid
+
+    data = _tool(sweep_grid, tmp_path, "--alphas", "0.35", "--sizes", "96",
+                 "--batch-size", "8", "--train", "--repeats", "2", "--target-ms", "20")
+    (row,) = data["rows"]
+    assert row["refused"] == [] and row["fused_mbconv_blocks"] == 16
+    assert row["dw_launches"] == 1
+    for impl in ("kernel", "torch"):
+        assert row[f"infer_{impl}_ips"] > 0 and row[f"train_{impl}_ips"] > 0
+        assert row[f"train_{impl}_peak_allocated_gb"] > 0
