@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only knobs   # the model knobs phase only
     python3 chip_smoke.py --only deadrank  # the dead-rank phase only
     python3 chip_smoke.py --only tools   # the measurement tools phase only
+    python3 chip_smoke.py --only smoke   # the train smoke's long-run path only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -119,6 +120,28 @@ Phases, in order; any failure raises and exits non-zero:
      uninterrupted run's; (c) images/s of 9 steps of ``Trainer.train_epoch``
      on synthetic data with the data path included, the loaders' batches/s
      with no model, the CPU count and the workers;
+  9b. smoke: the train smoke's long-run path (``tools/train_smoke.py``
+     with ``--state-file``, ``--chunk-epochs``, ``--train-rescore-size``;
+     ``tools/bn_forensics.py``) at a small depth: mnasnet0_35@96, bs128,
+     512 train and 256 val gratings, 2 epochs, BN EMA 0.9997, model EMA
+     0.9999, ``--bn-recalibrate``, ``--train-rescore-size 256``,
+     ``--deterministic`` (the trainer phase's bitwise-resume settings),
+     each run a fresh process of this script (``--smoke-worker OUT ARGV``,
+     TF32 off as here, the counts set to 0 just before ``main`` and read
+     just after): straight, and chunked by ``--chunk-epochs 1`` (exit 3,
+     then a second process that resumes from the state file, its code the
+     straight run's), the straight run and the first chunk side by side.
+     The straight run must take the default train route with exactly 17
+     dw, 35 + 35 BN and 0 MBConv launches per counted step, and its
+     validations must launch MBConv; the chunked state file must equal the
+     straight one tensor for tensor (model, optimizer, train state, curve)
+     and the curves must agree but for ``wall_seconds``.
+     ``bn_forensics`` with 4 batches on the straight state, in this
+     process while the second chunk runs: as
+     many sites as the model has BatchNorms, pooled var = within +
+     Var_b[mean_b] per channel to fp32 rounding, all four controls. A
+     full run starts the straight run and the first chunk before the
+     deadrank phase, beside it, and the rest after it;
  10. dist: data-parallel training on the same production configuration.
      (a) NCCL at world size 1: ``python -m torch.distributed.run --standalone
      --nproc_per_node 1 chip_smoke.py --dist-fixed OUT``, then ``...
@@ -255,6 +278,9 @@ Tolerances (normalised by the largest magnitude of the reference):
     batch-statistic BN backward amplifies at random init as it amplifies
     that one-ulp change (measured: 8.4e-3 against an own move of 9.5e-3);
   * tools: launches, keys and the artifact's logits exactly;
+  * smoke: launches and the chunked state bit for bit; the forensics'
+    pooled variance equal to within + between within 2^-22 relative (the
+    same fp32 sums, added once more);
   * deadrank: the survivor's exit non-zero within 60 s over gloo (a dead
     peer's socket closes, so its next collective raises at once) and
     within ``DIST_TIMEOUT_S`` + 60 s over NCCL (the host deadline's
@@ -320,11 +346,14 @@ from mnasnet_tpu_torch.parallel import all_reduce_max_, close, dist_timeout, ini
 from mnasnet_tpu_torch.serving import load_serving
 from mnasnet_tpu_torch.tools import (
     bench_latency,
+    bn_forensics,
     deadrank_probe,
     e2e_infer,
     export_latency,
     memory_probe,
+    multihost,
     sweep_grid,
+    train_smoke,
 )
 from mnasnet_tpu_torch.tools.tune_plans import (
     BATCH,
@@ -385,7 +414,7 @@ LAUNCHES_PER_STEP = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 35, "bn_bwd_dx": 35,
 LAUNCHES_PER_REMAT_STEP = dict(LAUNCHES_PER_STEP, dw_conv_bn_act=17 + 16)
 KNOB_STEPS = 3
 REMAT_BIG_BATCH = 512
-KNOB_TARGET_MS = 1000.0
+KNOB_TARGET_MS = 500.0
 # conv and dot in alternating runs, each a fresh build.
 PW_ORDER = ("dot", "conv", "conv", "dot")
 # The port's kernels by a part of their CUDA function names, for profiles.
@@ -427,6 +456,15 @@ DEADRANK_EPOCHS = 3
 DEADRANK_KILL_STEP = 3
 DEADRANK_START_S = 300
 DEADRANK_GLOO_BOUND_S = 60
+# The smoke phase: the train smoke's long-run path at a small depth, and the
+# bound on each of its processes.
+SMOKE_ARGV = ["--arch", "mnasnet0_35", "--image-size", "96", "--batch-size", "128",
+              "--train-size", "512", "--val-size", "256", "--epochs", "2",
+              "--bn-momentum", "0.9997", "--model-ema", "0.9999", "--bn-recalibrate",
+              "--train-rescore-size", "256", "--deterministic", "--workers", "4"]
+SMOKE_FORENSICS_BATCHES = 4
+SMOKE_WORKER_S = 300
+SMOKE_WORK = REPO / "build" / "chip_smoke_smoke"
 
 
 def log(msg: str) -> None:
@@ -2384,6 +2422,164 @@ def trainer_phase(timing: bool, card: str, fixed_batch: dict | None) -> dict:
     return out
 
 
+def smoke_worker(out: Path, argv: list) -> int:
+    """One process of the train smoke (``chip_smoke.py --smoke-worker OUT
+    ARGV``) with this script's backend flags; its exit code, launches and
+    recorded calls go to ``OUT``."""
+    faulthandler.dump_traceback_later(SMOKE_WORKER_S, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    calls: list = []
+    for fn in COUNTERS.values():  # the main path: counts set to 0 just before
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with recorded_calls(calls):
+        rc = train_smoke.main(argv)
+    torch.cuda.synchronize()
+    out.write_text(json.dumps({"rc": rc, "launches": counts(), "calls": calls,
+                               "main_s": time.perf_counter() - t0}))
+    faulthandler.cancel_dump_traceback_later()
+    return rc
+
+
+def _smoke_run(work: Path, tag: str, extra: list) -> subprocess.Popen:
+    with open(work / f"{tag}.log", "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--smoke-worker",
+             str(work / f"{tag}.rec"), *SMOKE_ARGV, "--json", str(work / f"{tag}.json"), *extra],
+            cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT)
+    proc.started = time.perf_counter()
+    return proc
+
+
+def _smoke_wait(work: Path, tag: str, proc: subprocess.Popen) -> dict:
+    try:
+        rc = proc.wait(timeout=SMOKE_WORKER_S + 30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rec = work / f"{tag}.rec"
+    if not rec.exists():
+        raise RuntimeError(f"smoke {tag}: exited {rc} with no record:\n"
+                           f"{(work / f'{tag}.log').read_text()[-3000:]}")
+    out = json.loads(rec.read_text())
+    out["process_s"] = time.perf_counter() - proc.started
+    if out["rc"] != rc:
+        raise RuntimeError(f"smoke {tag}: the process exited {rc}, main returned {out['rc']}")
+    rec.unlink()  # a rerun of this tag writes its own
+    return out
+
+
+def smoke_start() -> dict:
+    """The smoke phase's first two processes, the straight run and the first
+    chunk, started side by side in the background. A full run starts them
+    before the deadrank phase, which reads no clock but its survivors'
+    bounds, and :func:`smoke_phase` waits for them after it."""
+    shutil.rmtree(SMOKE_WORK, ignore_errors=True)
+    SMOKE_WORK.mkdir(parents=True)
+    return {"t0": time.perf_counter(), "procs": {
+        "straight": _smoke_run(SMOKE_WORK, "straight",
+                               ["--state-file", str(SMOKE_WORK / "straight.pt")]),
+        "chunk1": _smoke_run(SMOKE_WORK, "chunk1", ["--state-file",
+                                                     str(SMOKE_WORK / "chunked.pt"),
+                                                     "--chunk-epochs", "1"])}}
+
+
+def smoke_stop(started: dict) -> None:
+    """Kill the smoke processes still running."""
+    for p in started["procs"].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def smoke_phase(card: str, started: dict | None = None) -> dict:
+    """The train smoke straight and chunked, then bn_forensics on its state
+    (see the module's docstring, 9b); ``started``: :func:`smoke_start`'s
+    processes, else they are started here."""
+    started = started or smoke_start()
+    work, t0 = SMOKE_WORK, started["t0"]
+    try:
+        straight, chunked = work / "straight.pt", work / "chunked.pt"
+        recs = {tag: _smoke_wait(work, tag, p) for tag, p in started["procs"].items()}
+        second = _smoke_run(work, "chunk2", ["--state-file", str(chunked), "--chunk-epochs", "1"])
+        # The forensics of the straight state while the second chunk runs.
+        t1 = time.perf_counter()
+        record, (ema, pooled, within, between) = bn_forensics.forensics(
+            str(straight), SMOKE_FORENSICS_BATCHES, torch.device("cuda"), workers=4)
+        forensics_s = time.perf_counter() - t1
+        recs["chunk2"] = _smoke_wait(work, "chunk2", second)
+        runs_s = time.perf_counter() - t0
+        rcs = {tag: r["rc"] for tag, r in recs.items()}
+        seconds = {tag: {"process": r["process_s"], "main": r["main_s"],
+                         **{kind: sum(c["s"] for c in r["calls"] if c["kind"] == kind)
+                            for kind in ("train_epoch", "validate", "recalibrate_bn")}}
+                   for tag, r in recs.items()}
+        log(f"[smoke] seconds by run: {json.dumps(seconds)}")
+        if rcs["chunk1"] != 3 or rcs["chunk2"] != rcs["straight"] or rcs["straight"] not in (0, 1):
+            raise RuntimeError(f"smoke: exit codes {rcs}; expected 3, then the straight run's")
+
+        rec = recs["straight"]
+        train = [c for c in rec["calls"] if c["kind"] == "train_epoch"]
+        counted = sum(c["counted_steps"] for c in train)
+        step_launches = {k: sum(c["launches"][k] for c in train) for k in rec["launches"]}
+        val_mbconv = sum(c["launches"]["mbconv_block"] for c in rec["calls"]
+                         if c["kind"] == "validate")
+        launches = rec["launches"]
+        if sorted({c["route"] for c in train}) != [TRAIN_ROUTE] \
+                or step_launches != _scaled(LAUNCHES_PER_STEP, counted) or not val_mbconv \
+                or not all(launches.values()):
+            raise RuntimeError(f"smoke: the straight run's routes {[c['route'] for c in train]}, "
+                               f"{step_launches} over {counted} counted steps, launches "
+                               f"{launches}; expected the {TRAIN_ROUTE} route, "
+                               f"{LAUNCHES_PER_STEP} a step and every kernel launched")
+
+        a, b = (train_smoke.load_state(str(p)) for p in (chunked, straight))
+        parts = ("model", "optimizer", "train_state", "curve", "next_epoch", "config_key")
+        state_diff = multihost.bitwise_diff({k: a[k] for k in parts}, {k: b[k] for k in parts})
+        ja, jb = (json.loads((work / f"{t}.json").read_text()) for t in ("chunk2", "straight"))
+        bookkeeping = ("state_file", "chunk_epochs")
+        for j in (ja, jb):
+            j.pop("wall_seconds")
+            j["config"] = {k: v for k, v in j["config"].items() if k not in bookkeeping}
+        if state_diff or ja != jb:
+            raise RuntimeError(f"smoke: the chunked run differs from the straight one: state "
+                               f"{state_diff[:10]}, curves equal: {ja == jb}")
+
+        bns = sum(isinstance(m, BatchNorm) for m in create_model(
+            "mnasnet0_35", device="cpu", num_classes=10).modules())
+        worst = 0.0
+        for name, var in pooled.items():
+            if name.endswith("running_var"):
+                total = within[name] + between[name[:-len("var")] + "mean"]
+                worst = max(worst, float(((var - total).abs() / total.abs().clamp_min(
+                    torch.finfo(torch.float32).tiny)).max()))
+        if record["summary"]["sites"] != bns or worst > 2.0 ** -22 \
+                or set(record["controls_val_top1"]) != {
+                    "ema_mean_ema_var", "pooled_mean_pooled_var", "pooled_mean_ema_var",
+                    "ema_mean_pooled_var"} or record["nvidia_smi"] != card:
+            raise RuntimeError(f"smoke: forensics {record['summary']}, {bns} BatchNorms, "
+                               f"pooled - (within + between) up to {worst:.3g} relative, "
+                               f"controls {sorted(record['controls_val_top1'])}")
+        curve = jb["curve"]
+        return {"s": time.perf_counter() - t0, "runs_s": runs_s, "forensics_s": forensics_s,
+                "seconds_by_run": seconds,
+                "exit_codes": rcs, "launches": launches, "train_launches": step_launches,
+                "counted_steps": counted, "routes": sorted({c["route"] for c in train}),
+                "chunked_equals_straight": True,
+                "final_row": {k: curve[-1].get(k) for k in (
+                    "step", "val_top1", "val_top1_raw", "val_top1_recal", "train_top1",
+                    "train_top1_evalmode", "bn_init_retention")},
+                "forensics": {"summary": record["summary"],
+                              "pooled_minus_parts_max_rel": worst,
+                              "controls_val_top1": record["controls_val_top1"]}}
+    finally:
+        smoke_stop(started)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # The tools phase: each tool's reduced drive (tool, record name, argv) and
 # the keys its record must hold beside utils/card.py:card_info's.
 TOOL_RUNS = (
@@ -2504,7 +2700,7 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
 
 
 def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trainer,
-                 dist, knobs, deadrank) -> dict:
+                 dist, knobs, deadrank, smoke) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -2516,7 +2712,8 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trai
              "artifact_routes": serve["routes_launches"], "train": train["launches"],
              "trainer": trainer["launches"], "dist_torchrun": dist["nccl"]["launches"],
              "dist_ranks_rank0": dist["ranks"]["launches"], "knobs_remat": knobs["launches"],
-             "deadrank_resume": deadrank["resume_one_process"]["launches"]}
+             "deadrank_resume": deadrank["resume_one_process"]["launches"],
+             "smoke": smoke["launches"]}
 
     def by_path(name):
         return {p: launches.get(name, 0) for p, launches in paths.items()}
@@ -2570,18 +2767,20 @@ def main() -> int:
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
     ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve",
-                                       "knobs", "deadrank", "tools"),
+                                       "knobs", "deadrank", "tools", "smoke"),
                     default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
                          "phase only; 'dist' the data-parallel phase only; 'serve' the "
                          "serving deployment phase only; 'knobs' the model knobs phase only; "
                          "'deadrank' the dead-rank phase only; 'tools' the measurement "
-                         "tools phase only")
+                         "tools phase only; 'smoke' the train smoke's phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--dist-fixed"]:
         return fixed_worker(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--smoke-worker"]:
+        return smoke_worker(Path(sys.argv[2]), sys.argv[3:])
     args = ap.parse_args()
     timing = not args.no_timing
     if args.profile is not None:
@@ -2645,6 +2844,10 @@ def main() -> int:
         log(json.dumps({"tools": phase("tools", tools_phase, card)}))
         log(card)
         return 0
+    if args.only == "smoke":
+        log(json.dumps({"smoke": phase("smoke", smoke_phase, card)}))
+        log(card)
+        return 0
     if args.only == "all":
         serving = phase("serving", serving_phase, timing, card, args.profile)
         serve = phase("serve", serve_phase, timing, card)
@@ -2657,15 +2860,23 @@ def main() -> int:
         knobs = phase("knobs", knobs_phase, timing, card)
         trainer = phase("trainer", trainer_phase, timing, card, train)
         dist = phase("dist", dist_phase, timing, card, trainer, args.profile)
-        deadrank = phase("deadrank", deadrank_phase, card)
+        # The smoke phase's first two processes run beside the deadrank phase.
+        smoke_runs = smoke_start()
+        try:
+            deadrank = phase("deadrank", deadrank_phase, card)
+        except BaseException:
+            smoke_stop(smoke_runs)
+            raise
+        smoke = phase("smoke", smoke_phase, card, smoke_runs)
         tools = phase("tools", tools_phase, card)
         log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train,
-                                    trainer, dist, knobs, deadrank)))
+                                    trainer, dist, knobs, deadrank, smoke)))
         log(json.dumps({"serving": serving}))
         log(json.dumps({"serve": serve}))
         log(json.dumps({"trainer": trainer}))
         log(json.dumps({"dist": dist}))
         log(json.dumps({"deadrank": deadrank}))
+        log(json.dumps({"smoke": smoke}))
         log(json.dumps({"tools": tools}))
         log(json.dumps({"knobs": knobs}, default=str))
     log(json.dumps({"train": train, "dw_train": dw_train}))

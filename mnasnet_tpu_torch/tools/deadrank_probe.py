@@ -1,11 +1,13 @@
 """Dead-rank detection and recovery of the port's train CLI: the counterpart
 of ``tools/deadrank_probe.py``.
 
-    python -m mnasnet_tpu_torch.tools.deadrank_probe [--stall] [--device cpu]
+    python -m mnasnet_tpu_torch.tools.deadrank_probe [--stall] [--device cuda]
         [--timeout S] [--out build/deadrank_probe.json]
 
-  1. two ranks of ``python -m mnasnet_tpu_torch.train`` (``tools/multihost.py``:
-     gloo on the CPU, or NCCL with ``--device cuda``, one card a rank) train
+  1. two ranks of ``python -m mnasnet_tpu_torch.train`` (``tools/multihost.py:layout``:
+     on the card by default, NCCL with one card a rank on two or more cards,
+     else gloo with both ranks on ``cuda:0``; gloo on the CPU with ``--device
+     cpu``) train
      the small synthetic recipe with a checkpoint each epoch;
   2. once rank 0 prints a step of epoch 1 and the epoch-0 checkpoint can be
      restored (``supervise.has_checkpoint``), rank 1 is SIGKILLed: no
@@ -86,13 +88,14 @@ def recover(argv: list, outdir: str, work, epochs: int, device: str = "cpu",
 
 
 def probe(argv: list, work, epochs: int = EPOCHS, device: str = "cpu", stall: bool = False,
-          timeout: float = DIST_TIMEOUT_S) -> dict:
+          timeout: float = DIST_TIMEOUT_S, backend: str = "gloo") -> dict:
     work = Path(work).resolve()  # the children run in the repository root
     outdir = str(work / "run")
     print(f"[1/2] two ranks; {'SIGSTOP' if stall else 'SIGKILL'} rank 1 at epoch 1; the "
           "survivor must exit non-zero, not hang", flush=True)
     killed = kill_run([*argv, "--epochs", str(epochs)], outdir, work, device=device,
-                      stall=stall, env={TIMEOUT_ENV: str(timeout)}, bound_s=timeout + BAR_S)
+                      backend=backend, stall=stall, env={TIMEOUT_ENV: str(timeout)},
+                      bound_s=timeout + BAR_S)
     rc, latency = killed["survivor_exit_code"], killed["detection_latency_s"]
     print(f"      the survivor exited {rc} after {latency:.1f} s", flush=True)
     print("[2/2] recovery: one process --resumes the checkpoint and finishes", flush=True)
@@ -110,12 +113,13 @@ def probe(argv: list, work, epochs: int = EPOCHS, device: str = "cpu", stall: bo
             "the CLI prints one line and exits 1" if not stall else
             f"the group's timeout ({timeout:.0f} s) ends the survivor's gloo collective, "
             "the CLI prints one line and exits 1")
-        if device == "cpu" else
+        if backend == "gloo" else
         f"NCCL: the host's deadline ends the process (one line, exit 1) once an event "
         f"behind an eager collective or a replayed step has not completed in {timeout:.0f} s",
         "survivor_last_line": killed["survivor_last_line"],
         "timeout_s": timeout,
         "device": device,
+        "backend": backend,
         "reference_behavior": "dead NCCL rank hangs the job (SURVEY §5.3)",
         "recovery": rec,
     }
@@ -125,15 +129,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(multihost.REPO / "build" / "deadrank_probe.json"))
     ap.add_argument("--workdir", default=None, help="keep the logs and checkpoints here")
-    ap.add_argument("--device", default="cpu", help="cpu (gloo) or cuda (NCCL, a card a rank)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: NCCL with a card a rank, or gloo on cuda:0 with "
+                         "fewer cards than ranks) or cpu (gloo)")
     ap.add_argument("--stall", action="store_true", help="SIGSTOP rank 1 instead of SIGKILL")
     ap.add_argument("--timeout", type=float, default=DIST_TIMEOUT_S,
                     help="the ranks' collective timeout in seconds")
     args = ap.parse_args(argv)
     multihost.exit_on_sigterm()
+    device, backend = multihost.layout(args.device, 2, "deadrank_probe")
     with tempfile.TemporaryDirectory() as tmp:
-        out = probe(multihost.small_flags(), args.workdir or tmp, EPOCHS, args.device,
-                    args.stall, args.timeout)
+        out = probe(multihost.small_flags(), args.workdir or tmp, EPOCHS, device,
+                    args.stall, args.timeout, backend)
     return multihost.finish(out, args.out)
 
 

@@ -2,7 +2,9 @@
 ``tools/dress_rehearsal.py``.
 
     python -m mnasnet_tpu_torch.tools.dress_rehearsal [--n-classes 1000] [--image-size 64]
-        [--batch-size 32] [--out build/dress_rehearsal.json]
+        [--batch-size 32] [--device cuda] [--out build/dress_rehearsal.json]
+
+On the card unless ``--device cpu``.
 
 A generated on-disk JPEG tree of ``--n-classes`` class directories (names
 whose sorted order differs from their creation order, two train and one val
@@ -67,7 +69,7 @@ def fallbacks(text: str) -> int:
 
 
 def rehearse(work, n_classes: int, image_size: int, batch_size: int, workers: int = 4,
-             timeout: float = 3600.0) -> dict:
+             timeout: float = 3600.0, device: str = "cpu") -> dict:
     from mnasnet_tpu_torch.data import native_decoder
     from mnasnet_tpu_torch.data.dataset import ImageFolderDataset
 
@@ -88,18 +90,19 @@ def rehearse(work, n_classes: int, image_size: int, batch_size: int, workers: in
         [str(data), "--arch", "mnasnet0_5", "--image-size", str(image_size), "--batch-size",
          str(batch_size), "--workers", str(workers), "--decoder", "native-fast",
          "--num-classes", str(n_classes), "--print-freq", "20", "--seed", "0", "--epochs", "1",
-         "--output-dir", str(ckpt)], work / "train.log", timeout)
+         "--output-dir", str(ckpt)], work / "train.log", timeout, device)
     train_s = time.perf_counter() - t0
     fb = fallbacks(text)
     eval_text = multihost.run_one(
         [str(data), "--arch", "mnasnet0_5", "--image-size", str(image_size), "-b",
          str(batch_size), "--workers", str(workers), "--resume", str(ckpt)],
-        work / "eval.log", timeout, module="mnasnet_tpu_torch.eval")
+        work / "eval.log", timeout, device, module="mnasnet_tpu_torch.eval")
     epoch_done = "epoch 0:" in text and (ckpt / "0").is_dir()
     scored = "Acc@1" in eval_text
     return {
         "ok": bool(epoch_done and fb == 1 and mapping_ok and scored),
         "n_classes": n_classes,
+        "device": device,
         "images": info["counts"],
         "decoder_fallback_count": fb,
         "cmyk_fallback_fired_exactly_once": fb == 1,
@@ -118,10 +121,13 @@ def main(argv=None) -> int:
     ap.add_argument("--image-size", type=int, default=64)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--keep", default=None, help="keep the tree and the logs here")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     multihost.exit_on_sigterm()
+    device, _ = multihost.layout(args.device, 1, "dress_rehearsal")
     with tempfile.TemporaryDirectory() as tmp:
-        out = rehearse(args.keep or tmp, args.n_classes, args.image_size, args.batch_size)
+        out = rehearse(args.keep or tmp, args.n_classes, args.image_size, args.batch_size,
+                       device=device)
     return multihost.finish(out, args.out)
 
 

@@ -28,7 +28,9 @@ that a sum taken in another order may move it by.
 The tools built on it (``deadrank_probe``,
 ``multihost_smoke``, ``multihost_preempt``, ``multihost_data``,
 ``multihost_recal``, ``dress_rehearsal``) install :func:`exit_on_sigterm`,
-so a tool stopped by SIGTERM also kills its children.
+so a tool stopped by SIGTERM also kills its children. Each takes
+``--device``, default ``cuda``, and :func:`layout` turns it into the ranks'
+device and backend; ``--device cpu`` runs the gloo ranks on the CPU.
 """
 
 from __future__ import annotations
@@ -66,6 +68,24 @@ def small_flags(synthetic_size: int = 64) -> list:
             "--dtype", "float32", "--optimizer", "sgd", "--lr", "1e-4",
             "--lr-schedule", "constant", "--warmup-epochs", "0", "--workers", "2",
             "--print-freq", "1"]
+
+
+def layout(device: str, world: int, tool: str) -> tuple[str, str]:
+    """The ranks' ``--device`` and backend for a tool's ``--device``: gloo on
+    the CPU; on ``cuda`` NCCL with one card a rank where there are at least
+    ``world`` cards, else gloo with every rank on ``cuda:0``. Without a card
+    ``cuda`` exits 2 and says so: nothing carries on on the CPU."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return device, "gloo"
+    if not torch.cuda.is_available():
+        print(f"{tool}: no CUDA device for --device {device!r}; --device cpu runs it on "
+              "the CPU", file=sys.stderr)
+        raise SystemExit(2)
+    if torch.cuda.device_count() >= world:
+        return "cuda", "nccl"
+    return "cuda:0", "gloo"
 
 
 def child_env(extra: Optional[dict] = None) -> dict:
@@ -163,10 +183,11 @@ class Ranks:
 
 
 def pair(argv: list, outdir, work, tag: str, device: str = "cpu", timeout: float = 900.0,
-         env: Optional[dict] = None) -> list:
+         env: Optional[dict] = None, backend: Optional[str] = None) -> list:
     """Two ranks of the train CLI (``argv`` plus ``--output-dir outdir``),
     run to their end; their logs."""
-    with Ranks([*argv, "--output-dir", str(outdir)], 2, work, tag, device, env=env) as ranks:
+    with Ranks([*argv, "--output-dir", str(outdir)], 2, work, tag, device, backend,
+               env=env) as ranks:
         ranks.wait(timeout)
         return [ranks.read(r) for r in range(2)]
 

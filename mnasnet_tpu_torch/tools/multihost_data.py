@@ -1,8 +1,10 @@
 """Two ranks of the port's train CLI over an on-disk JPEG tree: the
 counterpart of ``tools/multihost_data.py``.
 
-    python -m mnasnet_tpu_torch.tools.multihost_data [--n-classes 1000]
+    python -m mnasnet_tpu_torch.tools.multihost_data [--n-classes 1000] [--device cuda]
         [--out build/multihost_data.json]
+
+The ranks run on the card unless ``--device cpu`` (``multihost.layout``).
 
 The dress rehearsal's tree (``dress_rehearsal.make_tree``: two train and one
 val JPEG a class, and one CMYK file that the native decoder refuses) goes
@@ -75,7 +77,7 @@ def check_consumed(logs: list, n_train: int, n_val: int, global_batch: int) -> d
 
 
 def data_run(work, n_classes: int, image_size: int = 64, batch_size: int = 32,
-             timeout: float = 2400.0) -> dict:
+             timeout: float = 2400.0, device: str = "cpu", backend: str = "gloo") -> dict:
     from mnasnet_tpu_torch.data import native_decoder
 
     if not native_decoder.available():
@@ -93,8 +95,8 @@ def data_run(work, n_classes: int, image_size: int = 64, batch_size: int = 32,
         for path in consumed[tag]:
             path.unlink(missing_ok=True)
         print(f"[{'ab'.index(tag) + 1}/2] two ranks over the tree", flush=True)
-        with multihost.Ranks([*argv, "--output-dir", str(work / tag)], 2, work, tag,
-                             rank_env=lambda r, c=consumed[tag]: {CONSUMED_ENV: str(c[r])}
+        with multihost.Ranks([*argv, "--output-dir", str(work / tag)], 2, work, tag, device,
+                             backend, rank_env=lambda r, c=consumed[tag]: {CONSUMED_ENV: str(c[r])}
                              ) as ranks:
             ranks.wait(timeout)
             if tag == "a":
@@ -106,6 +108,8 @@ def data_run(work, n_classes: int, image_size: int = 64, batch_size: int = 32,
     return {
         "ok": bool(sampler["ok"] and fb == 1 and not diff),
         "n_processes": 2,
+        "device": device,
+        "backend": backend,
         "n_classes": n_classes,
         "images": info["counts"],
         "decoder": "native-fast (the C++ decoder, PIL per image where it fails)",
@@ -121,10 +125,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(multihost.REPO / "build" / "multihost_data.json"))
     ap.add_argument("--n-classes", type=int, default=1000)
     ap.add_argument("--keep", default=None, help="keep the tree and the logs here")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: NCCL with a card a rank, or gloo on cuda:0 with "
+                         "fewer cards than ranks) or cpu (gloo)")
     args = ap.parse_args(argv)
     multihost.exit_on_sigterm()
+    device, backend = multihost.layout(args.device, 2, "multihost_data")
     with tempfile.TemporaryDirectory() as tmp:
-        out = data_run(args.keep or tmp, args.n_classes)
+        out = data_run(args.keep or tmp, args.n_classes, device=device, backend=backend)
     return multihost.finish(out, args.out)
 
 

@@ -1,10 +1,12 @@
 """A preemption of one rank of two, with real processes: the counterpart of
 ``tools/multihost_preempt.py``.
 
-    python -m mnasnet_tpu_torch.tools.multihost_preempt [--out build/multihost_preempt.json]
+    python -m mnasnet_tpu_torch.tools.multihost_preempt [--device cuda]
+        [--out build/multihost_preempt.json]
 
 On the small synthetic recipe (``tools/multihost.py:small_flags``, 8 steps
-an epoch, ``--deterministic``, gloo on the CPU):
+an epoch, ``--deterministic``), on the card unless ``--device cpu``
+(``multihost.layout``):
   1. control: two ranks train ``--epochs`` epochs uninterrupted;
   2. preempt: the same run, and once rank 0 prints a step of epoch 1,
      SIGTERM goes to rank 1 alone. The ranks' stop flag (an all-reduce of
@@ -39,17 +41,20 @@ STEPS_PER_EPOCH = 8  # 128 synthetic images in global batches of 16
 TRIGGER = re.compile(r"Epoch: \[1\]\[")
 
 
-def preempt(argv: list, work, epochs: int = EPOCHS, timeout: float = 900.0) -> dict:
+def preempt(argv: list, work, epochs: int = EPOCHS, timeout: float = 900.0,
+            device: str = "cpu", backend: str = "gloo") -> dict:
     work = Path(work).resolve()  # the children run in the repository root
     full = [*argv, "--epochs", str(epochs)]
     ctrl, pre = work / "control", work / "preempted"
     for d in (ctrl, pre):
         shutil.rmtree(d, ignore_errors=True)
     print(f"[1/4] control: two ranks, {epochs} epochs uninterrupted", flush=True)
-    pair(full, ctrl, work, "control", timeout=timeout)
+    on = {"device": device, "backend": backend, "timeout": timeout}
+    pair(full, ctrl, work, "control", **on)
 
     print("[2/4] preempt: SIGTERM to rank 1 alone at epoch 1", flush=True)
-    with multihost.Ranks([*full, "--output-dir", str(pre)], 2, work, "preempt") as ranks:
+    with multihost.Ranks([*full, "--output-dir", str(pre)], 2, work, "preempt", device,
+                         backend) as ranks:
         multihost.wait_until(lambda: bool(TRIGGER.search(ranks.read(0))), ranks.procs,
                              timeout, "rank 0's first step of epoch 1")
         os.kill(ranks.procs[1].pid, signal.SIGTERM)
@@ -63,7 +68,7 @@ def preempt(argv: list, work, epochs: int = EPOCHS, timeout: float = 900.0) -> d
     keys = sorted(int(k) for k in os.listdir(pre / "preempt") if k.isdigit())
 
     print("[3/4] resume: two ranks --resume the preemption checkpoint", flush=True)
-    logs = pair([*full, "--resume", str(pre)], pre, work, "resume", timeout=timeout)
+    logs = pair([*full, "--resume", str(pre)], pre, work, "resume", **on)
     m = re.search(r"resumed from preemption checkpoint: epoch (\d+) step (\d+)", logs[0])
     if m is None:
         raise multihost.RunFailed(f"the resume did not start from the preemption checkpoint; "
@@ -78,6 +83,8 @@ def preempt(argv: list, work, epochs: int = EPOCHS, timeout: float = 900.0) -> d
         "ok": not diff and agreed and stop % spe != 0
         and resume_epoch * spe + resume_step == stop,
         "n_processes": 2,
+        "device": device,
+        "backend": backend,
         "epochs": epochs,
         "steps_per_epoch": spe,
         "sigterm_to_rank": 1,
@@ -96,10 +103,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(multihost.REPO / "build" / "multihost_preempt.json"))
     ap.add_argument("--workdir", default=None, help="keep the logs and checkpoints here")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: NCCL with a card a rank, or gloo on cuda:0 with "
+                         "fewer cards than ranks) or cpu (gloo)")
     args = ap.parse_args(argv)
     multihost.exit_on_sigterm()
+    device, backend = multihost.layout(args.device, 2, "multihost_preempt")
     with tempfile.TemporaryDirectory() as tmp:
-        out = preempt(multihost.small_flags(16 * STEPS_PER_EPOCH), args.workdir or tmp)
+        out = preempt(multihost.small_flags(16 * STEPS_PER_EPOCH), args.workdir or tmp,
+                      device=device, backend=backend)
     return multihost.finish(out, args.out)
 
 

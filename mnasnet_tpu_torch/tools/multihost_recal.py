@@ -1,8 +1,11 @@
 """BN recalibration over two ranks against one process: the counterpart of
 ``tools/multihost_recal.py``.
 
-    python -m mnasnet_tpu_torch.tools.multihost_recal [--n-classes 200]
+    python -m mnasnet_tpu_torch.tools.multihost_recal [--n-classes 200] [--device cuda]
         [--out build/multihost_recal.json]
+
+The ranks and the oracle run on the card unless ``--device cpu``
+(``multihost.layout``).
 
   * the dress rehearsal's on-disk tree (``dress_rehearsal.make_tree``);
   * two ranks of the train CLI train one epoch in fp32, then
@@ -59,7 +62,8 @@ def stats_vs(ours: dict, ref: dict) -> dict:
 
 
 def recal_run(work, n_classes: int, image_size: int = 64, batch_size: int = 32,
-              recal_batches: int = RECAL_BATCHES, timeout: float = 2400.0) -> dict:
+              recal_batches: int = RECAL_BATCHES, timeout: float = 2400.0,
+              device: str = "cpu", backend: str = "gloo") -> dict:
     work = Path(work).resolve()  # the children run in the repository root
     data, ckpt, oracle = work / "data", work / "ckpt", work / "oracle"
     for d in (data, ckpt, oracle):
@@ -68,13 +72,13 @@ def recal_run(work, n_classes: int, image_size: int = 64, batch_size: int = 32,
     argv = [*tree_flags(data, n_classes, image_size, batch_size), "--dtype", "float32",
             "--bn-recalibrate", str(recal_batches)]
     print("[1/2] two ranks: one epoch, then --bn-recalibrate", flush=True)
-    logs = pair(argv, ckpt, work, "recal", timeout=timeout)
+    logs = pair(argv, ckpt, work, "recal", device, timeout, backend=backend)
     m = re.search(r"bn-recalibrated: acc1=([0-9.]+)", logs[0])
     print("[2/2] one process recalibrates the epoch's checkpoint over the same global "
           "batches", flush=True)
     shutil.copytree(ckpt / "0", oracle / "0")
     multihost.run_oracle([*argv, "--output-dir", str(oracle), "--resume", str(oracle)], 2,
-                         work / "oracle.log", timeout)
+                         work / "oracle.log", timeout, device=device)
     before, after = multihost.payload(ckpt, 0), multihost.payload(ckpt, 1)
     ref = multihost.payload(oracle, 1)
     params = [n for n, _ in before["model"].items()
@@ -89,6 +93,8 @@ def recal_run(work, n_classes: int, image_size: int = 64, batch_size: int = 32,
         "params_mismatches": untouched[:5],
         "dtype": "float32",
         "n_processes": 2,
+        "device": device,
+        "backend": backend,
         "global_batches_recalibrated": recal_batches,
         "global_batch": batch_size,
         "images": info["counts"],
@@ -103,10 +109,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(multihost.REPO / "build" / "multihost_recal.json"))
     ap.add_argument("--n-classes", type=int, default=200)
     ap.add_argument("--keep", default=None, help="keep the tree and the logs here")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: NCCL with a card a rank, or gloo on cuda:0 with "
+                         "fewer cards than ranks) or cpu (gloo)")
     args = ap.parse_args(argv)
     multihost.exit_on_sigterm()
+    device, backend = multihost.layout(args.device, 2, "multihost_recal")
     with tempfile.TemporaryDirectory() as tmp:
-        out = recal_run(args.keep or tmp, args.n_classes)
+        out = recal_run(args.keep or tmp, args.n_classes, device=device, backend=backend)
     return multihost.finish(out, args.out)
 
 

@@ -1,10 +1,12 @@
 """Two real ranks of the port's train CLI against themselves, a resume and
 one process: the counterpart of ``tools/multihost_smoke.py``.
 
-    python -m mnasnet_tpu_torch.tools.multihost_smoke [--out build/multihost_smoke.json]
+    python -m mnasnet_tpu_torch.tools.multihost_smoke [--device cuda]
+        [--out build/multihost_smoke.json]
 
 On the small synthetic recipe (``tools/multihost.py:small_flags``,
-``--deterministic``, gloo on the CPU):
+``--deterministic``), on the card unless ``--device cpu`` (``multihost.layout``:
+NCCL with a card a rank, or gloo on ``cuda:0`` with fewer cards than ranks):
   1. two ranks train ``--epochs`` epochs, twice: the final checkpoints must
      be equal bit for bit (model, optimizer, step and dropout generator);
   2. two ranks train one epoch, then two ranks ``--resume`` its checkpoint
@@ -44,8 +46,8 @@ def held_to_spread(ours: dict, ref: dict, moved: dict, spread: float = SPREAD) -
     """Each floating tensor of ``ours`` against ``ref`` within rtol 1e-5,
     atol 1e-6 plus ``spread`` times |moved - ref|; the others exactly.
     "max_excess" is the largest amount by which a value exceeds its bound
-    (<= 0: held)."""
-    worst, largest, bitwise, exact_bad = float("-inf"), 0.0, 0, []
+    (<= 0: held), "worst_leaf" the tensor it is in."""
+    worst, largest, bitwise, exact_bad, worst_leaf = float("-inf"), 0.0, 0, [], None
     for name, r in ref.items():
         o, m = ours[name], moved[name]
         if not r.is_floating_point():
@@ -55,17 +57,19 @@ def held_to_spread(ours: dict, ref: dict, moved: dict, spread: float = SPREAD) -
         r64, o64, m64 = r.double(), o.double(), m.double()
         diff = (o64 - r64).abs()
         bound = ATOL + RTOL * r64.abs() + spread * (m64 - r64).abs()
-        worst = max(worst, float((diff - bound).max()))
+        excess = float((diff - bound).max())
+        if excess > worst:
+            worst, worst_leaf = excess, name
         largest = max(largest, float(diff.max()))
         bitwise += bool(torch.equal(o, r))
     return {"leaves": len(ref), "bitwise_leaves": bitwise, "max_abs_diff": largest,
-            "max_excess": worst, "inexact_integer_leaves": exact_bad,
+            "max_excess": worst, "worst_leaf": worst_leaf, "inexact_integer_leaves": exact_bad,
             "held": worst <= 0 and not exact_bad,
             "criterion": f"|a-b| <= {ATOL} + {RTOL}|b| + {SPREAD:g}|b_one_ulp - b|"}
 
 
 def smoke(argv: list, work, epochs: int = EPOCHS, timeout: float = 900.0,
-          global_batch: int = 16) -> dict:
+          global_batch: int = 16, device: str = "cpu", backend: str = "gloo") -> dict:
     """``argv``'s run (global batch ``global_batch``) as set out above."""
     work = Path(work).resolve()  # the children run in the repository root
     full = [*argv, "--epochs", str(epochs)]
@@ -73,17 +77,18 @@ def smoke(argv: list, work, epochs: int = EPOCHS, timeout: float = 900.0,
     for tag in ("a", "b", "c", "one", "oracle", "nudged"):
         shutil.rmtree(work / tag, ignore_errors=True)  # a stale checkpoint would be restored
     print(f"[1/4] two ranks, {epochs} epochs, twice", flush=True)
-    pair(full, work / "a", work, "a", timeout=timeout)
-    pair(full, work / "b", work, "b", timeout=timeout)
+    on = {"device": device, "backend": backend, "timeout": timeout}
+    pair(full, work / "a", work, "a", **on)
+    pair(full, work / "b", work, "b", **on)
     print(f"[2/4] two ranks, one epoch, then --resume to {epochs}", flush=True)
-    pair([*argv, "--epochs", "1"], work / "c", work, "c1", timeout=timeout)
-    pair([*full, "--resume", str(work / "c")], work / "c", work, "c2", timeout=timeout)
+    pair([*argv, "--epochs", "1"], work / "c", work, "c1", **on)
+    pair([*full, "--resume", str(work / "c")], work / "c", work, "c2", **on)
     print("[3/4] one step: two ranks, one process on the same global batch, and one "
           "process on images one ulp away", flush=True)
-    pair(one, work / "one", work, "one", timeout=timeout)
+    pair(one, work / "one", work, "one", **on)
     for tag, nudge in (("oracle", False), ("nudged", True)):
         multihost.run_oracle([*one, "--output-dir", str(work / tag)], 2, work / f"{tag}.log",
-                             timeout, nudge)
+                             timeout, nudge, device)
     print("[4/4] compare the final checkpoints", flush=True)
     a, b, c, one_step, oracle, nudged = (multihost.payload(work / t) for t in (
         "a", "b", "c", "one", "oracle", "nudged"))
@@ -92,6 +97,8 @@ def smoke(argv: list, work, epochs: int = EPOCHS, timeout: float = 900.0,
     return {
         "ok": not rerun and not resumed and vs_one["held"],
         "n_processes": 2,
+        "device": device,
+        "backend": backend,
         "epochs": epochs,
         "steps": int(a["train_state"]["step"]),
         "resumed_from_epoch_checkpoint": True,
@@ -107,10 +114,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(multihost.REPO / "build" / "multihost_smoke.json"))
     ap.add_argument("--workdir", default=None, help="keep the logs and checkpoints here")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: NCCL with a card a rank, or gloo on cuda:0 with "
+                         "fewer cards than ranks) or cpu (gloo)")
     args = ap.parse_args(argv)
     multihost.exit_on_sigterm()
+    device, backend = multihost.layout(args.device, 2, "multihost_smoke")
     with tempfile.TemporaryDirectory() as tmp:
-        out = smoke(multihost.small_flags(), args.workdir or tmp)
+        out = smoke(multihost.small_flags(), args.workdir or tmp, device=device,
+                    backend=backend)
     return multihost.finish(out, args.out)
 
 

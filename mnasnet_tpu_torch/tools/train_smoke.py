@@ -23,9 +23,31 @@ score at chance in eval mode by design; ``--bn-momentum 0.9997`` runs the
 production decay, and then only the eval-mode val score may meet the target.
 
 Exits 1 when the target top-1 (``--target-top1``, default 90) is missed.
-The output defaults to ``build/train_smoke.json``. The reference's long-run
-flags (``--state-file``, ``--chunk-epochs``, ``--train-rescore-size``) are
-not ported.
+The output defaults to ``build/train_smoke.json``.
+
+The long production-decay rehearsal (hundreds of epochs) takes three more
+flags, with the reference's meaning:
+
+  * ``--state-file PATH`` writes, after every eval point, one ``torch.save``
+    file (CPU tensors and plain numbers, written to ``PATH.tmp`` and renamed
+    into place): the run identity (every argument but ``--state-file``,
+    ``--chunk-epochs``, ``--json`` and ``--workers``), the model's
+    ``state_dict``, the optimizer's (RMSProp moments, model-EMA shadow), the
+    ``TrainState`` (step, dropout generator), the curve, the next epoch and
+    the wall seconds so far. A run that finds the file resumes at its next
+    epoch, before the first step (so the graph route captures the restored
+    tensors), and refuses a file of another identity;
+  * ``--chunk-epochs N`` (with ``--state-file``) returns exit code 3 ("run me
+    again") at the first eval point after N epochs of this process, unless
+    the run is done: ``while rc == 3`` relaunches it. On the card the reason
+    to chunk is a job's time limit; the reference's 20-second pause between
+    processes worked around its TPU client and is not needed here;
+  * ``--train-rescore-size N`` scores ``train_top1_evalmode`` on the first N
+    train images through the eval transform instead of the augmented
+    train loader.
+
+Runs longer than 16 epochs keep every rendered grating in memory
+(``GratingDataset(cache=True)``), as the reference does.
 """
 
 from __future__ import annotations
@@ -49,12 +71,16 @@ class GratingDataset:
     epoch. Noisy enough that the net has to learn real filters, clean enough
     to separate."""
 
-    def __init__(self, length: int, image_size: int, num_classes: int = 10, seed: int = 0):
+    def __init__(self, length: int, image_size: int, num_classes: int = 10, seed: int = 0,
+                 cache: bool = False):
         self.length = length
         self.image_size = image_size
         self.num_classes = num_classes
         self.seed = seed
         self.classes = [f"grating_{i}" for i in range(num_classes)]
+        # Each sample is the same at every epoch, so a long run renders it
+        # once: ~49 KB an image at 96 px, ~200 MB for 4,096.
+        self._cache: dict | None = {} if cache else None
 
     def __len__(self):
         return self.length
@@ -62,6 +88,8 @@ class GratingDataset:
     def render(self, index: int) -> tuple[np.ndarray, int]:
         """The uint8 (S, S, 3) image of sample ``index``, S = image_size + 32,
         and its label."""
+        if self._cache is not None and index in self._cache:
+            return self._cache[index]
         rng = np.random.default_rng((self.seed, index))
         s = self.image_size + 32
         label = index % self.num_classes
@@ -77,7 +105,10 @@ class GratingDataset:
         ], dtype=np.float32)
         img = 127.5 + 45.0 * wave[..., None] * tint[None, None, :]
         img = img + rng.uniform(-60, 60, (s, s, 3))
-        return np.clip(img, 0, 255).astype(np.uint8), label
+        out = np.clip(img, 0, 255).astype(np.uint8), label
+        if self._cache is not None:
+            self._cache[index] = out
+        return out
 
     def load(self, index: int):
         arr, label = self.render(index)
@@ -118,34 +149,113 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weight init, the shuffle and augmentation, and the "
                          "dropout masks (the images are the same at every seed)")
-    return ap.parse_args(argv)
+    ap.add_argument("--deterministic", action="store_true",
+                    help="bit-reproducible runs, as the train CLI's flag: two-pass BN "
+                         "statistics, deterministic algorithms, a fixed cuBLAS workspace")
+    ap.add_argument("--state-file", default=None,
+                    help="resume state, written after every eval point and read at start "
+                         "(a file of another run identity is refused)")
+    ap.add_argument("--chunk-epochs", type=int, default=0,
+                    help="with --state-file: exit 3 at the first eval point after this many "
+                         "epochs of this process (state saved); relaunch while rc == 3")
+    ap.add_argument("--train-rescore-size", type=int, default=0,
+                    help="score train_top1_evalmode on the first N train images through the "
+                         "eval transform (0: the whole augmented train loader)")
+    args = ap.parse_args(argv)
+    if args.chunk_epochs and not args.state_file:
+        ap.error("--chunk-epochs needs --state-file")
+    return args
+
+
+# Bookkeeping arguments, which do not change the trajectory
+# (tools/train_smoke.py:_config_key).
+NOT_IDENTITY = ("state_file", "chunk_epochs", "json", "workers")
+
+
+def config_key(args) -> str:
+    """The run identity a state file is written for: every argument that
+    changes the trajectory, as sorted JSON."""
+    return json.dumps({k: v for k, v in sorted(vars(args).items()) if k not in NOT_IDENTITY})
+
+
+def save_state(path: str, payload: dict) -> None:
+    """``torch.save`` to ``path.tmp``, then rename into place: a kill during
+    the write leaves the previous state."""
+    import torch
+
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_state(path: str) -> dict:
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
 
+    from mnasnet_tpu_torch.models.mnasnet import resolve_device
+    from mnasnet_tpu_torch.train.__main__ import _set_deterministic
+
+    saved = None
+    if args.state_file and os.path.exists(args.state_file):
+        saved = load_state(args.state_file)
+        if saved["config_key"] != config_key(args):
+            print(f"train_smoke: {args.state_file} was written by another run:\n"
+                  f"  saved: {saved['config_key']}\n  this:  {config_key(args)}",
+                  file=sys.stderr, flush=True)
+            return 2
+    device = resolve_device(args.device)
+    prev = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.benchmark
+    if args.deterministic:
+        _set_deterministic(device)
+    try:
+        return run(args, device, saved)
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        torch.backends.cudnn.benchmark = prev[1]
+
+
+def run(args, device, saved) -> int:
+    """The smoke itself, from the start or from the ``saved`` state."""
+    import torch
+
     from mnasnet_tpu_torch import create_model
     from mnasnet_tpu_torch.data.pipeline import DataLoader
     from mnasnet_tpu_torch.data.transforms import eval_transform, train_transform
-    from mnasnet_tpu_torch.models.mnasnet import resolve_device
     from mnasnet_tpu_torch.train.bn_recal import recalibrate_bn
     from mnasnet_tpu_torch.train.optim import create_optimizer, get_ema_params
     from mnasnet_tpu_torch.train.schedules import make_schedule
     from mnasnet_tpu_torch.train.trainer import Trainer, swapped_params
+    from mnasnet_tpu_torch.utils.card import card_info
 
-    device = resolve_device(args.device)
+    card = card_info(device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = create_model(args.arch, device=device, num_classes=10, dtype=dtype,
-                         bn_momentum=args.bn_momentum, bn_ema="external", seed=args.seed)
-    train_ds = GratingDataset(args.train_size, args.image_size, seed=1)
-    val_ds = GratingDataset(args.val_size, args.image_size, seed=2)
+                         bn_momentum=args.bn_momentum, bn_ema="external", seed=args.seed,
+                         bn_stats="two_pass" if args.deterministic else "one_pass")
+    cache = args.epochs > 16  # a long run reads every image hundreds of times
+    train_ds = GratingDataset(args.train_size, args.image_size, seed=1, cache=cache)
+    val_ds = GratingDataset(args.val_size, args.image_size, seed=2, cache=cache)
     train_loader = DataLoader(
         train_ds, args.batch_size, lambda img, rng: train_transform(img, args.image_size, rng),
         shuffle=True, drop_last=True, seed=args.seed, workers=args.workers)
-    val_loader = DataLoader(
-        val_ds, args.batch_size, lambda img: eval_transform(img, args.image_size),
-        shuffle=False, drop_last=False, seed=0, workers=args.workers, augment=False)
+
+    def eval_loader(ds):
+        return DataLoader(ds, args.batch_size, lambda img: eval_transform(img, args.image_size),
+                          shuffle=False, drop_last=False, seed=0, workers=args.workers,
+                          augment=False)
+
+    val_loader = eval_loader(val_ds)
+    # seed 1: the first N images of the train set, through the eval transform
+    rescore_loader = (eval_loader(GratingDataset(min(args.train_rescore_size, args.train_size),
+                                                 args.image_size, seed=1, cache=cache))
+                      if args.train_rescore_size else train_loader)
 
     steps_per_epoch = train_loader.steps_per_epoch()
     base_lr = 0.016 if args.optimizer == "rmsprop" else 0.1
@@ -159,11 +269,33 @@ def main(argv=None) -> int:
     stat_buffers = [b for n, b in model.named_buffers()
                     if n.endswith(("running_mean", "running_var"))]
 
+    curve: list = []
+    start_epoch = 0
+    t0 = time.time()
+    if saved is not None:
+        # In place, before the first step: a graph captures these tensors.
+        model.load_state_dict(saved["model"], strict=True)
+        tx.load_state_dict(saved["optimizer"])
+        state.load_state_dict(saved["train_state"])
+        curve = saved["curve"]
+        start_epoch = saved["next_epoch"]
+        t0 -= saved["wall_seconds"]  # the wall clock of every process of the run
+        print(f"[smoke] resumed at epoch {start_epoch} from {args.state_file} "
+              f"({saved['wall_seconds']:.0f}s so far)", flush=True)
+
+    def write_state(next_epoch: int) -> None:
+        if args.state_file:
+            save_state(args.state_file, {
+                "config_key": config_key(args),
+                "model": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                "optimizer": tx.state_dict(), "train_state": state.state_dict(),
+                "curve": curve, "next_epoch": next_epoch, "wall_seconds": time.time() - t0})
+
     def recal_scores(num_batches, tag=""):
         """Val top-1 with exact recalibrated BN statistics, each set of weights
         scored with statistics recomputed under it; the running statistics
         are put back after."""
-        saved = [b.clone() for b in stat_buffers]
+        saved_stats = [b.clone() for b in stat_buffers]
         try:
             recalibrate_bn(model, train_loader, num_batches=num_batches, compute_dtype=dtype,
                            verbose=False)
@@ -179,14 +311,11 @@ def main(argv=None) -> int:
                 note = {"val_top1_recal": round(r1, 3), "val_loss_recal": round(rloss, 4)}
         finally:
             with torch.no_grad():
-                for b, s in zip(stat_buffers, saved):
+                for b, s in zip(stat_buffers, saved_stats):
                     b.copy_(s)
         print(f"[smoke] bn-recal{tag}: val_top1_recal={note['val_top1_recal']:.2f}",
               flush=True)
         return note
-
-    curve: list = []
-    t0 = time.time()
 
     def dump_artifact(recal_note: dict, completed: bool) -> dict:
         # After every eval point: a run cut short keeps its curve so far,
@@ -222,8 +351,8 @@ def main(argv=None) -> int:
                 else max(final["train_top1"], final["val_top1"]) >= args.target_top1),
             "wall_seconds": round(time.time() - t0, 1),
             "backend": device.type,
-            "device_name": (torch.cuda.get_device_name(device) if device.type == "cuda"
-                            else "cpu"),
+            "device_name": card["card"] or "cpu",
+            "card": card,
         }
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         tmp = args.json + ".tmp"
@@ -233,8 +362,10 @@ def main(argv=None) -> int:
         os.replace(tmp, args.json)
         return result
 
-    for epoch in range(args.epochs):
+    epochs_this_process = 0
+    for epoch in range(start_epoch, args.epochs):
         state = trainer.train_epoch(state, train_loader, epoch)
+        epochs_this_process += 1
         diag = {k: round(v, 4) for k, v in trainer.epoch_diag.items()}
         tstats = {k: round(v, 4) for k, v in trainer.epoch_train_stats.items()}
         if (epoch + 1) % args.eval_every and epoch != args.epochs - 1:
@@ -248,7 +379,7 @@ def main(argv=None) -> int:
             raw_note = {"val_top1_raw": round(acc1, 3)}
             acc1, _, vloss = trainer.validate(state, val_loader, verbose=False,
                                               params_override=get_ema_params(tx))
-        tr1, _, trloss = trainer.validate(state, train_loader, verbose=False)
+        tr1, _, trloss = trainer.validate(state, rescore_loader, verbose=False)
         recal_cols = {}
         if args.bn_recalibrate and epoch != args.epochs - 1:
             recal_cols = recal_scores(32, tag=f" @epoch {epoch}")
@@ -270,6 +401,12 @@ def main(argv=None) -> int:
               f"gnorm={diag.get('max_grad_norm', 0):.2f} ({time.time() - t0:.0f}s)",
               flush=True)
         dump_artifact({}, completed=False)
+        write_state(epoch + 1)
+        if (args.chunk_epochs and epoch != args.epochs - 1
+                and epochs_this_process >= args.chunk_epochs):
+            print(f"[smoke] chunk boundary after epoch {epoch}: state saved to "
+                  f"{args.state_file}; exit 3, run again to go on", flush=True)
+            return 3
 
     recal_note = {}
     if args.bn_recalibrate:

@@ -377,6 +377,7 @@ def test_deadrank_probe_full_size(stall, tmp_path):
     """The tool's defaults; ``--stall`` at the port's own timeout."""
     r = subprocess.run([sys.executable, "-m", "mnasnet_tpu_torch.tools.deadrank_probe",
                         "--out", str(tmp_path / "dr.json"), "--workdir", str(tmp_path),
+                        "--device", "cpu",
                         *(["--stall"] if stall else [])], cwd=multihost.REPO,
                        env=multihost.child_env(), timeout=1800)
     out = json.loads((tmp_path / "dr.json").read_text())

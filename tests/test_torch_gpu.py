@@ -1330,3 +1330,110 @@ def test_tool_sweep_grid(cuda, tmp_path):
     for impl in ("kernel", "torch"):
         assert row[f"infer_{impl}_ips"] > 0 and row[f"train_{impl}_ips"] > 0
         assert row[f"train_{impl}_peak_allocated_gb"] > 0
+
+
+@pytest.fixture(scope="module")
+def smoke_states(tmp_path_factory):
+    """Train-smoke state files written on the card, by compute dtype: α 0.35,
+    32 px, one epoch of 4 steps with the model EMA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mnasnet_tpu_torch.tools import train_smoke
+
+    work = tmp_path_factory.mktemp("smoke")
+    states = {}
+    for dtype in ("bfloat16", "float32"):
+        states[dtype] = work / f"{dtype}.pt"
+        rc = train_smoke.main(["--image-size", "32", "--batch-size", "16", "--train-size", "64",
+                               "--val-size", "32", "--epochs", "1", "--workers", "2",
+                               "--dtype", dtype, "--model-ema", "0.999", "--bn-recalibrate",
+                               "--json", str(work / f"{dtype}.json"),
+                               "--state-file", str(states[dtype])])
+        assert rc in (0, 1)
+    return states
+
+
+def test_smoke_state_reloads_on_the_card_and_the_cpu(cuda, smoke_states):
+    from mnasnet_tpu_torch.tools import train_smoke
+
+    path = smoke_states["bfloat16"]
+    saved = train_smoke.load_state(str(path))
+    on_card = torch.load(path, map_location="cuda", weights_only=True)
+    for name, t in saved["model"].items():
+        assert t.device.type == "cpu" and on_card["model"][name].device.type == "cuda"
+        assert torch.equal(on_card["model"][name].cpu(), t), name
+    model = create_model("mnasnet0_35", device=cuda, num_classes=10, dtype=torch.bfloat16,
+                         bn_ema="external")
+    model.load_state_dict(on_card["model"])
+    cpu_model = create_model("mnasnet0_35", device="cpu", num_classes=10, bn_ema="external")
+    cpu_model.load_state_dict(saved["model"])
+    for (name, a), b in zip(model.state_dict().items(), cpu_model.state_dict().values()):
+        assert torch.equal(a.cpu(), b), name
+    ema = saved["optimizer"]["ema_params"]
+    assert all(torch.equal(on_card["optimizer"]["ema_params"][n].cpu(), t)
+               for n, t in ema.items())
+    assert saved["next_epoch"] == 1 and saved["train_state"]["step"] == 4
+
+
+def _pooled_error(pooled: dict, ref: dict) -> float:
+    """Relative RMS of ``pooled`` against ``ref`` over every site, each
+    variance in units of the site's largest reference variance and each
+    mean in units of its square root."""
+    num = den = 0.0
+    for name, r in ref.items():
+        var = float(ref[name.rpartition(".")[0] + ".running_var"].max())
+        scale = var if name.endswith("running_var") else var ** 0.5
+        num += float(((pooled[name].cpu().double() - r.double()) / scale).pow(2).sum())
+        den += float((r.double() / scale).pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def _as_float32(path, out):
+    """A copy of a state file whose run identity says float32: the same
+    weights, scored by the forensics in fp32."""
+    import json
+
+    from mnasnet_tpu_torch.tools import train_smoke
+
+    saved = train_smoke.load_state(str(path))
+    cfg = json.loads(saved["config_key"])
+    saved["config_key"] = json.dumps(dict(sorted({**cfg, "dtype": "float32"}.items())))
+    torch.save(saved, out)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_forensics_on_the_card_matches_the_cpu(cuda, smoke_states, tmp_path, dtype):
+    """The same state's forensics on the card and on the CPU. fp32: each
+    pooled statistic and each site median within 1e-4 of its scale (the
+    site's largest pooled variance, or its square root for a mean; 1 for a
+    median), chip_smoke.py's fp32 bar for the whole model. bf16: its bar
+    for the whole model, against the fp32 forensics of the same weights:
+    the card's relative RMS error at most 1.25 times the CPU's bf16 plain
+    versions' plus 0.01, for the pooled statistics and for each summary
+    median."""
+    from mnasnet_tpu_torch.tools import bn_forensics
+
+    def run(path, device):
+        return bn_forensics.forensics(str(path), 2, torch.device(device), workers=2)
+
+    path = smoke_states[dtype]
+    (gpu, parts_gpu), (cpu, parts_cpu) = run(path, "cuda"), run(path, "cpu")
+    assert gpu["summary"]["sites"] == cpu["summary"]["sites"] == 52
+    assert set(gpu["controls_val_top1"]) == set(cpu["controls_val_top1"])
+    assert gpu["card"] == torch.cuda.get_device_name(0) and gpu["nvidia_smi"]
+    keys = [k for k in cpu["summary"] if k != "sites"]
+    if dtype == "float32":
+        assert _pooled_error(parts_gpu[1], parts_cpu[1]) <= 1e-4
+        for key in keys:
+            assert abs(gpu["summary"][key] - cpu["summary"][key]) <= 1e-4 * max(
+                1.0, abs(cpu["summary"][key])), key
+        return
+    ref, parts_ref = run(_as_float32(path, tmp_path / "fp32.pt"), "cpu")
+    card_err = _pooled_error(parts_gpu[1], parts_ref[1])
+    plain_err = _pooled_error(parts_cpu[1], parts_ref[1])
+    assert card_err <= 1.25 * plain_err + 0.01, (card_err, plain_err)
+    for key in keys:
+        r = ref["summary"][key]
+        assert abs(gpu["summary"][key] - r) <= 1.25 * abs(cpu["summary"][key] - r) + 0.01 * max(
+            1.0, abs(r)), key

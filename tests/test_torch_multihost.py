@@ -54,5 +54,6 @@ def test_sigterm_to_one_rank_stops_both_at_one_step_and_resumes_bitwise(tmp_path
 def test_tool_full_size(tool, tmp_path):
     out = tmp_path / "out.json"
     r = subprocess.run([sys.executable, "-m", f"mnasnet_tpu_torch.tools.{tool}", "--out",
-                        str(out)], cwd=multihost.REPO, env=multihost.child_env(), timeout=7200)
+                        str(out), "--device", "cpu"], cwd=multihost.REPO,
+                       env=multihost.child_env(), timeout=7200)
     assert r.returncode == 0 and json.loads(out.read_text())["ok"]
