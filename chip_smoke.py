@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only deadrank  # the dead-rank phase only
     python3 chip_smoke.py --only tools   # the measurement tools phase only
     python3 chip_smoke.py --only smoke   # the train smoke's long-run path only
+    python3 chip_smoke.py --only spatial # the data x spatial mesh phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -45,7 +46,8 @@ Phases, in order; any failure raises and exits non-zero:
      reconciled with its calls (eager and compiled calls count, a graph
      counts its warm-up and capture, not its replays); (c) the seconds of
      the first compiled call at bs1 in two fresh processes with the same
-     ``--compilation-cache`` directory, cold then warm;
+     ``--compilation-cache`` directory, cold then warm (the background job
+     ``serve_cache``, on an artifact of its own from the same weights);
   6. bn: the two BN+ReLU backward kernels against their plain versions at the
      35 BN+ReLU regions of the mnasnet1_0@224 training forward, batch 128,
      bf16 and fp32; the bf16 and fp32 ReLU masks exactly (with dy = 1, dβ
@@ -71,12 +73,14 @@ Phases, in order; any failure raises and exits non-zero:
      graph, eager on one state, each bit for bit the all-eager run; one
      fp32 step on the kernel route against the torch route, and the first
      bf16 step of the compile route (Inductor) against the eager one, from
-     the same weights;
-     per train route (eager, graph, compile on the kernel route; the torch
-     route eager) in bf16 the ms per step, images/s, peak memory and the
-     first call's seconds (capture, compile), and the fastest route, which
-     ``TRAIN_ROUTE`` is set from; with ``--profile``, each route's device
-     time and busy share and one kernel per counted launch;
+     the same weights, with the seconds of its compile (the background job
+     ``train_compile``, beside the others); per train route (eager, graph,
+     compile on the kernel route; the torch route eager) in bf16 the ms per
+     step, images/s, peak memory and the first call's seconds, and the
+     fastest route, which ``TRAIN_ROUTE`` is set from (the compile route
+     timed in its job once every other job is done and this process waits);
+     with ``--profile``, each eager or graph route's device time and busy
+     share and one kernel per counted launch;
   8b. knobs: the model knobs on the same production configuration (bs128,
      bf16; a full run takes it right after train). ``remat``: 3 steps with
      dropout, a changing rate and the model EMA, under deterministic
@@ -86,15 +90,16 @@ Phases, in order; any failure raises and exits non-zero:
      bit the eager ``remat`` steps, which are bit for bit the steps without
      ``remat`` (losses, parameters, BN buffers with ``num_batches_tracked``,
      optimizer state, generator); the first step of the compile route with
-     ``remat`` against its eager step. The first eager step of ``taps``,
+     ``remat`` against its eager step (the background job
+     ``remat_compile``). The first eager step of ``taps``,
      ``taps2`` and ``hybrid`` against the production step, and of
      ``channel_pad`` 64 and 128 on the kernel route against their torch
      route, with the padded models' serving launches (the MBConv blocks the
      planner still admits); the knobs' tests of ``tests/test_torch_gpu.py``
-     in a child pytest. With timing (``tools/train_variants.py``): ms
-     per step, images/s, peak memory and launches per step of the variants
-     on the graph route: ``pw_lowering`` dot
-     and conv in four alternating fresh builds (the faster one, or "within
+     in a child pytest (the background job ``knob_tests``). With timing
+     (``tools/train_variants.py``): ms per step, images/s, peak memory and
+     launches per step of the variants on the graph route: ``pw_lowering``
+     dot and conv in four alternating fresh builds (the faster one, or "within
      noise" where the means differ by no more than one lowering's spread),
      ``remat`` off and on at bs128 and bs512, the padded models, the dw
      routes; the serving forward per ``pw_lowering`` at bs1 and bs128 on
@@ -184,7 +189,29 @@ Phases, in order; any failure raises and exits non-zero:
      NCCL at world N instead, one card a rank: (a) at 128 images a rank,
      the graph route bit for bit eager on every rank, and no no-op
      collective; (b) with the 128 split N ways, on the graph route, local
-     BN against ``grad_accum=N``; (c) ``dryrun_multichip(N)``.
+     BN against ``grad_accum=N``; (c) ``dryrun_multichip(N)``. (b) and (c)
+     are the background jobs ``dist_ranks`` and ``dist_dryrun``.
+ 10b. spatial: the ``data x spatial`` mesh (``parallel/mesh.py``,
+     ``parallel/spatial.py``) on the same production configuration. (a)
+     Two gloo ranks on cuda:0 as a 1x2 mesh, each on its band of 112 of the
+     224 rows of the train phase's 128 images, take one bf16 sync-BN step
+     against one process's on the whole batch, to the compile route's bf16
+     bars (``_held_to_one_ulp``); each rank's launches against the band
+     plan (17 dw, 35 + 35 BN, 0 MBConv: every band of mnasnet1_0@224 has
+     rows), its collectives against ``step_collectives`` with the halo
+     exchanges and pooled sums, its peak memory beside one process's, and
+     ms per step after the first (both ranks on one card: the card is
+     shared). (b) The eval forward of the serving phase's weights over the
+     same mesh, the fused MBConv and dw kernels launched on each band's
+     window (16 + 1 a forward), against one process's logits to the
+     serving phase's bf16 rule, the two ranks' logits bit for bit. (c) On a
+     machine with four cards: a 2x2 mesh over NCCL, a card a rank, on the
+     graph route (the halo all-reduces captured in the graph) bit for bit
+     the eager route over 3 steps with dropout, a changing rate and the
+     model EMA. (d) With timing: the fused MBConv kernel's device time at
+     each of the 16 block shapes on the whole plane and on each band's
+     window with its crop (CUDA-graph replays), their sums over the blocks;
+     not a gate;
  11. deadrank: a dead rank and the recovery, through the train CLI on the
      same production configuration (synthetic, ``DEADRANK_STEPS`` steps of
      128 images a rank an epoch, the kernel route, ``DEADRANK_EPOCHS``
@@ -218,6 +245,16 @@ Phases, in order; any failure raises and exits non-zero:
      worker and PIL, and ``sweep_grid`` at 0.35@96 and 1.4@224, serving
      only (16 fused blocks and 1 dw launch a forward, no shape refused);
      each record's keys, and the card's name and power limit in it.
+A full run takes the phases in this order: device, build, dw, mbconv,
+serving, bn, dw training op; then it starts the background jobs
+(``FARM_JOBS``: the compile routes' first steps, the compilation cache, the
+knobs' GPU tests, the dist phase's ranks and dry run, each a process of its
+own at a lower priority) and takes, beside them, the checks that run no
+timing window: serve's, train's and knobs' checks, deadrank (whose bounds
+are tens of seconds), and smoke (whose first two processes run beside
+deadrank); it waits for the jobs, then times the serving routes, the train
+routes and the knobs' variants and runs trainer, dist, spatial and tools,
+with no job left running beside any timing window.
 It then prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
@@ -242,9 +279,9 @@ Tolerances (normalised by the largest magnitude of the reference):
   * dw training op vs torch route: dx 1e-4 (fp32) and 2^-7 (bf16); dw 1e-4
     (fp32) and 2^-6 (bf16: the torch route rounds its weight gradient to
     bf16, the Function sums in fp32);
-  * the first bf16 step of the compile route (compiled once, then timed)
-    vs eager from the same weights: loss within 1e-5 relative, the BN
-    running statistics (moments as the dist bars below read them) within
+  * the first bf16 step of the compile route (compiled once) vs eager
+    from the same weights: loss within 1e-5 relative, the BN running
+    statistics (moments as the dist bars below read them) within
     1e-5, and the update within 1e-2 relative RMS, or each within 4 times
     the eager step's own move when its images change by one bf16 ulp,
     whichever is larger (Inductor rounds its fused bf16 arithmetic once
@@ -267,6 +304,10 @@ Tolerances (normalised by the largest magnitude of the reference):
     (``_held_to_one_ulp``);
   * trainer: launches and checkpoints exactly, the eval CLI's acc1 equal to
     the trainer's as printed (3 decimals), the resumed run bit for bit;
+  * spatial: launches and collectives exactly, the ranks bit for bit; the
+    1x2 step against one process to ``_held_to_one_ulp``'s bf16 bars (the
+    sums of the bands are taken in another order, as the dist phase's
+    ranks'), the eval logits to the serving phase's bf16 rule;
   * dist: launches and collectives exactly; the graph route bit for bit
     eager at every world; the ranks against one process:
     loss within 1e-5 relative, the step's BN moments within 1e-5 (each mean
@@ -342,7 +383,16 @@ from mnasnet_tpu_torch.ops.cuda.dw_conv import plan as dw_plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import kernel_args, mbconv_fused, mbconv_reference, plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import launch as mb_launch
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
-from mnasnet_tpu_torch.parallel import all_reduce_max_, close, dist_timeout, init_distributed
+from mnasnet_tpu_torch.parallel import (
+    all_reduce_max_,
+    close,
+    dist_timeout,
+    init_distributed,
+    make_mesh,
+    shard_batch,
+    use_mesh,
+)
+from mnasnet_tpu_torch.parallel.spatial import bands, conv_windows
 from mnasnet_tpu_torch.serving import load_serving
 from mnasnet_tpu_torch.tools import (
     bench_latency,
@@ -831,8 +881,10 @@ def route_table(rows: list) -> tuple:
     return tuple(ranges)
 
 
-def serve_phase(timing: bool, card: str) -> dict:
-    """The serving deployment: export, a fresh process's load, each route."""
+def serve_phase() -> tuple[dict, dict]:
+    """The serving deployment's checks: export, a fresh process's load, each
+    route; returns the record and the routes and images that
+    :func:`serve_timing` times. (c) is the background job ``serve_cache``."""
     g = torch.Generator(device="cuda").manual_seed(3)
     _, state = serving_weights(g)
     images = torch.randn(BATCH, IMAGE, IMAGE, 3, device="cuda", generator=g)
@@ -881,7 +933,6 @@ def serve_phase(timing: bool, card: str) -> dict:
                 raise RuntimeError(f"bs{b}: the graph route differs from eager")
             if b == BATCH and not torch.equal(eager, live):
                 raise RuntimeError("the artifact's eager route differs from the live forward")
-            timed = ["eager", "graph"]
             if b in COMPILE_SIZES:
                 t0 = time.perf_counter()
                 comp = routes["compile"](xb)
@@ -901,13 +952,6 @@ def serve_phase(timing: bool, card: str) -> dict:
                 if row["compile_max_abs_diff_vs_torch"] > row["compile_tol"] \
                         or row["compile_top1_agreement"] < 0.5:
                     raise RuntimeError(f"bs{b}: the compile route misses the bf16 bars: {row}")
-                timed.append("compile")
-            if timing:
-                for r in timed:
-                    ms = time_ms(lambda: routes[r](xb), target_ms=300.0)
-                    row[f"{r}_ms"] = ms
-                    row[f"{r}_images_per_s"] = b / ms * 1e3
-                row["fastest"] = min(timed, key=lambda r: row[f"{r}_ms"])
             rows.append(row)
             log(f"[serve] {row}")
         torch.cuda.synchronize()
@@ -919,29 +963,59 @@ def serve_phase(timing: bool, card: str) -> dict:
         out["routes_launches"] = launches
         out["graph_replays"] = sum(routes["graph"].replays.values())
         out["by_size"] = rows
-        if timing:
-            measured = route_table(rows)
-            out["route_table"] = measured
-            out["route_table_matches_SERVE_ROUTE_BATCH_RANGES"] = \
-                measured == SERVE_ROUTE_BATCH_RANGES
-            log(f"[serve] ms per batch by route on {card}:")
-            for row in rows:
-                log("[serve]   bs{:>4}: ".format(row["bs"]) + ", ".join(
-                    f"{r} {row[f'{r}_ms']:.3f} ms ({row[f'{r}_images_per_s']:.1f} images/s)"
-                    for r in ROUTES if f"{r}_ms" in row) + f"; fastest {row['fastest']}")
-            log(f"[serve] measured table {measured}; SERVE_ROUTE_BATCH_RANGES "
-                f"{SERVE_ROUTE_BATCH_RANGES}")
-
-        # (c) the compilation cache: the same compile, cold then warm.
-        cache = work / "cache"
-        out["cache"] = {k: _child(_CACHE_CHILD, [cache, art])["first_call_s"]
-                        for k in ("cold_first_call_s", "warm_first_call_s")}
-        out["cache"]["entries"] = sum(len(f) for _, _, f in os.walk(cache))
-        log(f"[serve] compilation cache: {out['cache']}")
-        if not out["cache"]["entries"]:
-            raise RuntimeError("the compile left no entry in the compilation cache")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return out, {"routes": routes, "images": images}
+
+
+def serve_timing(out: dict, held: dict, card: str) -> None:
+    """ms per batch and images/s of each route of the serve phase's artifact
+    at each size (CUDA events; eager and graph, and compile at
+    ``COMPILE_SIZES``), the fastest, and the table of the fastest route that
+    ``SERVE_ROUTE_BATCH_RANGES`` is set from, into ``out``."""
+    routes, images, rows = held["routes"], held["images"], out["by_size"]
+    for row in rows:
+        b = row["bs"]
+        xb = images[:b].contiguous()
+        timed = ["eager", "graph"] + (["compile"] if b in COMPILE_SIZES else [])
+        for r in timed:
+            ms = time_ms(lambda: routes[r](xb), target_ms=300.0)
+            row[f"{r}_ms"] = ms
+            row[f"{r}_images_per_s"] = b / ms * 1e3
+        row["fastest"] = min(timed, key=lambda r: row[f"{r}_ms"])
+    measured = route_table(rows)
+    out["route_table"] = measured
+    out["route_table_matches_SERVE_ROUTE_BATCH_RANGES"] = measured == SERVE_ROUTE_BATCH_RANGES
+    log(f"[serve] ms per batch by route on {card}:")
+    for row in rows:
+        log("[serve]   bs{:>4}: ".format(row["bs"]) + ", ".join(
+            f"{r} {row[f'{r}_ms']:.3f} ms ({row[f'{r}_images_per_s']:.1f} images/s)"
+            for r in ROUTES if f"{r}_ms" in row) + f"; fastest {row['fastest']}")
+    log(f"[serve] measured table {measured}; SERVE_ROUTE_BATCH_RANGES "
+        f"{SERVE_ROUTE_BATCH_RANGES}")
+
+
+def serve_cache() -> dict:
+    """The serve phase's (c), a background job (``FARM_JOBS``): the serving
+    artifact of the serve phase's weights, its first compiled call at bs1 in
+    two fresh processes with the same compilation cache, cold then warm."""
+    _, state = serving_weights(torch.Generator(device="cuda").manual_seed(3))
+    work = FARM_WORK / "serve_cache"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        fn, x = build_forward("mnasnet1_0", 1000, "bfloat16", state, IMAGE, BATCH,
+                              device="cuda")
+        art, cache = work / "model.pt2", work / "cache"
+        art.write_bytes(export_artifact(fn, x, symbolic_batch=True))
+        out = {k: _child(_CACHE_CHILD, [cache, art])["first_call_s"]
+               for k in ("cold_first_call_s", "warm_first_call_s")}
+        out["entries"] = sum(len(f) for _, _, f in os.walk(cache))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[serve] compilation cache: {out}")
+    if not out["entries"]:
+        raise RuntimeError("the compile left no entry in the compilation cache")
     return out
 
 
@@ -1118,11 +1192,12 @@ def train_batch():
 
 
 def _train_setup(dtype, route, seed=0, step_route=None, schedule=False, model_ema=None,
-                 **model_kw):
+                 replicas=None, **model_kw):
     """The production configuration (``route``: the model's kernel route,
     "auto" = its default) and its train step on ``step_route`` (None: the
-    default train route). ``schedule``: warmup-cosine from 0 over the
-    ``TRAIN_STEPS`` steps, a rate that changes every step."""
+    default train route), sync-BN over ``replicas`` when given. ``schedule``:
+    warmup-cosine from 0 over the ``TRAIN_STEPS`` steps, a rate that changes
+    every step."""
     kw = {} if route == "auto" else {"dw_impl": route, "bn_bwd": route}
     model = create_model("mnasnet1_0", dtype=dtype, bn_ema="external", stem_s2d=True,
                          seed=seed, **kw, **model_kw)
@@ -1130,7 +1205,9 @@ def _train_setup(dtype, route, seed=0, step_route=None, schedule=False, model_em
         else TRAIN_LR
     tx = create_optimizer("rmsprop", lr, fused="small", model_ema=model_ema)
     state = TrainState.create(model, tx, seed=seed)
-    return model, state, make_train_step(model, tx, label_smoothing=0.1, route=step_route)
+    set_replicas(model, replicas)
+    return model, state, make_train_step(model, tx, label_smoothing=0.1, route=step_route,
+                                         replicas=replicas)
 
 
 def _params(model):
@@ -1209,8 +1286,7 @@ def _first_step(step_route, images, labels, route="kernel", keep=False, **model_
     """The first bf16 step of the production configuration from seed 0 on
     ``step_route``: the loss, the parameters before and after, the BN
     statistics and the seconds it took (a compile included); with ``keep``
-    the model, state, step, seconds and memory base under "kept"."""
-    base = memory_base(torch.device("cuda"))
+    the model, state and step under "kept"."""
     m, st, stp = _train_setup(torch.bfloat16, route, step_route=step_route, **model_kw)
     p0 = _params(m)
     t0 = time.perf_counter()
@@ -1219,8 +1295,46 @@ def _first_step(step_route, images, labels, route="kernel", keep=False, **model_
     out = {"loss": float(met["loss"]), "p0": p0, "params": _params(m), "stats": _stats(m),
            "s": time.perf_counter() - t0}
     if keep:
-        out["kept"] = (m, st, stp, out["s"], base)
+        out["kept"] = (m, st, stp)
     return out
+
+
+def compile_first_step(remat: bool) -> dict:
+    """The first bf16 step of the compile route (Inductor), compiled once,
+    against the eager step from the same weights, beside the eager step on
+    images moved by one bf16 ulp (``_held_to_one_ulp``); with ``remat`` as
+    the knobs phase sets it. A background job (``FARM_JOBS``); without
+    ``remat`` it then waits for :func:`farm_go` and, when told to, times
+    the compiled step as :func:`train_timing` times the other routes."""
+    images, labels = train_batch()
+    kw = {"remat": True} if remat else {}
+    first = {"eager": _first_step("eager", images, labels, **kw),
+             "eager_one_ulp": _first_step("eager", one_ulp(images), labels, **kw)}
+    base = memory_base(torch.device("cuda"))
+    first["compile"] = _first_step("compile", images, labels, keep=not remat, **kw)
+    kept = first["compile"].pop("kept", None)
+    what = "the compile route" + (" with remat" if remat else "")
+    comp = _held_to_one_ulp(first["compile"], first["eager"], first["eager_one_ulp"],
+                            f"{what} against eager")
+    comp["first_call_s"] = first["compile"]["s"]
+    log(f"[{'knobs' if remat else 'train'}] bf16 first step, {what} vs eager: "
+        f"{json.dumps(comp)}")
+    del first
+    if kept is not None and _farm_wait_go("train_compile"):
+        m, st, stp = kept
+        stp(st, images, labels)
+        torch.cuda.synchronize()
+        row = {"first_call_s": comp["first_call_s"],
+               "peak_memory_gb": (torch.cuda.max_memory_allocated() - base[0]) / 1e9,
+               "reserved_memory_gb": (torch.cuda.memory_reserved() - base[1]) / 1e9,
+               "ms_per_step": time_ms(lambda: stp(st, images, labels), target_ms=2000.0)}
+        row["images_per_s"] = BATCH / row["ms_per_step"] * 1e3
+        row["host_ms_per_step"] = host_ms(lambda: stp(st, images, labels), iters=5)
+        comp["timing"] = row
+        log(f"[train] bs{BATCH} bf16 kernel_compile: {row['ms_per_step']:.3f} ms/step, "
+            f"{row['images_per_s']:.1f} images/s, peak {row['peak_memory_gb']:.2f} GB, "
+            f"first call {row['first_call_s']:.1f} s (beside the other jobs)")
+    return comp
 
 
 def _held_to_one_ulp(ours: dict, ref: dict, moved: dict, what: str) -> dict:
@@ -1241,7 +1355,10 @@ def _held_to_one_ulp(ours: dict, ref: dict, moved: dict, what: str) -> dict:
     return comp
 
 
-def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
+def train_phase() -> dict:
+    """The train phase's checks (8 in the module's docstring); the compile
+    route's first step is the background job ``train_compile`` and the
+    timing :func:`train_timing`."""
     images, labels = train_batch()
     model, state, step = _train_setup(torch.bfloat16, "auto")
 
@@ -1302,80 +1419,66 @@ def train_phase(timing: bool, card: str, profile_dir: Path | None) -> dict:
             or fp32["update_rel_rms_diff"] > 1e-2:
         raise RuntimeError(f"fp32 kernel route disagrees with the torch route: {fp32}")
     del after, ka, tb, pk, pt
+    return out
 
-    # The compile route (Inductor), compiled once: its first step against the
-    # eager step from the same weights, beside the eager step on images
-    # moved by one bf16 ulp; then, with timing, it is timed as it stands.
-    first = {"eager": _first_step("eager", images, labels),
-             "eager_one_ulp": _first_step("eager", one_ulp(images), labels)}
-    first["compile"] = _first_step("compile", images, labels, keep=True)
-    compiled = first["compile"].pop("kept")
-    comp = _held_to_one_ulp(first["compile"], first["eager"], first["eager_one_ulp"],
-                            "the compile route against eager")
-    comp["first_call_s"] = first["compile"]["s"]
-    out["bf16_compile_vs_eager"] = comp
-    log(f"[train] bf16 first step, compile route vs eager: {json.dumps(comp)}")
-    del first
 
-    if timing:
-        # Every route timed first, then (with --profile) each profiled: the
-        # profiler leaves the process slower after it.
-        out["by_route"] = {}
-        runs = {}
-        # The compiled step first: nothing was made since its memory base.
-        for route, step_route in (("kernel", "compile"), ("kernel", "eager"),
-                                  ("kernel", "graph"), ("torch", "eager")):
-            name = f"{route}_{step_route}"
-            if name == "kernel_compile":
-                m, st, stp, first_s, base = compiled
-                row = {"first_call_s": first_s}
-            else:
-                base = memory_base(torch.device("cuda"))
-                m, st, stp = _train_setup(torch.bfloat16, route, step_route=step_route)
-                t0 = time.perf_counter()
-                stp(st, images, labels)
-                torch.cuda.synchronize()
-                row = {"first_call_s": time.perf_counter() - t0}
-            stp(st, images, labels)
-            torch.cuda.synchronize()
-            # What the route holds and takes at most over its first two
-            # calls, beyond what was allocated before its model was made (a
-            # graph's replays allocate nothing: its pool is reserved).
-            row["peak_memory_gb"] = (torch.cuda.max_memory_allocated() - base[0]) / 1e9
-            row["reserved_memory_gb"] = (torch.cuda.memory_reserved() - base[1]) / 1e9
-            row["ms_per_step"] = time_ms(lambda: stp(st, images, labels), target_ms=2000.0)
-            row["images_per_s"] = BATCH / row["ms_per_step"] * 1e3
-            row["host_ms_per_step"] = host_ms(lambda: stp(st, images, labels), iters=5)
-            out["by_route"][name] = row
-            runs[name] = (m, st, stp)
-            log(f"[train] bs{BATCH} bf16 {name}: {row['ms_per_step']:.3f} ms/step, "
-                f"{row['images_per_s']:.1f} images/s, peak {row['peak_memory_gb']:.2f} GB, "
-                f"first call {row['first_call_s']:.1f} s on {card}")
-        for name, (m, st, stp) in runs.items():
-            if profile_dir is None:
-                break
-            prof = profile_forward(lambda x: stp(st, x, labels), images,
-                                   profile_dir / f"profile_train_{name}.txt")
-            out["by_route"][name]["profile"] = prof
-            log(f"[train] {name} profile: device {prof['device_ms_per_call']:.3f} ms of "
-                f"{prof['wall_ms_per_call']:.3f} ms a step, busy share "
-                f"{prof['device_busy_share']:.3f}, port kernels {prof['port_kernels']}")
-            # One kernel per counted launch: the reduce is one launch.
-            seen = {k: prof["port_kernels"].get(k, {}).get("launches", 0)
-                    for k in LAUNCHES_PER_STEP}
-            out["by_route"][name]["launches_seen_per_step"] = seen
-            if name in ("kernel_eager", "kernel_compile") and seen != LAUNCHES_PER_STEP:
-                raise RuntimeError(f"the {name} profile saw {seen} kernels per step, "
-                                   f"expected {LAUNCHES_PER_STEP}")
-        del runs, m, st, stp
-        fastest = min(("eager", "graph", "compile"),
-                      key=lambda r: out["by_route"][f"kernel_{r}"]["ms_per_step"])
-        out["fastest_train_route"] = fastest
-        main = out["by_route"][f"kernel_{TRAIN_ROUTE}"]
-        out["kernel_route_images_per_s"] = main["images_per_s"]
-        out["torch_route_images_per_s"] = out["by_route"]["torch_eager"]["images_per_s"]
-        log(f"[train] fastest train route {fastest}; TRAIN_ROUTE is {TRAIN_ROUTE}")
-    del compiled
+def train_timing(card: str, profile_dir: Path | None, compiled: dict) -> dict:
+    """Per train route (eager and graph on the kernel route, the torch route
+    eager) in bf16 on the train phase's batch: ms per step, images/s, peak
+    memory and the first call's seconds, and the fastest route with the
+    compile route's row (``compiled``, timed in its job); with
+    ``--profile`` each route's device time, busy share and kernels per
+    counted launch (not the compile route's). Every route is timed first,
+    then profiled: the profiler leaves the process slower after it."""
+    images, labels = train_batch()
+    out = {"by_route": {"kernel_compile": compiled}}
+    runs = {}
+    for route, step_route in (("kernel", "eager"), ("kernel", "graph"), ("torch", "eager")):
+        name = f"{route}_{step_route}"
+        base = memory_base(torch.device("cuda"))
+        m, st, stp = _train_setup(torch.bfloat16, route, step_route=step_route)
+        t0 = time.perf_counter()
+        stp(st, images, labels)
+        torch.cuda.synchronize()
+        row = {"first_call_s": time.perf_counter() - t0}
+        stp(st, images, labels)
+        torch.cuda.synchronize()
+        # What the route holds and takes at most over its first two calls,
+        # beyond what was allocated before its model was made (a graph's
+        # replays allocate nothing: its pool is reserved).
+        row["peak_memory_gb"] = (torch.cuda.max_memory_allocated() - base[0]) / 1e9
+        row["reserved_memory_gb"] = (torch.cuda.memory_reserved() - base[1]) / 1e9
+        row["ms_per_step"] = time_ms(lambda: stp(st, images, labels), target_ms=2000.0)
+        row["images_per_s"] = BATCH / row["ms_per_step"] * 1e3
+        row["host_ms_per_step"] = host_ms(lambda: stp(st, images, labels), iters=5)
+        out["by_route"][name] = row
+        runs[name] = (m, st, stp)
+        log(f"[train] bs{BATCH} bf16 {name}: {row['ms_per_step']:.3f} ms/step, "
+            f"{row['images_per_s']:.1f} images/s, peak {row['peak_memory_gb']:.2f} GB, "
+            f"first call {row['first_call_s']:.1f} s on {card}")
+    for name, (m, st, stp) in runs.items():
+        if profile_dir is None:
+            break
+        prof = profile_forward(lambda x: stp(st, x, labels), images,
+                               profile_dir / f"profile_train_{name}.txt")
+        out["by_route"][name]["profile"] = prof
+        log(f"[train] {name} profile: device {prof['device_ms_per_call']:.3f} ms of "
+            f"{prof['wall_ms_per_call']:.3f} ms a step, busy share "
+            f"{prof['device_busy_share']:.3f}, port kernels {prof['port_kernels']}")
+        # One kernel per counted launch: the reduce is one launch.
+        seen = {k: prof["port_kernels"].get(k, {}).get("launches", 0)
+                for k in LAUNCHES_PER_STEP}
+        out["by_route"][name]["launches_seen_per_step"] = seen
+        if name == "kernel_eager" and seen != LAUNCHES_PER_STEP:
+            raise RuntimeError(f"the {name} profile saw {seen} kernels per step, "
+                               f"expected {LAUNCHES_PER_STEP}")
+    del runs, m, st, stp
+    fastest = min(("eager", "graph", "compile"),
+                  key=lambda r: out["by_route"][f"kernel_{r}"]["ms_per_step"])
+    out["fastest_train_route"] = fastest
+    out["kernel_route_images_per_s"] = out["by_route"][f"kernel_{TRAIN_ROUTE}"]["images_per_s"]
+    out["torch_route_images_per_s"] = out["by_route"]["torch_eager"]["images_per_s"]
+    log(f"[train] fastest train route {fastest}; TRAIN_ROUTE is {TRAIN_ROUTE}")
     return out
 
 
@@ -1407,10 +1510,12 @@ def _knob_runs(images, labels) -> dict:
     return runs
 
 
-def knobs_phase(timing: bool, card: str) -> dict:
-    """The model knobs on the production configuration (mnasnet1_0@224,
-    bs128, bf16): ``remat``, ``pw_lowering``, ``channel_pad`` 64 and 128 and
-    the ``taps``/``taps2``/``hybrid`` depthwise routes."""
+def knobs_phase() -> dict:
+    """The model knobs' checks on the production configuration (mnasnet1_0@224,
+    bs128, bf16): ``remat``, ``channel_pad`` 64 and 128 and the
+    ``taps``/``taps2``/``hybrid`` depthwise routes. The compile route with
+    ``remat`` and the knobs' GPU tests are the background jobs
+    ``remat_compile`` and ``knob_tests``, the timing :func:`knob_timing`."""
     images, labels = train_batch()
     out = {}
 
@@ -1438,15 +1543,9 @@ def knobs_phase(timing: bool, card: str) -> dict:
                            f"step and {KNOB_STEPS - 1} replays: {main}")
     del runs, main
 
-    # remat on the compile route (Inductor): its first step against eager.
+    # The production step with remat, the reference of the routes below.
     first = {"eager": _first_step("eager", images, labels, remat=True),
-             "eager_one_ulp": _first_step("eager", one_ulp(images), labels, remat=True),
-             "compile": _first_step("compile", images, labels, remat=True)}
-    comp = _held_to_one_ulp(first["compile"], first["eager"], first["eager_one_ulp"],
-                            "the compile route with remat against eager")
-    comp["first_call_s"] = first["compile"]["s"]
-    out["remat_compile_vs_eager"] = comp
-    log(f"[knobs] bf16 first step with remat, compile route vs eager: {json.dumps(comp)}")
+             "eager_one_ulp": _first_step("eager", one_ulp(images), labels, remat=True)}
     base = first["eager"]
 
     # The depthwise routes and the padded models: each first step against
@@ -1476,10 +1575,6 @@ def knobs_phase(timing: bool, card: str) -> dict:
         log(f"[knobs] channel_pad={pad} kernel route vs torch route: {json.dumps(comp)}")
         del runs, moved, model, predict
     del first, base
-
-    out["gpu_tests"] = knob_gpu_tests()
-    if timing:
-        out["timing"] = knob_timing(images, labels, card)
     return out
 
 
@@ -1499,10 +1594,12 @@ def knob_gpu_tests() -> dict:
     return {"summary": summary}
 
 
-def knob_timing(images, labels, card) -> dict:
+def knob_timing(card: str) -> dict:
     """ms per step, images/s, peak memory and launches per step of the
-    variants (``tools/train_variants.py``), and the serving forward per
-    ``pw_lowering``; conv and dot in alternating runs."""
+    variants (``tools/train_variants.py``) on the train phase's batch, and
+    the serving forward per ``pw_lowering``; conv and dot in alternating
+    runs."""
+    images, labels = train_batch()
     rows = []
 
     def train(name, route, x=images, y=labels, **kw):
@@ -2292,7 +2389,7 @@ def dist_phase(timing: bool, card: str, trainer: dict | None,
     nproc = torch.cuda.device_count()
     work = REPO / "build" / "chip_smoke_dist"
     shutil.rmtree(work, ignore_errors=True)
-    (work / "ranks").mkdir(parents=True)
+    work.mkdir(parents=True)
     try:
         nccl = nccl_torchrun(work, profile_dir, nproc)
         with_data = ((trainer or {}).get("throughput") or {}).get("images_per_s_with_data")
@@ -2305,16 +2402,307 @@ def dist_phase(timing: bool, card: str, trainer: dict | None,
             f"(one process, no group), peak {nccl['peak_allocated_gb']:.2f} GB, on {card}; "
             f"fixed batch {json.dumps(nccl.get('fixed_batch'))}; "
             f"profile {json.dumps(nccl.get('profile'))}")
-        ranks = (ranks_vs_one_process(work / "ranks", 2, "gloo") if nproc == 1
-                 else ranks_vs_one_process(work / "ranks", nproc, "nccl"))
-        t0 = time.perf_counter()
-        dryrun_multichip(nproc)
-        dryrun_s = time.perf_counter() - t0
-        log(f"[dist] dryrun_multichip({nproc}) on the card: ok in {dryrun_s:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"nccl": nccl, "ranks": ranks, "trainer_images_per_s_with_data": with_data,
-            "dryrun_multichip": {"world": nproc, "s": dryrun_s}}
+    # (b) and (c): background jobs, started here unless a full run did so.
+    farm_start("dist_ranks", "dist_dryrun")
+    return {"nccl": nccl, "ranks": farm_result("dist_ranks"),
+            "trainer_images_per_s_with_data": with_data,
+            "dryrun_multichip": farm_result("dist_dryrun")}
+
+
+def dist_ranks() -> dict:
+    """The dist phase's (b), a background job: two gloo ranks on the one
+    card, or NCCL over every card of a machine with more, against one
+    process."""
+    nproc = torch.cuda.device_count()
+    work = FARM_WORK / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        return (ranks_vs_one_process(work, 2, "gloo") if nproc == 1
+                else ranks_vs_one_process(work, nproc, "nccl"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def dist_dryrun() -> dict:
+    """The dist phase's (c), a background job: ``dryrun_multichip`` over
+    every card."""
+    nproc = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    dryrun_multichip(nproc)
+    s = time.perf_counter() - t0
+    log(f"[dist] dryrun_multichip({nproc}) on the card: ok in {s:.1f} s")
+    return {"world": nproc, "s": s}
+
+
+# The spatial phase: a 1x2 data x spatial mesh on one card (two gloo ranks
+# on cuda:0), and on a machine with four cards a 2x2 mesh over NCCL. Steps
+# each rank times after its first, and the steps of the 2x2 graph-vs-eager
+# run.
+SPATIAL_TIMED = 5
+SPATIAL_BITWISE_STEPS = 3
+
+
+def _band_launches(model, replicas) -> dict:
+    """The kernel launches one train step and one eval forward of the
+    production model at IMAGE px make on this rank, by the band plan: a dw
+    launch for each depthwise conv whose output band on this rank has rows
+    (train: the separable and the 16 blocks' dw; eval: the separable dw,
+    the blocks on the fused MBConv kernel), and a reduce and a dx for each
+    of the 35 BN+ReLU regions, when no BN plane leaves this rank without
+    rows."""
+    parts, i = replicas.mesh.spatial, replicas.mesh.spatial_index(replicas.rank)
+
+    def has_rows(h, k, stride):
+        return int(conv_windows(h, parts, k, stride)[i].count > 0)
+
+    sep, *blocks = model.spatial_convs(IMAGE)[1:]
+    if not all(b > a for h, _ in model.planes(IMAGE, IMAGE)[1:] for a, b in [bands(h, parts)[i]]):
+        raise RuntimeError("a BN plane of the production model leaves a rank without rows")
+    return {"train": {"dw_conv_bn_act": has_rows(*sep) + sum(has_rows(*c) for c in blocks),
+                      "bn_bwd_reduce": 35, "bn_bwd_dx": 35, "mbconv_block": 0},
+            "eval": {"dw_conv_bn_act": has_rows(*sep), "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
+                     "mbconv_block": sum(has_rows(*c) for c in blocks)}}
+
+
+def _spatial_train(images, labels, replicas) -> dict:
+    """(a) on this rank: one bf16 sync-BN step of the production
+    configuration on this rank's band of its shard, counted; its peak
+    memory; then ms per step over SPATIAL_TIMED more."""
+    dev = images.device
+    x, y = shard_batch(replicas, images, labels)
+    base = memory_base(dev)
+    model, state, step = _train_setup(torch.bfloat16, "kernel", replicas=replicas)
+    p0 = _params(model)
+    for fn in COUNTERS.values():  # counts set to 0 just before the step
+        fn.launches = 0
+    before = replicas.collectives
+    state, met = step(state, x, y)
+    torch.cuda.synchronize()
+    out = {"loss": float(met["loss"]), "p0": p0, "params": _params(model),
+           "stats": _stats(model), "launches": counts(),
+           "collectives": replicas.collectives - before,
+           "collectives_predicted": step_collectives(model, image_rows=IMAGE),
+           "expected": _band_launches(model, replicas),
+           "route": step.route, "band_rows": list(x.shape[1:3]),
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) - base[0]) / 1e9}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SPATIAL_TIMED):
+        state, met = step(state, x, y)
+    end.record()
+    end.synchronize()
+    out["ms_per_step"] = start.elapsed_time(end) / SPATIAL_TIMED
+    return out
+
+
+def _spatial_eval(images, labels, replicas, state_file: Path) -> dict:
+    """(b) on this rank: the eval forward of the serving phase's calibrated
+    weights in bf16 on this rank's band (the fused MBConv and dw kernels on
+    each band's window), counted."""
+    model = create_model("mnasnet1_0", dtype=torch.bfloat16, dw_impl="kernel", seed=0)
+    model.load_state_dict(torch.load(state_file, weights_only=True))
+    set_replicas(model, replicas)
+    x, _ = shard_batch(replicas, images, labels)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    logits = make_predict_fn(model)(x)
+    torch.cuda.synchronize()
+    return {"logits": logits.cpu(), "launches": counts()}
+
+
+def spatial_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
+    """One rank of a 1x2 mesh on cuda:0 (gloo): (a) and (b); the results go
+    to ``rank<R>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    replicas = init_distributed(f"file://{rendezvous}", world, rank, "gloo", "cuda:0")
+    try:
+        use_mesh(replicas, make_mesh(world, data=1, spatial=world))
+        images, labels = train_batch()
+        out = {"train": _spatial_train(images, labels, replicas),
+               "eval": _spatial_eval(images, labels, replicas, Path(out_dir) / "eval_state.pt")}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        close(replicas)
+
+
+def spatial_nccl_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
+    """(c), one rank of a 2x2 mesh over NCCL, a card each: the sync-BN step
+    on the graph route against eager, SPATIAL_BITWISE_STEPS steps with
+    dropout, a changing rate and the model EMA under deterministic
+    algorithms; the result goes to ``nccl<R>.pt``."""
+    replicas = init_distributed(f"file://{rendezvous}", world, rank, "nccl", f"cuda:{rank}")
+    try:
+        use_mesh(replicas, make_mesh(world, data=world // 2, spatial=2))
+        images, labels = train_batch()
+        x, y = shard_batch(replicas, images[:BATCH // 2], labels[:BATCH // 2])
+        runs = {}
+        for route in ("eager", "graph"):
+            model, state, first = _train_setup(torch.bfloat16, "auto", seed=2,
+                                               step_route="eager", schedule=True,
+                                               model_ema=0.999, replicas=replicas)
+            step = make_train_step(model, first._steps.tx, 0.1, replicas=replicas, route=route)
+            losses = []
+            with deterministic():
+                for _ in range(SPATIAL_BITWISE_STEPS):
+                    state, metrics = step(state, x, y)
+                    losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            runs[route] = {"losses": [float(v) for v in losses], **_snapshot(model, step, state),
+                           "replays": sum(step.replays.values())}
+            del model, state, step, first
+        same = {"losses": runs["graph"]["losses"] == runs["eager"]["losses"],
+                **{k: _tree_equal(runs["graph"][k], runs["eager"][k])
+                   for k in ("model", "tx", "generator")}}
+        torch.save({"bitwise": same, "replays": runs["graph"]["replays"],
+                    "losses": runs["eager"]["losses"]}, os.path.join(out_dir, f"nccl{rank}.pt"))
+    finally:
+        close(replicas)
+
+
+def _band_block_ms() -> dict:
+    """(d): the fused MBConv kernel's device time at each of the 16 block
+    shapes (bf16, BATCH images) on the whole plane and on each of two
+    bands' windows with the crop of its output rows, from CUDA-graph
+    replays: what a band of a 1x2 mesh costs beside half the plane."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for name, h, cin, cmid, cout, k, s in block_shapes():
+        _, (x32, *weights), kw = random_block(h, cin, cmid, cout, k, s, g)
+        x = x32.to(torch.bfloat16)
+        row = {"block": name, "rows": h, "k": k, "stride": s}
+        with torch.no_grad():
+            row["whole_ms"] = time_ms(lambda: mbconv_fused(x, *weights, **kw), graph=True)
+            for i, win in enumerate(conv_windows(h, 2, k, s)):
+                xw = x[:, win.lo:win.hi].contiguous()
+
+                def band(xw=xw, win=win):
+                    y = mbconv_fused(xw, *weights, **kw)
+                    return y[:, win.first:win.first + win.count].contiguous()
+                row[f"band{i}_ms"] = time_ms(band, graph=True)
+                row[f"band{i}_window_rows"] = win.hi - win.lo
+        rows.append(row)
+    whole = sum(r["whole_ms"] for r in rows)
+    return {"blocks": rows, "whole_ms": whole,
+            **{f"band{i}_ms": sum(r[f"band{i}_ms"] for r in rows) for i in range(2)},
+            **{f"band{i}_share": sum(r[f"band{i}_ms"] for r in rows) / whole for i in range(2)}}
+
+
+def spatial_phase(card: str, timing: bool = True) -> dict:
+    """(a) Two gloo ranks on cuda:0 as a 1x2 mesh take one bf16 sync-BN step
+    of the production configuration at IMAGE px on BATCH images, each on its
+    band of 112 of the 224 rows, against one process's step on the same
+    batch, to the bars of ``_held_to_one_ulp``; each rank's launches against
+    the band plan, its collectives against ``step_collectives``, its peak
+    memory beside one process's, and ms per step (the two ranks share the
+    card). (b) The eval forward of the serving phase's weights over the
+    same mesh against one process's logits, to the serving phase's bf16
+    rule, with the fused MBConv kernel launched on each band. (c) On a
+    machine with four cards: NCCL 2x2 on the graph route, the replay bit for
+    bit eager. (d) With timing, the MBConv kernel on each band's window
+    beside the whole plane (``_band_block_ms``)."""
+    import torch.multiprocessing as mp
+
+    work = REPO / "build" / "chip_smoke_spatial"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        images, labels = train_batch()
+        _, eval_state = serving_weights(torch.Generator(device="cuda").manual_seed(3))
+        torch.save(eval_state, work / "eval_state.pt")
+        mp.start_processes(spatial_rank, args=(2, str(work / "rendezvous"), str(work)),
+                           nprocs=2, start_method="spawn")
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        nccl = None
+        if torch.cuda.device_count() >= 4:
+            mp.start_processes(spatial_nccl_rank, args=(4, str(work / "rdv4"), str(work)),
+                               nprocs=4, start_method="spawn")
+            nccl = [torch.load(work / f"nccl{r}.pt", weights_only=False) for r in range(4)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card": card}
+    # (a) against one process on the whole batch, and its one-ulp move.
+    base = memory_base(torch.device("cuda"))
+    ref = _first_step("eager", images, labels)
+    one_peak = (torch.cuda.max_memory_allocated() - base[0]) / 1e9
+    moved = _first_step("eager", one_ulp(images), labels)
+    model, state, step = _train_setup(torch.bfloat16, "kernel", step_route="eager")
+    step(state, images, labels)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SPATIAL_TIMED):
+        state, _m = step(state, images, labels)
+    end.record()
+    end.synchronize()
+    one_ms = start.elapsed_time(end) / SPATIAL_TIMED
+    del model, state, step
+    a = ranks[0]["train"]
+    replicated = all(r["train"]["loss"] == a["loss"] and all(
+        torch.equal(a[f][n], r["train"][f][n]) for f in ("params", "stats") for n in a[f])
+        for r in ranks[1:])
+    cmp = _held_to_one_ulp(a, ref, moved, "the 1x2 spatial step")
+    out["train"] = {**cmp, "ranks_bitwise_equal": replicated, "route": a["route"],
+                    "band_rows": [r["train"]["band_rows"] for r in ranks],
+                    "launches": [r["train"]["launches"] for r in ranks],
+                    "launches_predicted": [r["train"]["expected"]["train"] for r in ranks],
+                    "collectives": [r["train"]["collectives"] for r in ranks],
+                    "collectives_predicted": [r["train"]["collectives_predicted"] for r in ranks],
+                    "peak_gb_by_rank": [r["train"]["peak_gb"] for r in ranks],
+                    "peak_gb_one_process": one_peak,
+                    "ms_per_step_by_rank": [r["train"]["ms_per_step"] for r in ranks],
+                    "ms_per_step_one_process": one_ms}
+    log(f"[spatial] (a) 1x2 mesh, two gloo ranks on cuda:0, one bf16 step vs one process: "
+        f"{json.dumps(out['train'])} on {card}")
+    if not replicated:
+        raise RuntimeError("the ranks of the 1x2 step ended in different states")
+    if a["route"] != "eager":
+        raise RuntimeError(f"the gloo 1x2 step took the {a['route']} route")
+    if out["train"]["launches"] != out["train"]["launches_predicted"]:
+        raise RuntimeError(f"launches {out['train']['launches']}, by the band plan "
+                           f"{out['train']['launches_predicted']}")
+    if out["train"]["collectives"] != out["train"]["collectives_predicted"]:
+        raise RuntimeError(f"collectives {out['train']['collectives']}, predicted "
+                           f"{out['train']['collectives_predicted']}")
+    # (b) the eval forward against one process's logits.
+    served = create_model("mnasnet1_0", dtype=torch.bfloat16, dw_impl="kernel", seed=0)
+    served.load_state_dict(eval_state)
+    ref_logits = make_predict_fn(served)(images).cpu()
+    ev = ranks[0]["eval"]["logits"]
+    out["eval"] = {
+        "launches": [r["eval"]["launches"] for r in ranks],
+        "launches_predicted": [r["train"]["expected"]["eval"] for r in ranks],
+        "ranks_bitwise_equal": all(torch.equal(r["eval"]["logits"], ev) for r in ranks),
+        "max_abs_diff": float((ev - ref_logits).abs().max()),
+        "tol": 0.25 * float(ref_logits.abs().max()),
+        "rel_rms_diff": float((ev - ref_logits).norm() / ref_logits.norm()),
+        "top1_agreement": float((ev.argmax(-1) == ref_logits.argmax(-1)).float().mean())}
+    log(f"[spatial] (b) 1x2 eval forward vs one process: {json.dumps(out['eval'])}")
+    if out["eval"]["launches"] != out["eval"]["launches_predicted"]:
+        raise RuntimeError(f"eval launches {out['eval']['launches']}, by the band plan "
+                           f"{out['eval']['launches_predicted']}")
+    if ev.shape != (BATCH, 1000) or not torch.isfinite(ev).all() \
+            or not out["eval"]["ranks_bitwise_equal"] \
+            or out["eval"]["max_abs_diff"] > out["eval"]["tol"] \
+            or out["eval"]["top1_agreement"] < 0.5:
+        raise RuntimeError(f"the 1x2 eval forward disagrees with one process: {out['eval']}")
+    # (c) four cards.
+    if nccl is not None:
+        out["nccl_2x2"] = {"bitwise": [r["bitwise"] for r in nccl],
+                           "replays": [r["replays"] for r in nccl],
+                           "losses": nccl[0]["losses"]}
+        log(f"[spatial] (c) 2x2 mesh over NCCL, graph route vs eager over "
+            f"{SPATIAL_BITWISE_STEPS} steps: {json.dumps(out['nccl_2x2'])}")
+        if not all(all(r["bitwise"].values()) for r in nccl) \
+                or any(r["replays"] != SPATIAL_BITWISE_STEPS - 1 for r in nccl):
+            raise RuntimeError(f"the 2x2 graph route differs from eager: {out['nccl_2x2']}")
+    if timing:
+        out["mbconv_on_bands"] = _band_block_ms()
+        log(f"[spatial] (d) MBConv kernel on each band's window vs the whole plane, bf16 "
+            f"bs{BATCH}, device ms: {json.dumps(out['mbconv_on_bands'])} on {card}")
+    return out
 
 
 def deadrank_argv(world: int, workers: int) -> list:
@@ -2700,7 +3088,7 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
 
 
 def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trainer,
-                 dist, knobs, deadrank, smoke) -> dict:
+                 dist, knobs, deadrank, smoke, spatial) -> dict:
     sep = next(r for r in dw_rows if r["shape"] == "112x112x32 k3 s1" and r["dtype"] == "bfloat16")
     mb = [r for r in mb_rows if r["dtype"] == "bfloat16"]
 
@@ -2713,7 +3101,8 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trai
              "trainer": trainer["launches"], "dist_torchrun": dist["nccl"]["launches"],
              "dist_ranks_rank0": dist["ranks"]["launches"], "knobs_remat": knobs["launches"],
              "deadrank_resume": deadrank["resume_one_process"]["launches"],
-             "smoke": smoke["launches"]}
+             "smoke": smoke["launches"], "spatial_train_rank0": spatial["train"]["launches"][0],
+             "spatial_eval_rank0": spatial["eval"]["launches"][0]}
 
     def by_path(name):
         return {p: launches.get(name, 0) for p, launches in paths.items()}
@@ -2760,6 +3149,116 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trai
     ]}
 
 
+# Background jobs: the checks that spend their time in Inductor's compiler
+# or in processes of their own, and time nothing beside other work (the
+# compile route's step is timed in its job after ``farm_go``), each in a
+# process of its own (``chip_smoke.py --farm-job NAME OUT``, in a
+# session of its own so that its children end with it). A full run starts
+# them all once the kernels are timed, takes its own checks that run no
+# timing window beside them (serve, train, knobs, deadrank, smoke), waits
+# for them, and only then times the routes and runs the rest: no timing
+# window runs beside a job. A single phase starts its own jobs.
+FARM_WORK = REPO / "build" / "chip_smoke_farm"
+FARM_JOB_S = 900
+# Inductor's compile workers a job may start (the default is one a core):
+# three compiling jobs share the host with this process and the others.
+FARM_COMPILE_THREADS = "4"
+# The jobs' niceness: this process's own checks, which every timing window
+# waits for too, take the host's cores first.
+FARM_NICE = 10
+FARM_JOBS = {
+    "train_compile": lambda: compile_first_step(remat=False),
+    "remat_compile": lambda: compile_first_step(remat=True),
+    "knob_tests": knob_gpu_tests,
+    "serve_cache": serve_cache,
+    "dist_ranks": dist_ranks,
+    "dist_dryrun": dist_dryrun,
+}
+_farm: dict = {}
+
+
+def farm_job(name: str, out: Path) -> int:
+    """One background job, in the process ``farm_start`` started: its record
+    goes to ``out``; a job past ``FARM_JOB_S`` prints its stacks and exits."""
+    faulthandler.dump_traceback_later(FARM_JOB_S, exit=True)
+    os.nice(FARM_NICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    record = FARM_JOBS[name]()
+    log(f"[farm] {name} done in {time.perf_counter() - t0:.1f} s")
+    out.write_text(json.dumps(record))
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def farm_start(*names: str) -> None:
+    """Start each named job that is not running or done."""
+    FARM_WORK.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "TORCHINDUCTOR_COMPILE_THREADS": FARM_COMPILE_THREADS}
+    for name in names:
+        if name in _farm:
+            continue
+        for suffix in (".json", ".go"):
+            (FARM_WORK / f"{name}{suffix}").unlink(missing_ok=True)
+        with open(FARM_WORK / f"{name}.log", "w") as f:
+            _farm[name] = subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--farm-job", name,
+                 str(FARM_WORK / f"{name}.json")],
+                cwd=REPO, stdout=f, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        _farm[name].started = time.perf_counter()
+
+
+def farm_go(name: str, timing: bool) -> None:
+    """Tell the job ``name``, which waits for it, that nothing else runs:
+    time its step (with ``timing``) or end."""
+    (FARM_WORK / f"{name}.go").write_text("1" if timing else "0")
+
+
+def _farm_wait_go(name: str) -> bool:
+    """In a job: wait for :func:`farm_go`; whether to time."""
+    go = FARM_WORK / f"{name}.go"
+    while not go.exists():
+        time.sleep(0.2)
+    return go.read_text() == "1"
+
+
+def _end_session(proc: subprocess.Popen) -> None:
+    """Kill ``proc`` and whatever of its session is left."""
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def farm_result(name: str) -> dict:
+    """Wait for the job ``name`` (started now if it was not), print its
+    output, and return its record (kept for a second call); raises if it
+    failed."""
+    farm_start(name)
+    proc = _farm[name]
+    if hasattr(proc, "record"):
+        return proc.record
+    try:
+        rc = proc.wait(timeout=max(1.0, FARM_JOB_S + 30 - (time.perf_counter() - proc.started)))
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    _end_session(proc)
+    proc.joined = True
+    log(f"[farm] {name}: rc {rc}, joined {time.perf_counter() - proc.started:.1f} s after "
+        f"its start:\n{(FARM_WORK / f'{name}.log').read_text(errors='replace')[-20000:]}")
+    if rc != 0:
+        raise RuntimeError(f"the background job {name} failed (rc {rc})")
+    proc.record = json.loads((FARM_WORK / f"{name}.json").read_text())
+    return proc.record
+
+
+def farm_stop() -> None:
+    """End every job not yet waited for."""
+    for proc in _farm.values():
+        if not getattr(proc, "joined", False):
+            _end_session(proc)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-timing", action="store_true", help="run the checks only")
@@ -2767,20 +3266,23 @@ def main() -> int:
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
     ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve",
-                                       "knobs", "deadrank", "tools", "smoke"),
+                                       "knobs", "deadrank", "tools", "smoke", "spatial"),
                     default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
                          "phase only; 'dist' the data-parallel phase only; 'serve' the "
                          "serving deployment phase only; 'knobs' the model knobs phase only; "
                          "'deadrank' the dead-rank phase only; 'tools' the measurement "
-                         "tools phase only; 'smoke' the train smoke's phase only")
+                         "tools phase only; 'smoke' the train smoke's phase only; 'spatial' "
+                         "the data x spatial mesh phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--dist-fixed"]:
         return fixed_worker(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--smoke-worker"]:
         return smoke_worker(Path(sys.argv[2]), sys.argv[3:])
+    if sys.argv[1:2] == ["--farm-job"]:
+        return farm_job(sys.argv[2], Path(sys.argv[3]))
     args = ap.parse_args()
     timing = not args.no_timing
     if args.profile is not None:
@@ -2812,69 +3314,122 @@ def main() -> int:
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
         return result
 
-    if args.only in ("all", "kernels"):
+    try:
+        return run_phases(args.only, timing, card, args.profile, phase)
+    finally:
+        farm_stop()
+
+
+def run_phases(only: str, timing: bool, card: str, profile_dir: Path | None, phase) -> int:
+    """The phases ``--only`` names, in the order of the module's docstring
+    (a full run takes the background jobs' results where it waits for them)."""
+    if only in ("all", "kernels"):
         dw_rows = phase("dw", dw_phase, timing)
         dw_step = phase("dw-step", dw_train_timing) if timing else {}
         mb_rows = phase("mbconv", mbconv_phase, timing)
-    if args.only == "kernels":
+    if only == "kernels":
         log(json.dumps({"dw": dw_rows, "dw_step": dw_step, "mbconv": mb_rows}))
         log(card)
         return 0
-    if args.only == "trainer":
+    if only == "trainer":
         log(json.dumps({"trainer": phase("trainer", trainer_phase, timing, card, None)}))
         log(card)
         return 0
-    if args.only == "dist":
-        log(json.dumps({"dist": phase("dist", dist_phase, timing, card, None, args.profile)}))
+    if only == "dist":
+        log(json.dumps({"dist": phase("dist", dist_phase, timing, card, None, profile_dir)}))
         log(card)
         return 0
-    if args.only == "serve":
-        log(json.dumps({"serve": phase("serve", serve_phase, timing, card)}))
+    if only == "serve":
+        serve, held = phase("serve", serve_phase)
+        serve["cache"] = farm_result("serve_cache")
+        if timing:
+            phase("serve-timing", serve_timing, serve, held, card)
+        log(json.dumps({"serve": serve}))
         log(card)
         return 0
-    if args.only == "knobs":
-        log(json.dumps({"knobs": phase("knobs", knobs_phase, timing, card)}, default=str))
+    if only == "knobs":
+        farm_start("remat_compile", "knob_tests")
+        knobs = phase("knobs", knobs_phase)
+        knobs["remat_compile_vs_eager"] = farm_result("remat_compile")
+        knobs["gpu_tests"] = farm_result("knob_tests")
+        if timing:
+            knobs["timing"] = phase("knob-timing", knob_timing, card)
+        log(json.dumps({"knobs": knobs}, default=str))
         log(card)
         return 0
-    if args.only == "deadrank":
+    if only == "deadrank":
         log(json.dumps({"deadrank": phase("deadrank", deadrank_phase, card)}))
         log(card)
         return 0
-    if args.only == "tools":
+    if only == "tools":
         log(json.dumps({"tools": phase("tools", tools_phase, card)}))
         log(card)
         return 0
-    if args.only == "smoke":
+    if only == "smoke":
         log(json.dumps({"smoke": phase("smoke", smoke_phase, card)}))
         log(card)
         return 0
-    if args.only == "all":
-        serving = phase("serving", serving_phase, timing, card, args.profile)
-        serve = phase("serve", serve_phase, timing, card)
+    if only == "spatial":
+        log(json.dumps({"spatial": phase("spatial", spatial_phase, card, timing)}))
+        log(card)
+        return 0
+    if only == "all":
+        serving = phase("serving", serving_phase, timing, card, profile_dir)
     bn_rows = phase("bn", bn_phase, timing)
     dw_train = phase("dw-train", dw_train_phase)
-    train = phase("train", train_phase, timing, card, args.profile)
 
-    if args.only == "all":
-        # Right after train: the compile route's kernels are in Inductor's cache.
-        knobs = phase("knobs", knobs_phase, timing, card)
-        trainer = phase("trainer", trainer_phase, timing, card, train)
-        dist = phase("dist", dist_phase, timing, card, trainer, args.profile)
+    # Nothing is timed from here until the jobs are done; each phase of this
+    # process hands its cached device memory back for the jobs'.
+    farm_start(*(FARM_JOBS if only == "all" else ("train_compile",)))
+
+    def checks(name, fn, *a):
+        result = phase(name, fn, *a)
+        torch.cuda.empty_cache()
+        return result
+
+    if only == "all":
+        serve, held = checks("serve", serve_phase)
+    train = checks("train", train_phase)
+    if only == "all":
+        knobs = checks("knobs", knobs_phase)
         # The smoke phase's first two processes run beside the deadrank phase.
         smoke_runs = smoke_start()
         try:
-            deadrank = phase("deadrank", deadrank_phase, card)
+            deadrank = checks("deadrank", deadrank_phase, card)
         except BaseException:
             smoke_stop(smoke_runs)
             raise
-        smoke = phase("smoke", smoke_phase, card, smoke_runs)
+        smoke = checks("smoke", smoke_phase, card, smoke_runs)
+        t0 = time.perf_counter()
+        jobs = {name: farm_result(name) for name in FARM_JOBS if name != "train_compile"}
+        log(f"[farm] waited {time.perf_counter() - t0:.1f} s for the background jobs")
+        serve["cache"] = jobs["serve_cache"]
+        knobs["remat_compile_vs_eager"] = jobs["remat_compile"]
+        knobs["gpu_tests"] = jobs["knob_tests"]
+        if timing:
+            phase("serve-timing", serve_timing, serve, held, card)
+        del held
+    # The compile route's step is timed in its job, with nothing else running.
+    farm_go("train_compile", timing)
+    train["bf16_compile_vs_eager"] = farm_result("train_compile")
+    if timing:
+        train.update(phase("train-timing", train_timing, card, profile_dir,
+                           train["bf16_compile_vs_eager"].pop("timing")))
+
+    if only == "all":
+        if timing:
+            knobs["timing"] = phase("knob-timing", knob_timing, card)
+        trainer = phase("trainer", trainer_phase, timing, card, train)
+        dist = phase("dist", dist_phase, timing, card, trainer, profile_dir)
+        spatial = phase("spatial", spatial_phase, card, timing)
         tools = phase("tools", tools_phase, card)
         log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train,
-                                    trainer, dist, knobs, deadrank, smoke)))
+                                    trainer, dist, knobs, deadrank, smoke, spatial)))
         log(json.dumps({"serving": serving}))
         log(json.dumps({"serve": serve}))
         log(json.dumps({"trainer": trainer}))
         log(json.dumps({"dist": dist}))
+        log(json.dumps({"spatial": spatial}))
         log(json.dumps({"deadrank": deadrank}))
         log(json.dumps({"smoke": smoke}))
         log(json.dumps({"tools": tools}))

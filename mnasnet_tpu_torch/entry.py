@@ -17,16 +17,20 @@ Counterpart of the root ``__graft_entry__.py``:
     the production shape: mnasnet1_0 @224 bf16 at 128 images a rank, one
     step captured on the graph route and one replay. That capture stands
     for the reference's ahead-of-time compile of its production-shape
-    step. Rank 0 prints one line per step, as the reference does.
+    step. Between them, as the reference does (``__graft_entry__.py:
+    148-162,193-208``), one sync-BN step at the tiny shapes on the
+    ``dcn × data`` mesh ``2 × n/2`` (``n`` even and at least 4) and, last,
+    one on the ``data × spatial`` mesh ``n/2 × 2`` (``n`` even): each rank
+    holds its band of 16 of the 32 image rows of its data shard's 2 images,
+    and the halo exchanges run over its spatial group's subgroup (inside
+    the captured graph over NCCL). Rank 0 prints one line per step, as the
+    reference does, and the spatial step's band plan.
 
 Where the reference re-executes itself on a virtual CPU mesh when it has
 fewer devices than asked, ``device="cuda"`` here raises, naming the count;
 the ``n`` gloo ranks on the CPU run only when the caller passes
 ``device="cpu"``, and there the production-shape capture, which needs a
-card, is not made. The reference's ``dcn × data`` mesh (its hierarchical
-reduction over two axes) has no process-group counterpart yet: one group
-spans all ranks. Nor has its ``data × spatial`` mesh (spatial partitioning
-is not ported).
+card, is not made.
 """
 
 from __future__ import annotations
@@ -94,8 +98,11 @@ def _rank(rank: int, world: int, kind: str, rendezvous: str) -> None:
 def _one_step(replicas, *, sync_bn: bool, image=TINY_IMAGE, per_rank=TINY_PER_RANK,
               classes=TINY_CLASSES, dtype=torch.float32, dw_impl="torch", replays=0):
     """One train step of mnasnet1_0 through a fresh ``Trainer`` on ones and
-    zero labels (then ``replays`` more calls); the loss and the trainer."""
+    zero labels (then ``replays`` more calls), on the replicas' mesh: each
+    rank takes its band of its shard's ``per_rank`` images; the loss and the
+    trainer."""
     from mnasnet_tpu_torch import create_model
+    from mnasnet_tpu_torch.parallel import take_band
     from mnasnet_tpu_torch.train.optim import create_optimizer
     from mnasnet_tpu_torch.train.trainer import Trainer
 
@@ -106,7 +113,7 @@ def _one_step(replicas, *, sync_bn: bool, image=TINY_IMAGE, per_rank=TINY_PER_RA
                       label_smoothing=0.1, compute_dtype=dtype, print_freq=1_000_000,
                       replicas=replicas, sync_bn=sync_bn)
     state = trainer.create_state(0)
-    images = torch.ones(per_rank, image, image, 3, dtype=dtype, device=dev)
+    images = take_band(torch.ones(per_rank, image, image, 3, dtype=dtype, device=dev), replicas)
     labels = torch.zeros(per_rank, dtype=torch.long, device=dev)
     for _ in range(1 + replays):
         state, metrics = trainer.route(state, images, labels)
@@ -118,6 +125,9 @@ def _one_step(replicas, *, sync_bn: bool, image=TINY_IMAGE, per_rank=TINY_PER_RA
 
 
 def _dryrun(replicas) -> None:
+    from mnasnet_tpu_torch.parallel import make_mesh, use_mesh
+    from mnasnet_tpu_torch.parallel.spatial import bands
+
     n = replicas.world
     say = print if replicas.rank == 0 else (lambda *a, **k: None)
     loss, trainer = _one_step(replicas, sync_bn=True)
@@ -125,6 +135,12 @@ def _dryrun(replicas) -> None:
     loss_lb, trainer = _one_step(replicas, sync_bn=False)
     say(f"dryrun dp local-BN({n}x1): ok, loss={loss_lb:.4f} ({trainer.route.route} route)",
         flush=True)
+    if n % 2 == 0 and n >= 4:
+        use_mesh(replicas, make_mesh(n, dcn=2, data=n // 2))
+        loss_dcn, trainer = _one_step(replicas, sync_bn=True)
+        say(f"dryrun dcn x dp(2x{n // 2}): ok, loss={loss_dcn:.4f} ({trainer.route.route} "
+            "route)", flush=True)
+        use_mesh(replicas, make_mesh(n))
     if replicas.device.type == "cuda":
         prod, trainer = _one_step(replicas, sync_bn=True, image=PROD_IMAGE,
                                   per_rank=PROD_PER_RANK, classes=1000, dtype=torch.bfloat16,
@@ -139,4 +155,12 @@ def _dryrun(replicas) -> None:
     else:
         say("dryrun production-shape capture: not made on the CPU (the graph route runs on a "
             "CUDA device)", flush=True)
+    if n % 2 == 0:
+        use_mesh(replicas, make_mesh(n, data=n // 2, spatial=2))
+        loss_sp, trainer = _one_step(replicas, sync_bn=True)
+        plan = " ".join(f"{h}:{'/'.join(str(b - a) for a, b in bands(h, 2))}"
+                        for h, _ in trainer.model.planes(TINY_IMAGE, TINY_IMAGE))
+        say(f"dryrun dp x sp band plan (plane rows: rows a band): {plan}", flush=True)
+        say(f"dryrun dp x sp({n // 2}x2): ok, loss={loss_sp:.4f} ({trainer.route.route} route)",
+            flush=True)
     say(f"dryrun_multichip({n}): ok, loss={loss:.4f}", flush=True)

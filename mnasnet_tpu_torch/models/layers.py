@@ -16,6 +16,13 @@ running statistics (:class:`BatchNorm`), and the stem may take its
 space-to-depth form (:class:`StemConv`). A BatchNorm that holds a replica
 handle (:func:`set_replicas`) takes the statistics of the global batch over
 the data-parallel replicas: sync-BN.
+
+Under a spatial mesh (``parallel/mesh.py``) each module sees its rank's band
+of rows of a plane. The stem and the depthwise convs, which hold the handle
+too, run on the band's window of rows with the halo rows of the other ranks
+(``parallel/spatial.py:banded``); a BatchNorm's sums are world-wide and its
+count is the band plan's (``parallel/dist.py:global_rows``); a 1x1 conv needs
+no halo.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from torch import nn
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import STATS, batch_moments, bn_relu_train
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.parallel.dist import Replicas, global_rows
+from mnasnet_tpu_torch.parallel.mesh import spatial_of
+from mnasnet_tpu_torch.parallel.spatial import banded
 
 BN_MOMENTUM = 0.9997  # EMA decay; torch momentum = 1 - 0.9997 = 3e-4
 BN_EPSILON = 1e-5
@@ -178,10 +187,12 @@ def _affine(x: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor) -> torch.Te
 
 def set_replicas(module: nn.Module, replicas: Replicas | None) -> Replicas | None:
     """Give every :class:`BatchNorm` in ``module`` the replica handle (sync-BN;
-    None: per-replica statistics); returns the handle they held before."""
+    None: per-replica statistics), and every :class:`StemConv` and
+    :class:`DepthwiseConv` too (their halo rows under a spatial mesh);
+    returns the handle the BatchNorms held before."""
     previous = replicas_of(module)
     for m in module.modules():
-        if isinstance(m, BatchNorm):
+        if isinstance(m, (BatchNorm, StemConv, DepthwiseConv)):
             m.replicas = replicas
     return previous
 
@@ -235,16 +246,31 @@ class StemConv(nn.Module):
     exactly equivalent 2x2 stride-1 conv runs on it. Its kernel is the
     (F, 3, 3, 3) parameter padded and regrouped on every call, so the
     gradient lands on the parameter. Eval mode runs the plain conv.
+
+    Under a spatial mesh x is the rank's band of image rows: either form
+    runs on the band's window (``parallel/spatial.py:banded``), whose start
+    is even, so that the s2d form packs whole pixel blocks: the two image
+    rows above the band's first block come from the rank above (the first
+    of them meets only the zero tap), and the zero row on top is the
+    window's, cropped away, except on the first band.
     """
 
     def __init__(self, features: int, s2d: bool = False):
         super().__init__()
         self.s2d = s2d
         self.weight = nn.Parameter(torch.empty(features, 3, 3, 3))
+        self.replicas: Replicas | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s2d = self.s2d and self.training
+        if spatial_of(self.replicas) is None:
+            return self._conv(x, s2d)
+        return nchw(banded(nhwc(x), self.replicas, 3, 2, lambda xw: nhwc(self._conv(nchw(xw), s2d)),
+                           self.weight.shape[0], (self.weight,)))
+
+    def _conv(self, x: torch.Tensor, s2d: bool) -> torch.Tensor:
         n, c, h, w = x.shape
-        if not (self.s2d and self.training) or h % 2 or w % 2:
+        if not s2d or h % 2 or w % 2:
             return F.conv2d(x, self.weight.to(x.dtype), stride=2, padding=1)
         xs = (nhwc(x).reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
               .reshape(n, h // 2, w // 2, 4 * c))
@@ -270,11 +296,23 @@ class DepthwiseConv(nn.Module):
         self.stride = stride
         self.impl = impl
         self.weight = nn.Parameter(torch.empty(channels, 1, kernel_size, kernel_size))
+        self.replicas: Replicas | None = None
 
     def kernel(self) -> torch.Tensor:
         """(k, k, 1, C) view, the JAX package's layout."""
         return self.weight.permute(2, 3, 1, 0)
 
+    def on_band(self, x: torch.Tensor, fn, out_channels: int | None = None) -> torch.Tensor:
+        """``fn`` (NHWC, this conv's geometry, ``out_channels`` out, by default
+        this conv's) on NCHW ``x``: on the whole plane, or under a spatial
+        mesh on the band's window of rows (``parallel/spatial.py:banded``);
+        NCHW out."""
+        y = nhwc(x)
+        if spatial_of(self.replicas) is not None:
+            return nchw(banded(y, self.replicas, self.kernel_size, self.stride, fn,
+                               out_channels or self.weight.shape[0], (self.weight,)))
+        return nchw(fn(y))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nchw(depthwise_conv2d(nhwc(x), self.kernel(), stride=self.stride,
-                                     impl=self.impl))
+        return self.on_band(x, lambda y: depthwise_conv2d(y, self.kernel(), stride=self.stride,
+                                                          impl=self.impl))

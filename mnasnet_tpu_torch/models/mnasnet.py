@@ -43,6 +43,16 @@ fused MBConv kernel is inference-only and never runs in train mode.
 The reference's model knobs ``remat``, ``pw_lowering`` and ``channel_pad``
 are :class:`MNASNet`'s; ``dw_impl`` also takes its training routes
 ``"taps"``, ``"taps2"`` and ``"hybrid"`` (``ops/depthwise.py``).
+
+Under a spatial mesh (the replica handle of ``models.layers.set_replicas``
+with ``parallel/mesh.py:use_mesh``'s ``spatial`` > 1) the forward takes the
+rank's band of the image rows (``parallel/mesh.py:take_band``), records the
+band plan of every plane it meets (:meth:`MNASNet.planes`,
+``parallel/mesh.py:register_planes``), runs every k > 1 conv on its band's
+window with the other ranks' halo rows, the fused MBConv and dw kernels in
+eval mode too, and pools the bands' sums over the spatial group
+(``parallel/spatial.py``). The logits are then the whole images' on every
+rank of the group.
 """
 
 from __future__ import annotations
@@ -72,6 +82,8 @@ from mnasnet_tpu_torch.ops.depthwise import (
     resolve_impl,
 )
 from mnasnet_tpu_torch.parallel.dist import SumTape, taped_sums
+from mnasnet_tpu_torch.parallel.mesh import register_planes, spatial_of
+from mnasnet_tpu_torch.parallel.spatial import exchanges, out_size, plane_rows, spatial_mean
 
 # Base (alpha=1.0) widths and MBConv stack spec: (kernel, stride, expansion, repeats).
 BASE_DEPTHS = (32, 16, 24, 40, 80, 96, 192, 320)
@@ -174,11 +186,15 @@ class InvertedResidual(nn.Module):
     def _use_fused_block(self, x: torch.Tensor, impl: str) -> bool:
         """The single-kernel fused block (ops/cuda/mbconv.py): eval mode only
         (``mnasnet.py:134``), on the kernel route, when the block has a
-        shared-memory plan for its (padded) widths."""
+        shared-memory plan for its (padded) widths at the whole plane's
+        height (on a band the kernel sees fewer rows)."""
         if self.training or impl != "kernel":
             return False
+        rows = x.shape[2]
+        if spatial_of(self.layers[3].replicas) is not None:
+            rows = plane_rows(self.layers[3].replicas, nhwc(x))
         return mbconv_fits_smem(
-            x.shape[2], x.shape[3], self.in_ch, self.mid_ch, self.out_ch,
+            rows, x.shape[3], self.in_ch, self.mid_ch, self.out_ch,
             self.kernel_size, self.stride, x.element_size())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -190,15 +206,17 @@ class InvertedResidual(nn.Module):
             se, be = expand_bn.folded()
             sd, bd = dw_bn.folded()
             sp, bp = project_bn.folded()
-            return nchw(mbconv_fused(
-                nhwc(x), expand.matrix(), se, be, dw.kernel(), sd, bd,
+            # On a band: the block's input window, whose 1x1 expand gives the
+            # dw its halo rows; the residual is the window's own rows.
+            return dw.on_band(x, lambda xw: mbconv_fused(
+                xw, expand.matrix(), se, be, dw.kernel(), sd, bd,
                 project.matrix(), sp, bp, kernel_size=self.kernel_size,
-                stride=self.stride, residual=self.apply_residual))
+                stride=self.stride, residual=self.apply_residual), self.out_ch)
         y = torch.relu(expand_bn(expand(x)))
         if impl != "torch":
             s, b = dw_bn.folded()
-            y = nchw(depthwise_conv_bn_relu_fused(nhwc(y), dw.kernel(), s, b,
-                                                  stride=self.stride, impl=impl))
+            y = dw.on_band(y, lambda yw: depthwise_conv_bn_relu_fused(
+                yw, dw.kernel(), s, b, stride=self.stride, impl=impl))
         else:
             y = torch.relu(dw_bn(dw(y)))
         y = project_bn(project(y))  # linear bottleneck
@@ -371,6 +389,11 @@ class MNASNet(nn.Module):
         """Backbone up to the 1280-wide head feature map (pre-pool), NCHW."""
         L = self.layers
         x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
+        mesh = spatial_of(L[1].replicas)
+        if mesh is not None:
+            n, _, h, w = x.shape
+            register_planes(L[1].replicas, n, self.planes(h * mesh.spatial, w),
+                            counts=self.training)
         impl = resolve_impl(self.dw_impl, x)
         region = self.training and resolve_impl(self.bn_bwd, x) == "kernel"
         if self.width_problem and (impl == "kernel" or region):
@@ -378,14 +401,49 @@ class MNASNet(nn.Module):
         y = _bn_relu(L[1], L[0](x), region)
         if not self.training and impl != "torch":
             s, b = L[4].folded()
-            y = nchw(depthwise_conv_bn_relu_fused(nhwc(y), L[3].kernel(), s, b,
-                                                  stride=1, impl=impl))
+            y = L[3].on_band(y, lambda yw: depthwise_conv_bn_relu_fused(
+                yw, L[3].kernel(), s, b, stride=1, impl=impl))
         else:
             y = _bn_relu(L[4], L[3](y), region)
         y = L[7](L[6](y))
         for stack in L[8:14]:
             y = stack(y)
         return _bn_relu(L[15], L[14](y), region)
+
+    def planes(self, rows: int, cols: int) -> list[tuple[int, int]]:
+        """(H, W) of every plane a forward on ``rows`` x ``cols`` images meets:
+        the images, the stem's output and each strided stage's."""
+        out = [(rows, cols)]
+        strided = [(3, 2)] + [(b.kernel_size, b.stride) for stack in self.layers[8:14]
+                              for b in stack if b.stride > 1]
+        for k, stride in strided:
+            rows, cols = out_size(rows, k, stride), out_size(cols, k, stride)
+            out.append((rows, cols))
+        return out
+
+    def spatial_convs(self, rows: int) -> list[tuple[int, int, int]]:
+        """(plane rows, k, stride) of every k > 1 conv of a forward on images
+        of ``rows`` rows, in order: the stem, the separable dw, each block's
+        dw."""
+        convs = [(rows, 3, 2)]
+        rows = out_size(rows, 3, 2)
+        convs.append((rows, 3, 1))
+        for stack in self.layers[8:14]:
+            for b in stack:
+                convs.append((rows, b.kernel_size, b.stride))
+                rows = out_size(rows, b.kernel_size, b.stride)
+        return convs
+
+    def spatial_collectives(self, rows: int, parts: int, train: bool = True) -> int:
+        """The collectives a forward (and with ``train`` its backward) on
+        images of ``rows`` rows adds under a spatial mesh of ``parts`` ranks a
+        group: a halo exchange each way for each k > 1 conv whose windows
+        reach past a band (the stem's has no backward: the images need no
+        gradient), and the pooled sums each way."""
+        n = 0
+        for i, (h, k, stride) in enumerate(self.spatial_convs(rows)):
+            n += exchanges(h, parts, k, stride) * (1 + int(train and i > 0))
+        return n + 1 + int(train)
 
     def dropout_keep(self, rows: int, generator: torch.Generator | None,
                      device) -> torch.Tensor | None:
@@ -403,7 +461,12 @@ class MNASNet(nn.Module):
         """fp32 logits. In train mode dropout keeps the features where
         ``keep`` is true, or draws that mask from ``generator`` (the default
         generator of the device when None) when ``keep`` is None."""
-        y = self.features(x).mean(dim=(2, 3))  # global average pool, compute dtype
+        f = self.features(x)
+        replicas = self.layers[1].replicas
+        if spatial_of(replicas) is not None:  # global average pool, compute dtype
+            y = spatial_mean(f, replicas, plane_rows(replicas, nhwc(f)))
+        else:
+            y = f.mean(dim=(2, 3))
         p = self.classifier[0].p
         if self.training and p > 0.0:
             if keep is None:

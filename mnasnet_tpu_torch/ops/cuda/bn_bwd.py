@@ -20,6 +20,9 @@ the moments are those of the global batch, summed over the replicas
 (:func:`batch_moments`), and the backward sums the reduce's (2, C) output
 over them, in place, between its launch and the dx kernel's, which then
 divides by the global count (:func:`bn_bwd`). The kernels are the same.
+Under a spatial mesh x is a rank's band of rows: the sums are still
+world-wide, the count is the band plan's (``parallel/dist.py:global_rows``),
+and an empty band launches neither kernel.
 
 The two kernels are the ``torch.library`` ops ``mnasnet_tpu_torch::bn_bwd_reduce``
 and ``mnasnet_tpu_torch::bn_bwd_dx``, as the serving kernels are
@@ -89,7 +92,7 @@ def batch_moments(x: torch.Tensor, stats: str, replicas: Replicas | None = None
     captures the sums."""
     if stats not in STATS:
         raise ValueError(f"unknown BN stats {stats!r}; choices: {STATS}")
-    x32 = x.float()
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 stays float64
     axes = tuple(range(x.dim() - 1))
     if replicas is not None:
         n = global_rows(x.numel() // x.shape[-1], replicas)
@@ -450,14 +453,19 @@ def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None 
     device thread; a capture of the step records them in this order."""
     inv = torch.rsqrt(var + eps)  # the forward's own rsqrt(var + eps)
     dy = dy.to(x.dtype).contiguous()
-    sums = _reduce(x, dy, mean, inv, gamma, beta)
+    # An empty band of a spatial mesh (a plane of fewer rows than ranks)
+    # launches nothing and adds zeros to the sums.
+    empty = x.numel() == 0
+    sums = x.new_zeros((2, x.shape[-1]), dtype=torch.float32) if empty \
+        else _reduce(x, dy, mean, inv, gamma, beta)
     own, n = sums, x.numel() // x.shape[-1]
     if replicas is not None:
         own = sums.clone()
         all_reduce_sum_([sums], replicas, "all_reduce (BN backward sums)")
         n = global_rows(n, replicas)
     dg, db = sums.unbind()
-    dx = torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(x, dy, mean, inv, gamma, beta, dg, db, n)
+    dx = torch.empty_like(x) if empty else \
+        torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(x, dy, mean, inv, gamma, beta, dg, db, n)
     dg, db = own.unbind()
     return dx, dg.to(gamma.dtype), db.to(beta.dtype)
 

@@ -57,10 +57,16 @@ then blocks in, a copy to the host or a synchronize behind a replay that
 spins on a dead peer, an event behind that replay is pending.
 :func:`close` leaves a failed group by abort, which waits on nothing.
 
-``--mesh-dcn N`` (multi-slice) adds no code path: NCCL's topology already
-reduces within a node before it crosses nodes, which is what the reference's
-``('dcn', 'data')`` axes give GSPMD. Spatial partitioning (``spatial``) is
-not ported.
+Meshes (``parallel/mesh.py``): :func:`~mnasnet_tpu_torch.parallel.mesh.
+use_mesh` lays the ranks out as the reference's ``dcn × data × spatial``
+mesh (``Replicas.mesh``). A ``dcn`` axis changes no collective: NCCL's
+topology already reduces within a node before it crosses nodes, which is
+what the reference's ``('dcn', 'data')`` axes give GSPMD. A ``spatial``
+axis splits each image's rows into bands over the ranks of a spatial
+group (``parallel/spatial.py``): the halo exchanges and the pooled
+features are summed over the group's subgroup (``Replicas.spatial_group``),
+everything else stays world-wide, and :func:`global_rows` takes sync-BN's
+counts from the static band plan.
 """
 
 from __future__ import annotations
@@ -176,6 +182,11 @@ class Replicas:
         self.failed: Optional[str] = None
         self.deadline: Optional[Deadline] = None
         self.tape: Optional[SumTape] = None
+        # The mesh (parallel/mesh.py:use_mesh): None is the flat data mesh.
+        self.mesh = None
+        self.spatial_group = None
+        self.spatial_counts: dict[int, int] = {}
+        self.spatial_planes: dict[tuple[int, int], int] = {}
         self._rows_checked: set[int] = set()
         self._graphs: weakref.WeakSet = weakref.WeakSet()
 
@@ -297,12 +308,13 @@ def close(replicas: Optional[Replicas]) -> None:
             dist.destroy_process_group()
 
 
-def _issue(replicas: Replicas, what: str, collective, *args, **kwargs) -> None:
-    """Issue one collective of ``replicas``' group and count it, or mark the
-    replicas failed and raise :class:`CollectiveFailed` naming this rank and
-    ``what``; an NCCL group's :class:`Deadline` watches it."""
+def _issue(replicas: Replicas, what: str, collective, *args, group=None, **kwargs) -> None:
+    """Issue one collective of ``replicas``' group (or of its subgroup
+    ``group``) and count it, or mark the replicas failed and raise
+    :class:`CollectiveFailed` naming this rank and ``what``; an NCCL group's
+    :class:`Deadline` watches it."""
     try:
-        collective(*args, group=replicas.group, **kwargs)
+        collective(*args, group=replicas.group if group is None else group, **kwargs)
     except RuntimeError as e:
         replicas.failed = f"{what} failed: {(str(e).splitlines() or [repr(e)])[0]}"
         raise CollectiveFailed(f"rank {replicas.rank}: {replicas.failed}") from e
@@ -326,7 +338,7 @@ def all_reduce_sum_(tensors: Iterable[torch.Tensor], replicas: Optional[Replicas
     (named ``what`` if it fails). One contiguous fp32 tensor is reduced
     where it lies; several (of any dtype that fp32 holds exactly, such as
     counts) go through one flat fp32 buffer on the replica's device and
-    back."""
+    back, a float64 buffer when one of them is float64."""
     if replicas is None:
         return
     tensors = list(tensors)
@@ -334,7 +346,8 @@ def all_reduce_sum_(tensors: Iterable[torch.Tensor], replicas: Optional[Replicas
             and tensors[0].is_contiguous() and tensors[0].device == replicas.device):
         _issue(replicas, what, dist.all_reduce, tensors[0])
         return
-    flat = _flat_buffer(tensors, torch.float32, replicas.device)
+    wide = any(t.dtype == torch.float64 for t in tensors)
+    flat = _flat_buffer(tensors, torch.float64 if wide else torch.float32, replicas.device)
     _issue(replicas, what, dist.all_reduce, flat)
     _scatter_back_(flat, tensors)
 
@@ -342,19 +355,20 @@ def all_reduce_sum_(tensors: Iterable[torch.Tensor], replicas: Optional[Replicas
 class _AllReduceSum(torch.autograd.Function):
     """``torch.distributed.nn.functional.all_reduce`` for a sum (deprecated in
     this PyTorch, with a warning on every call), counting its collectives:
-    the forward sums a copy of the tensor over the replicas, the backward
-    sums a copy of the gradient."""
+    the forward sums a copy of the tensor over the replicas (or over their
+    subgroup ``group``), the backward sums a copy of the gradient."""
 
     @staticmethod
-    def forward(ctx, t, replicas):
-        ctx.replicas = replicas
+    def forward(ctx, t, replicas, group=None):
+        ctx.replicas, ctx.group = replicas, group
         out = t.clone(memory_format=torch.contiguous_format)
-        _issue(replicas, "all_reduce (sync-BN)", dist.all_reduce, out)
+        what = "all_reduce (sync-BN)" if group is None else "all_reduce (pooled features)"
+        _issue(replicas, what, dist.all_reduce, out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad, ctx.replicas), None
+        return _AllReduceSum.apply(grad, ctx.replicas, ctx.group), None, None
 
 
 class _Replayed(torch.autograd.Function):
@@ -413,16 +427,18 @@ def taped_sums(replicas: Optional[Replicas], tape: SumTape):
         replicas.tape = previous
 
 
-def all_reduce_sum(t: torch.Tensor, replicas: Optional[Replicas]) -> torch.Tensor:
-    """The sum of ``t`` over the replicas as a new tensor, differentiable: the
-    backward sums the gradient over the replicas again, one collective each
-    way. Inside :func:`taped_sums` the sum is recorded, or replayed."""
+def all_reduce_sum(t: torch.Tensor, replicas: Optional[Replicas],
+                   group=None) -> torch.Tensor:
+    """The sum of ``t`` over the replicas (or over their subgroup ``group``)
+    as a new tensor, differentiable: the backward sums the gradient over
+    them again, one collective each way. Inside :func:`taped_sums` the sum
+    is recorded, or replayed."""
     if replicas is None:
         return t
     tape = replicas.tape
     if tape is not None and tape.replaying:
         return _Replayed.apply(t, tape.take(), replicas)
-    out = _AllReduceSum.apply(t, replicas)
+    out = _AllReduceSum.apply(t, replicas, group)
     if tape is not None:
         tape.sums.append(out.detach())
     return out
@@ -550,8 +566,14 @@ def _capturing() -> bool:
 
 
 def global_rows(m: int, replicas: Optional[Replicas]) -> int:
-    """The rows of a BN plane summed over the replicas, ``m`` on each: the
-    count that sync-BN's moments and its backward divide by. Sync-BN takes
+    """The rows of a BN plane summed over the replicas, ``m`` on this one: the
+    count that sync-BN's moments and its backward divide by.
+
+    Under a spatial mesh the bands of a plane may differ in height (a 7-row
+    plane over 2 ranks: 4 and 3), so the count is the band plan's: Σ over
+    the ranks of band rows × W × local N, recorded by the model for every
+    plane of its forward (``parallel/mesh.py:register_planes``). Nothing is
+    read on the host, so a capture takes any size. Otherwise sync-BN takes
     the same shape on every replica (the loader gives it; the reference's
     sharded global batch has it too), so the count is ``m·world``, known to
     the host without a collective. The first time a value of ``m`` is seen
@@ -562,6 +584,12 @@ def global_rows(m: int, replicas: Optional[Replicas]) -> int:
     before a capture meets every size of the step."""
     if replicas is None:
         return m
+    if replicas.mesh is not None and replicas.mesh.spatial > 1:
+        try:
+            return replicas.spatial_counts[m]
+        except KeyError:
+            raise RuntimeError(f"sync-BN meets a band of {m} rows per channel that no plane "
+                               "of the registered band plan gives this rank") from None
     if m not in replicas._rows_checked:
         if _capturing():
             raise RuntimeError(

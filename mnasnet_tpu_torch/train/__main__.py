@@ -150,7 +150,8 @@ def parse_args(argv=None):
     p.add_argument("--deterministic", action="store_true",
                    help="bit-reproducible runs: seed=0 unless --seed given, two-pass BN "
                         "stats; on a GPU also deterministic algorithms (an op without "
-                        "one raises), no cuDNN benchmarking, a fixed cuBLAS workspace")
+                        "one raises), no cuDNN benchmarking or TF32, a fixed cuBLAS "
+                        "workspace")
     p.add_argument("--decoder", choices=["pil", "native", "native-fast"],
                    default="native-fast",
                    help="JPEG path: PIL, native fused decoder (strict PIL parity), or "
@@ -249,12 +250,21 @@ def _check_preempt_meta(pre_dir: str, spe: int) -> None:
 def _set_deterministic(device) -> None:
     """What bit-reproducible runs take on a GPU: cuBLAS's fixed workspace
     (read at its first call), deterministic algorithms everywhere (an op
-    that has none raises rather than varies), no cuDNN autotuning."""
+    that has none raises rather than varies), no cuDNN autotuning, and no
+    TF32 in cuDNN's convolutions. TF32 (on in PyTorch by default) rounds a
+    conv's inputs to 10 mantissa bits in the algorithms cuDNN picks by
+    shape, so the stem conv's gradient over two ranks' halves and over the
+    whole batch differed by 27% relative RMS on an H100 at random init, and
+    by the fp32 rounding's 0.4% without it (``tools/stem_grad_order.py``,
+    PERF.md): the reference pins two-pass BN under ``--deterministic`` for
+    results that do not depend on the mesh, and this keeps that promise on
+    the card."""
     import torch
 
     if device.type == "cuda":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
 
 
@@ -279,6 +289,7 @@ def main(argv=None):
         raise SystemExit(str(e)) from e
     prev_deterministic = torch.are_deterministic_algorithms_enabled()
     prev_benchmark = torch.backends.cudnn.benchmark
+    prev_tf32 = torch.backends.cudnn.allow_tf32
     prev_sigterm = signal.getsignal(signal.SIGTERM)
     try:
         check_world(args, replicas)
@@ -300,6 +311,7 @@ def main(argv=None):
     finally:
         torch.use_deterministic_algorithms(prev_deterministic)
         torch.backends.cudnn.benchmark = prev_benchmark
+        torch.backends.cudnn.allow_tf32 = prev_tf32
         signal.signal(signal.SIGTERM, prev_sigterm)
         close(replicas)
 
@@ -365,6 +377,8 @@ def _train(args, device, replicas):
         broadcast_seed,
         broadcast_state_,
         gather_int,
+        make_mesh,
+        use_mesh,
     )
     from mnasnet_tpu_torch.train.checkpoint import CheckpointManager
     from mnasnet_tpu_torch.train.optim import create_optimizer, get_ema_params
@@ -374,6 +388,10 @@ def _train(args, device, replicas):
 
     world, rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
     is_main = rank == 0
+    if replicas is not None:
+        # --mesh-dcn lays the ranks out as (dcn, data): the batch shards over
+        # both jointly, and every collective stays world-wide.
+        use_mesh(replicas, make_mesh(world, dcn=args.mesh_dcn))
 
     def say(*a, **kw):
         """print on rank 0 only: every replica runs the same run."""

@@ -25,7 +25,9 @@ Replicas: the per-batch moments are those of the global batch, over every
 replica's shard, in both BN modes of training, as the reference's recal is a
 program over the whole mesh (``mnasnet_tpu/train/bn_recal.py:13,117-141``):
 the BatchNorms hold the replica handle for the pass, so every replica pools
-the same statistics.
+the same statistics. Under a spatial mesh (``parallel/mesh.py``) the loader
+is the data shard's and each rank takes its band of each batch: the moments
+are still the global batch's (``mnasnet_tpu/train/bn_recal.py:107-141``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from torch import nn
 from mnasnet_tpu_torch.data.pipeline import prefetch_to_device
 from mnasnet_tpu_torch.models.layers import BatchNorm, set_replicas
 from mnasnet_tpu_torch.parallel.dist import Replicas
+from mnasnet_tpu_torch.parallel.mesh import take_band
 
 
 def _combine(sum_s: dict, sum_sq: dict, n: int) -> dict:
@@ -113,7 +116,7 @@ def recalibrate_bn(model: nn.Module, loader, *, num_batches: Optional[int] = Non
     try:
         for images, _labels in prefetch_to_device(loader.epoch(0), device=dev,
                                                   dtype=compute_dtype):
-            raw = step(images)
+            raw = step(take_band(images, replicas))
             for name, v in raw.items():
                 sum_s[name] = sum_s[name] + v if name in sum_s else v
                 if name.endswith("running_mean"):

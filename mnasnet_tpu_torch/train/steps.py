@@ -17,6 +17,18 @@ here the step makes the collectives itself, and every replica makes the same
 update. The dropout mask of a step is drawn once for the whole global batch
 (from the generator every replica holds in the same state) and each shard,
 and each microbatch, takes its rows.
+
+Under a ``dcn × data × spatial`` mesh (``parallel/mesh.py``) a shard is a
+data shard, held by the ``spatial`` ranks of a spatial group, each with
+its band of the images' rows; the pooled features and so the logits, the
+loss and the dropout rows are the whole images' on each of them. Each
+rank weights its loss by its shard's valid labels over the world's count,
+which counts every sample ``spatial`` times: so each rank's loss is
+1/spatial of its shard's share, and the pooled sums' all-reduce, whose
+backward sums the group's gradients, gives each band the whole shard's
+gradient. The world-wide sum of the gradients then counts every band of
+every shard once, the one-process gradient. The loss sums the same way;
+the top-k counts enter the sums from the first rank of each group alone.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from torch import nn
 from mnasnet_tpu_torch.models.layers import BatchNorm, replicas_of
 from mnasnet_tpu_torch.ops.depthwise import resolve_impl
 from mnasnet_tpu_torch.parallel.dist import Replicas, all_reduce_max_, all_reduce_sum_
+from mnasnet_tpu_torch.parallel.mesh import counts_once, data_layout, spatial_of
 from mnasnet_tpu_torch.train.loss import cross_entropy, topk_correct
 from mnasnet_tpu_torch.train.state import TrainState
 from mnasnet_tpu_torch.utils.routing import TrainRouted, default_train_route
@@ -188,6 +201,12 @@ def make_local_bn_train_step(model: nn.Module, tx, label_smoothing: float = 0.1,
     two all-reduces with the step's kernels."""
     if replicas_of(model) is not None:
         raise ValueError("local BN: the model's BatchNorms must hold no replica handle")
+    mesh = getattr(replicas, "mesh", None)
+    if mesh is not None and mesh.spatial != 1:
+        raise ValueError("local-BN path requires spatial mesh axis of size 1")
+    if mesh is not None and mesh.dcn != 1:
+        raise ValueError("local-BN path shards only over 'data'; use sync-BN for multi-slice "
+                         "('dcn') meshes")
     parts = _StepParts(model, tx, label_smoothing, False, 1, replicas, local_bn=True)
     return _routed(parts, route, replicas, compile_kwargs)
 
@@ -232,7 +251,9 @@ class _StepParts:
         self.params = [p for _, p in model.named_parameters()]
         self.stats = _stat_buffers(model)
         self.device = self.params[0].device
-        self.world, self.rank = (1, 0) if replicas is None else (replicas.world, replicas.rank)
+        # The dropout rows of this rank's shard of the global batch.
+        self.shard, self.shards = data_layout(replicas)
+        self.counts_once = counts_once(replicas)
         # Weights by the share of valid labels: needed to combine microbatches
         # or replicas; the plain step on one process takes the loss as it is.
         self.weighted = grad_accum > 1 or replicas is not None
@@ -274,7 +295,7 @@ class _StepParts:
         """The device part of one step on NHWC ``images``; the metrics."""
         forward_loss = forward_loss or self.forward_loss
         model, replicas, stats = self.model, self.replicas, self.stats
-        k, world, rank = self.grad_accum, self.world, self.rank
+        k, shards, shard = self.grad_accum, self.shards, self.shard
         was_training = model.training
         model.train()
         try:
@@ -282,9 +303,9 @@ class _StepParts:
             y = labels
             n = x.shape[0]
             micro = n // k
-            keep = model.dropout_keep(n * world, generator, x.device)
+            keep = model.dropout_keep(n * shards, generator, x.device)
             if keep is not None:
-                keep = keep[rank * n:(rank + 1) * n]
+                keep = keep[shard * n:(shard + 1) * n]
             total = None
             if self.weighted:
                 total = (y >= 0).sum().float()
@@ -301,6 +322,8 @@ class _StepParts:
                 gi = torch.autograd.grad(li, self.params)
                 li, logits = li.detach(), logits.detach()
                 ci = topk_correct(logits, yi)
+                if not self.counts_once:
+                    ci = {key: v * 0 for key, v in ci.items()}
                 if self.diagnostics:
                     maxl = torch.maximum(maxl, logits.abs().max())
                 si = _flat(stats) if self.ema_decay is not None else None
@@ -327,7 +350,7 @@ class _StepParts:
                                  *([shared] if local_bn else [])], replicas,
                                 "all_reduce (gradients)")
                 if local_bn:
-                    shared = shared / world
+                    shared = shared / shards
                     if self.ema_decay is not None:
                         new = shared
                     else:
@@ -347,7 +370,7 @@ class _StepParts:
 
 
 def step_collectives(model: nn.Module, sync_bn: bool = True, diagnostics: bool = False,
-                     grad_accum: int = 1) -> int:
+                     grad_accum: int = 1, image_rows: int | None = None) -> int:
     """The collectives one data-parallel train step issues, as the code is
     written: the global count and the one flat buffer (and a MAX under
     ``diagnostics``), and under sync-BN per microbatch and per BatchNorm the
@@ -359,12 +382,22 @@ def step_collectives(model: nn.Module, sync_bn: bool = True, diagnostics: bool =
     (``parallel.global_rows``). ``remat`` adds none: a block's recompute
     replays the sums of its forward (``parallel/dist.py:taped_sums``).
 
+    Under a spatial mesh (the model's BatchNorms hold replicas with one) the
+    step of ``image_rows``-row images also issues, per microbatch, the halo
+    exchanges and the pooled sums of ``MNASNet.spatial_collectives``.
+
     On the graph route this is what one replay issues on the device, NCCL
     kernels all; the counters see them at the warm-up step and the capture
     of a shape's first call (twice that call), and at no replay."""
     n = 2 + int(diagnostics)
     if not sync_bn:
         return n
+    mesh = spatial_of(replicas_of(model))
+    if mesh is not None:
+        if image_rows is None:
+            raise ValueError("the collectives of a step under a spatial mesh depend on the "
+                             "image rows: pass image_rows")
+        n += grad_accum * model.spatial_collectives(image_rows, mesh.spatial)
     kernel_route = resolve_impl(model.bn_bwd, next(model.parameters())) == "kernel"
     per_microbatch = 0
     for seq in model.modules():

@@ -31,6 +31,14 @@ of the reference's one jitted step with donated state
 (``trainer.py:122-128``); ``MNASNET_TPU_TORCH_ROUTE`` overrides it. The
 agreed stop flag, validation and recalibration stay outside the graph, on
 the host.
+Under a spatial mesh (``parallel/mesh.py:use_mesh`` on the replicas) the
+loaders are the data shards' (``parallel/mesh.py:data_layout`` gives their
+``shard_id`` and ``num_shards``: the ranks of a spatial group load the same
+samples, and the augmentation, keyed by the sample, draws the same crop and
+flip on each), and each rank takes its band of rows of every batch before
+the step (``take_band``). Validation counts each sample once: the first
+rank of each spatial group alone adds its sums. The eval step runs eager
+there (the halo exchanges of a captured eval graph are not made).
 The train graph keeps a memory pool of its own, apart from the eval graphs'. Every
 path that changes the model or the optimizer between steps (checkpoint
 restore, BN recalibration, :func:`swapped_params`) writes in place, so a
@@ -50,6 +58,7 @@ from torch import nn
 from mnasnet_tpu_torch.data.pipeline import prefetch_to_device
 from mnasnet_tpu_torch.models.layers import set_replicas
 from mnasnet_tpu_torch.parallel.dist import Flag, Replicas, all_reduce_sum_
+from mnasnet_tpu_torch.parallel.mesh import counts_once, spatial_of, take_band
 from mnasnet_tpu_torch.train.state import TrainState
 from mnasnet_tpu_torch.train.steps import (
     make_eval_step,
@@ -136,7 +145,9 @@ class Trainer:
             if diagnostics:
                 raise ValueError("diagnostics are not kept by the local-BN step")
             self._train_step = make_local_bn_train_step(model, tx, label_smoothing, replicas)
-        self._eval_step = BatchRouted(make_eval_step(model), batch_arg=0, device=self.device)
+        self._eval_step = BatchRouted(
+            make_eval_step(model), batch_arg=0, device=self.device,
+            route_for=(lambda batch: "eager") if spatial_of(replicas) is not None else None)
 
     @property
     def route(self):
@@ -149,13 +160,14 @@ class Trainer:
         generator."""
         return TrainState.create(self.model, self.tx, seed=seed)
 
-    def collectives_per_step(self) -> int:
+    def collectives_per_step(self, image_rows: Optional[int] = None) -> int:
         """The collectives a step of ``train_epoch`` issues with replicas: the
-        step's (``steps.step_collectives``) and the stop flag. On the graph
-        route a replay issues the step's on the device, and
+        step's (``steps.step_collectives``; under a spatial mesh they depend
+        on the images' ``image_rows``) and the stop flag. On the graph route
+        a replay issues the step's on the device, and
         ``Replicas.collectives`` counts them at the warm-up and capture of a
         shape's first call only (``route.counted()``)."""
-        return step_collectives(self.model, *self._layout) + 1
+        return step_collectives(self.model, *self._layout, image_rows=image_rows) + 1
 
     def request_stop(self) -> None:
         """Ask the running (or next) ``train_epoch`` to stop at the next batch
@@ -215,6 +227,7 @@ class Trainer:
             data_time.update(time.perf_counter() - end)
             if self.step_tracer is not None:
                 self.step_tracer.on_step(epoch * spe + j)
+            images = take_band(images, self.replicas)
             state, metrics = self._train_step(state, images, labels)
             if pending is not None:
                 self._consume(*pending, *meters, epoch, spe)
@@ -282,7 +295,8 @@ def run_validation(eval_step, loader, *, device, compute_dtype: torch.dtype = to
     top5 %, loss). With ``replicas`` the loader is this replica's shard
     (whose wrap-padding also carries -1 labels) and the sums are taken over
     all shards, one collective at the end; the per-batch meters are this
-    replica's."""
+    replica's. Under a spatial mesh each rank takes its band of each batch,
+    and the first rank of each spatial group alone adds its sums."""
     batch_time = AverageMeter("Time", ":6.3f")
     losses = AverageMeter("Loss", ":.4e")
     top1 = AverageMeter("Acc@1", ":6.2f")
@@ -293,7 +307,7 @@ def run_validation(eval_step, loader, *, device, compute_dtype: torch.dtype = to
     end = time.perf_counter()
     for i, (images, labels) in enumerate(prefetch_to_device(loader.epoch(0), device=device,
                                                             dtype=compute_dtype)):
-        m = eval_step(images, labels)
+        m = eval_step(take_band(images, replicas), labels)
         n = int(m["count"])
         total["loss"] += float(m["loss"]) * n
         total["top1"] += int(m["top1"])
@@ -309,7 +323,7 @@ def run_validation(eval_step, loader, *, device, compute_dtype: torch.dtype = to
             progress.display(i)
     if replicas is not None:
         sums = torch.tensor([total[k] for k in ("loss", "top1", "top5", "count")],
-                            dtype=torch.float64)
+                            dtype=torch.float64) * float(counts_once(replicas))
         all_reduce_sum_([sums], replicas, "all_reduce (validation sums)")
         total = dict(zip(("loss", "top1", "top5", "count"), sums.tolist()))
     c = max(total["count"], 1)

@@ -403,6 +403,29 @@ def test_cli_deterministic_runs_bitwise_identical(tmp_path, capsys):
     _assert_same_weights(*dirs)
 
 
+def test_deterministic_turns_cudnn_tf32_off_on_a_card(monkeypatch):
+    """On a CUDA device ``--deterministic`` also turns cuDNN's TF32 off: with
+    it on, cuDNN picks TF32 algorithms by shape, and the stem's weight
+    gradient over two ranks' halves and over the whole batch differed by
+    27.2% relative RMS on an H100 at random init, against 0.42% with it off
+    (``tools/stem_grad_order.py``, PERF.md); ``main`` restores the flag."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    previous = torch.are_deterministic_algorithms_enabled()
+    try:
+        train_cli._set_deterministic(torch.device("cuda"))
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cudnn.benchmark is False
+        assert torch.are_deterministic_algorithms_enabled()
+    finally:
+        torch.use_deterministic_algorithms(previous)
+    torch.backends.cudnn.allow_tf32 = True
+    train_cli._set_deterministic(torch.device("cpu"))  # the CPU has no TF32 to turn off
+    torch.use_deterministic_algorithms(previous)
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
 def test_cli_needs_a_card_unless_told_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

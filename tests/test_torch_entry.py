@@ -1,6 +1,7 @@
 """The port's driver entry points (``mnasnet_tpu_torch/entry.py``), the
 counterpart of the root ``__graft_entry__.py``, on the CPU: the forward
-``entry`` returns, the dry run over two gloo ranks, and the refusal of a dry
+``entry`` returns, the dry run over two and four gloo ranks (with the
+reference's ``dcn × dp`` and ``dp × sp`` meshes), and the refusal of a dry
 run on cards this machine does not have."""
 
 import math
@@ -28,11 +29,32 @@ def test_dryrun_over_two_gloo_ranks_takes_both_steps(capfd):
     out = capfd.readouterr().out
     for line in (r"dryrun dp\(2x1\): ok, loss=(\S+) \(eager route\)",
                  r"dryrun dp local-BN\(2x1\): ok, loss=(\S+) \(eager route\)",
+                 r"dryrun dp x sp\(1x2\): ok, loss=(\S+) \(eager route\)",
                  r"dryrun_multichip\(2\): ok, loss=(\S+)"):
         m = re.search(line, out)
         assert m, out
         assert math.isfinite(float(m.group(1)))
     assert "production-shape capture: not made on the CPU" in out
+
+
+def test_dryrun_over_four_gloo_ranks_takes_the_mesh_steps(capfd):
+    """At world 4 the reference's ``dcn x dp(2x2)`` and ``dp x sp(2x2)``
+    lines (``__graft_entry__.py:148-162,193-208``), each from a real step
+    through the ``Trainer`` on its mesh: the spatial one with each rank on
+    16 of the 32 image rows, its halo exchanges over its spatial group."""
+    dryrun_multichip(4, device="cpu")
+    out = capfd.readouterr().out
+    losses = []
+    for line in (r"dryrun dp\(4x1\): ok, loss=(\S+) \(eager route\)",
+                 r"dryrun dcn x dp\(2x2\): ok, loss=(\S+) \(eager route\)",
+                 r"dryrun dp x sp\(2x2\): ok, loss=(\S+) \(eager route\)"):
+        m = re.search(line, out)
+        assert m, out
+        losses.append(float(m.group(1)))
+    assert "dryrun dp x sp band plan (plane rows: rows a band): " \
+        "32:16/16 16:8/8 8:4/4 4:2/2 2:1/1 1:1/0" in out
+    # The same images and weights: the meshes change only where rows lie.
+    assert all(math.isfinite(v) for v in losses) and len(set(losses)) == 1, losses
 
 
 @pytest.mark.parametrize("n", [2, 8])

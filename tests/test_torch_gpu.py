@@ -1437,3 +1437,95 @@ def test_bn_forensics_on_the_card_matches_the_cpu(cuda, smoke_states, tmp_path, 
         r = ref["summary"][key]
         assert abs(gpu["summary"][key] - r) <= 1.25 * abs(cpu["summary"][key] - r) + 0.01 * max(
             1.0, abs(r)), key
+
+
+# The spatial path: each kernel on a band's window of rows (parallel/spatial.py).
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("k,stride,hw,c", [(3, 1, 14, 32), (5, 1, 7, 48), (3, 2, 28, 24),
+                                           (5, 2, 14, 40)])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_dw_kernel_on_a_haloed_band_matches_plain(cuda, dtype, tol, k, stride, hw, c, parts):
+    """The dw kernel on each band's window of rows (the band and its halo
+    rows, clipped to the plane), cropped to the band's output rows, against
+    the plain version's rows of the whole plane; bands of 7/7, 4/3 and
+    shorter than the k=5 halo, at both strides."""
+    from mnasnet_tpu_torch.parallel.spatial import bands, conv_windows, out_size
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, hw, hw, c, device=cuda, generator=g).to(dtype)
+    w = torch.randn(k, k, 1, c, device=cuda, generator=g) * 0.3
+    s = torch.rand(c, device=cuda, generator=g) + 0.5
+    b = torch.randn(c, device=cuda, generator=g)
+    ref = dw_conv_reference(x, w, s, b, stride=stride)
+    out_bands = bands(out_size(hw, k, stride), parts)
+    for win, (c0, c1) in zip(conv_windows(hw, parts, k, stride), out_bands):
+        if not win.count:
+            continue
+        y = dw_conv_bn_act(x[:, win.lo:win.hi].contiguous(), w, s, b, stride=stride)
+        _close(y[:, win.first:win.first + win.count], ref[:, c0:c1], tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("h,cin,cmid,cout,k,stride,res", [
+    (14, 24, 72, 24, 3, 1, True), (14, 24, 72, 40, 5, 2, False), (7, 40, 240, 40, 5, 1, True),
+])
+def test_mbconv_kernel_on_a_haloed_band_matches_plain(cuda, dtype, tol, h, cin, cmid, cout,
+                                                      k, stride, res):
+    """The fused MBConv kernel on each of two bands' windows of the block's
+    input (the 1x1 expand gives the dw its halo rows; the plane's edges stay
+    the kernel's own zero padding), cropped, against the plain version's
+    rows of the whole plane."""
+    from mnasnet_tpu_torch.parallel.spatial import bands, conv_windows, out_size
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device=cuda, generator=g) * scale
+
+    x = r(2, h, h, cin).to(dtype)
+    params = (r(cin, cmid, scale=cin ** -0.5), r(cmid).abs() + 0.5, r(cmid, scale=0.1),
+              r(k, k, 1, cmid, scale=1 / k), r(cmid).abs() + 0.5, r(cmid, scale=0.1),
+              r(cmid, cout, scale=cmid ** -0.5), r(cout).abs() + 0.5, r(cout, scale=0.1))
+    kw = dict(kernel_size=k, stride=stride, residual=res)
+    ref = mbconv_reference(x, *params, **kw)
+    before = mbconv_fused.launches
+    for win, (c0, c1) in zip(conv_windows(h, 2, k, stride), bands(out_size(h, k, stride), 2)):
+        y = mbconv_fused(x[:, win.lo:win.hi].contiguous(), *params, **kw)
+        _close(y[:, win.first:win.first + win.count], ref[:, c0:c1], tol)
+    assert mbconv_fused.launches == before + 2
+
+
+def test_halo_exchange_replays_from_a_captured_cuda_graph(nccl_world1):
+    """The halo exchange's all-reduce (forward) and its adjoint's, over a
+    one-rank NCCL group, captured in a CUDA graph: a replay gives the eager
+    result bit for bit (rank 0's part of a two-band plan: its halo rows,
+    which no peer fills here, are zeros)."""
+    from mnasnet_tpu_torch.parallel.spatial import _gather, _scatter, conv_windows, exchange
+
+    cuda, replicas = nccl_world1
+    ex = exchange(14, conv_windows(14, 2, 5, 1), 0)
+    assert ex.total > 0 and ex.bottom[1] > ex.bottom[0]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 7, 14, 24, device=cuda, generator=g).to(torch.bfloat16)
+
+    def both(x):
+        win = _gather(x, ex, replicas)
+        return win, _scatter(win * 2, ex, replicas, x.shape)
+
+    eager = both(x)
+    before = replicas.collectives
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both(x)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    replicas.add_graph(graph)
+    with torch.cuda.graph(graph):
+        captured = both(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert replicas.collectives == before + 4  # two each for the warm-up and the capture
+    for a, b in zip(eager, captured):
+        assert torch.equal(a, b)
+    assert eager[0].shape[1] == 7 + 2 and not eager[0][:, 7:].any()
