@@ -43,6 +43,10 @@ The train graph keeps a memory pool of its own, apart from the eval graphs'. Eve
 path that changes the model or the optimizer between steps (checkpoint
 restore, BN recalibration, :func:`swapped_params`) writes in place, so a
 captured step stays valid across them.
+In a ``--profile-steps`` trace the loop's spans split a slow step:
+``mnasnet.train.data`` (the wait for the loader's next batch),
+``mnasnet.train.metrics`` (the one-step-late read of the previous step's
+metrics) and the step's own (``utils/routing.py:TrainRouted``).
 """
 
 from __future__ import annotations
@@ -67,7 +71,20 @@ from mnasnet_tpu_torch.train.steps import (
     step_collectives,
 )
 from mnasnet_tpu_torch.utils.meters import AverageMeter, ProgressMeter
+from mnasnet_tpu_torch.utils.profiling import span
 from mnasnet_tpu_torch.utils.routing import BatchRouted
+
+
+def _spanned(iterable, name: str):
+    """The items of ``iterable``, each ``next`` inside the span ``name``."""
+    it = iter(iterable)
+    while True:
+        with span(name):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+        yield item
 
 
 @contextlib.contextmanager
@@ -209,7 +226,7 @@ class Trainer:
         flag = Flag(self._stop_event.is_set(), self.replicas)
         end = time.perf_counter()
         j = start_step - 1  # absolute batch index within the epoch
-        for i, (images, labels) in enumerate(it):
+        for i, (images, labels) in enumerate(_spanned(it, "mnasnet.train.data")):
             j = start_step + i
             if self.replicas is None:
                 stop = self._stop_event.is_set()
@@ -230,7 +247,8 @@ class Trainer:
             images = take_band(images, self.replicas)
             state, metrics = self._train_step(state, images, labels)
             if pending is not None:
-                self._consume(*pending, *meters, epoch, spe)
+                with span("mnasnet.train.metrics"):
+                    self._consume(*pending, *meters, epoch, spe)
             pending = (metrics, j)
             if (step_callback is not None and step_callback_freq > 0
                     and (j + 1) % step_callback_freq == 0):
@@ -246,7 +264,8 @@ class Trainer:
                 if self.next_global_step is None:
                     self.next_global_step = epoch * spe + j + 1
         if pending is not None:
-            self._consume(*pending, *meters, epoch, spe)
+            with span("mnasnet.train.metrics"):
+                self._consume(*pending, *meters, epoch, spe)
         self.epoch_train_stats = {"loss": losses.avg, "top1": top1.avg, "top5": top5.avg}
         return state
 

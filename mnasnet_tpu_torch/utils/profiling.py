@@ -9,13 +9,36 @@ window closes.
         tracer.on_step(step)
         ...
     tracer.close()
+
+:func:`span` names the port's own host spans in such a trace (the routed
+calls and the train step, ``utils/routing.py``; the trainer's loop), and
+costs nothing but a flag's read when no profiler runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+
+# What span() returns when no profiler runs: stateless, so one serves every
+# span, nested or not.
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """A host span ``mnasnet.<layer>.<what>`` on a running profiler's
+    timeline: ``torch.profiler.record_function(name, args())`` while a
+    profiler runs (``--profile-steps``, or any caller's
+    ``torch.profiler.profile``), else the one shared no-op context. The
+    profiler running is the only switch. ``args``, a function of no
+    arguments that returns the span's argument string, is called only while
+    a profiler runs."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name, None if args is None else args())
 
 
 def _activities():

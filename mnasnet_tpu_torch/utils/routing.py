@@ -59,6 +59,8 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from mnasnet_tpu_torch.utils.profiling import span
+
 ROUTES = ("eager", "graph", "compile")
 
 # The fastest route by batch size of the serving artifact of mnasnet1_0@224,
@@ -206,6 +208,11 @@ class BatchRouted:
     ``calls`` counts the calls per key and ``replays`` the graph replays per
     key: a kernel's launch counter advances when its wrapper runs (eager
     calls, warm-ups, captures, compiled calls), not when a graph replays.
+    While a profiler runs, a call is the span ``mnasnet.route.call`` (its
+    route, batch size and index among its key's calls) holding ``copy_in``
+    (the arguments to the device, with the host's wait for a blocking copy),
+    ``build`` at a key's first call, then ``replay`` and ``copy_out`` (graph)
+    or ``run`` (eager, compile): :func:`~mnasnet_tpu_torch.utils.profiling.span`.
     """
 
     def __init__(self, fn, *, batch_arg: int = 0, route_for=None, device=None,
@@ -222,21 +229,27 @@ class BatchRouted:
 
     def __call__(self, *args):
         args = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args)
-        x = args[self._batch_arg]
-        device = self._device or x.device
-        args = tuple(a.to(device) if torch.is_tensor(a) else a for a in args)
+        device = self._device or args[self._batch_arg].device
         bs = int(args[self._batch_arg].shape[0])
         route = (self._route_for or (lambda b: default_route(b, device)))(bs)
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}; choices: {ROUTES}")
         key = (route, tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
                             for a in args))
-        run = self._cache.get(key)
-        if run is None:
-            run = self._build(route, key, args, device)
-            self._cache[key] = run
-        self.calls[key] = self.calls.get(key, 0) + 1
-        return run(*args)
+        n = self.calls.get(key, 0)
+        with span("mnasnet.route.call", lambda: f"route={route} batch={bs} call={n}"):
+            with span("mnasnet.route.copy_in"):
+                args = tuple(a.to(device) if torch.is_tensor(a) else a for a in args)
+            run = self._cache.get(key)
+            if run is None:
+                with span("mnasnet.route.build"):
+                    run = self._build(route, key, args, device)
+                self._cache[key] = run
+            self.calls[key] = n + 1
+            if route == "graph":
+                return run(*args)  # its replay and its copy out are spans of their own
+            with span("mnasnet.route.run"):
+                return run(*args)
 
     def _build(self, route: str, key, args, device):
         if route == "eager":
@@ -270,11 +283,13 @@ class BatchRouted:
         self.replays[key] = 0
 
         def replay(*call_args):
-            for buf, a in zip(static, call_args):
-                buf.copy_(a)
-            graph.replay()
-            self.replays[key] += 1
-            return _clone(out)
+            with span("mnasnet.route.replay"):
+                for buf, a in zip(static, call_args):
+                    buf.copy_(a)
+                graph.replay()
+                self.replays[key] += 1
+            with span("mnasnet.route.copy_out"):
+                return _clone(out)
 
         return replay
 
@@ -314,7 +329,11 @@ class TrainRouted:
     ``calls`` counts the calls per key and ``replays`` the graph replays: a
     kernel's launch counter, and ``Replicas.collectives``, advance at eager
     and compiled calls and at a graph's first call (its warm-up and its
-    capture), not at a replay (:meth:`counted`).
+    capture), not at a replay (:meth:`counted`). While a profiler runs, a
+    call is the span ``mnasnet.train.step`` (route, batch, ``state.step``
+    before it) holding ``copy_in`` (``_StepParts.inputs``), ``host``
+    (``_StepParts.host``), then ``build`` at a shape's first call, else
+    ``replay`` and ``copy_out`` (graph) or ``run`` (eager, compile).
     Parameters, buffers and optimizer state are written in place by every
     path that changes them (checkpoint restore, BN recalibration,
     ``swapped_params``), so a captured graph stays valid across them.
@@ -360,17 +379,25 @@ class TrainRouted:
                    for key, n in self.calls.items())
 
     def __call__(self, state, images, labels):
-        x, y = self._steps.inputs(images, labels)
-        key = (self.route, (tuple(x.shape), x.dtype), (tuple(y.shape), y.dtype))
-        run = self._cache.get(key)
-        self._steps.host(state)
-        if run is None:
-            run, metrics = self._build(key, x, y, state.generator)
-            self._cache[key] = run
-        else:
-            metrics = run(x, y, state.generator)
-        self.calls[key] = self.calls.get(key, 0) + 1
-        return state, metrics
+        with span("mnasnet.train.step",
+                  lambda: f"route={self.route} batch={len(images)} step={state.step}"):
+            with span("mnasnet.train.copy_in"):
+                x, y = self._steps.inputs(images, labels)
+            key = (self.route, (tuple(x.shape), x.dtype), (tuple(y.shape), y.dtype))
+            run = self._cache.get(key)
+            with span("mnasnet.train.host"):
+                self._steps.host(state)
+            if run is None:
+                with span("mnasnet.train.build"):
+                    run, metrics = self._build(key, x, y, state.generator)
+                self._cache[key] = run
+            elif self.route == "graph":
+                metrics = run(x, y, state.generator)  # spans its replay and its copy out
+            else:
+                with span("mnasnet.train.run"):
+                    metrics = run(x, y, state.generator)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return state, metrics
 
     def _build(self, key, x, y, generator):
         steps = self._steps
@@ -422,14 +449,16 @@ class TrainRouted:
             if gen is not generator:
                 raise ValueError("the graph route's step was captured with another "
                                  "TrainState's dropout generator")
-            static[0].copy_(images)
-            static[1].copy_(labels)
-            graph.replay()
-            if self._replicas is not None:
-                # The replayed collectives reach no watchdog; the host's
-                # deadline holds this event to the group's timeout.
-                self._replicas.watch("the replayed train step")
-            self.replays[key] += 1
-            return _clone(out)
+            with span("mnasnet.train.replay"):
+                static[0].copy_(images)
+                static[1].copy_(labels)
+                graph.replay()
+                if self._replicas is not None:
+                    # The replayed collectives reach no watchdog; the host's
+                    # deadline holds this event to the group's timeout.
+                    self._replicas.watch("the replayed train step")
+                self.replays[key] += 1
+            with span("mnasnet.train.copy_out"):
+                return _clone(out)
 
         return replay, metrics

@@ -960,6 +960,64 @@ def test_graph_capture_survives_a_collection_of_a_dead_graph(cuda, route):
     assert not holder and bool(torch.isfinite(out).all())
 
 
+def _port_spans(prof, device_side=False):
+    """The port's spans (``mnasnet.*``) in start order, host side (or the
+    device side's shadows of them), as (name, start, end, event)."""
+    from torch.autograd import DeviceType
+
+    want = DeviceType.CUDA if device_side else DeviceType.CPU
+    out = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == want and e.name().startswith("mnasnet.")]
+    return sorted(out, key=lambda s: (s[1], -s[2]))
+
+
+def _children(spans, parent):
+    return [[n for n, s, e, _ in spans if n != parent and a <= s and e <= b]
+            for name, a, b, _ in spans if name == parent]
+
+
+def test_graph_route_spans_agree_with_the_counters(cuda):
+    """Under the profiler, the graph routes: a key's first call holds its
+    build (warm-up and capture), and every serving call a replay and a copy
+    out; the train step's first call of a shape its build, each later one a
+    replay and a copy out. The replay spans count the ``replays`` counters.
+    A span's shadow on the device's timeline is an annotation, not a
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mnasnet_tpu_torch.train.steps import make_predict_fn
+    from mnasnet_tpu_torch.utils.routing import BatchRouted
+
+    model, tx, state = _route_setup(cuda)
+    routed = BatchRouted(make_predict_fn(model), route_for=lambda bs: "graph")
+    step = make_train_step(model, tx, 0.1, route="graph")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xs = [torch.randn(n, 64, 64, 3, device=cuda, generator=g) for n in (4, 4, 8, 4)]
+    images, labels = _route_batch(cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            routed(x)
+        for _ in range(3):
+            state, _ = step(state, images, labels)
+        torch.cuda.synchronize()
+    spans = _port_spans(prof)
+    serve = ["mnasnet.route.copy_in", "mnasnet.route.replay", "mnasnet.route.copy_out"]
+    first = serve[:1] + ["mnasnet.route.build"] + serve[1:]
+    assert _children(spans, "mnasnet.route.call") == [first, serve, first, serve]
+    names = [n for n, *_ in spans]
+    assert names.count("mnasnet.route.replay") == sum(routed.replays.values()) == 4
+    assert names.count("mnasnet.route.call") == sum(routed.calls.values()) == 4
+    head = ["mnasnet.train.copy_in", "mnasnet.train.host"]
+    later = head + ["mnasnet.train.replay", "mnasnet.train.copy_out"]
+    assert _children(spans, "mnasnet.train.step") == [
+        head + ["mnasnet.train.build"], later, later]
+    assert names.count("mnasnet.train.replay") == sum(step.replays.values()) == 2
+    assert names.count("mnasnet.train.build") == len(step.calls) == 1
+    shadows = _port_spans(prof, device_side=True)
+    assert all(e.is_user_annotation() for *_, e in shadows)
+
+
 # ------------------------------------------------------ the model knobs
 
 
