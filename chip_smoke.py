@@ -56,7 +56,13 @@ Phases, in order; any failure raises and exits non-zero:
      version, one library call (``native_batch_norm_backward`` on the masked
      g) and the torch route's autograd of the region; each kernel's and
      library call's device time from CUDA-graph replays of one call
-     ("device_ms"), and each wrapper's host time per call;
+     ("device_ms"), and each wrapper's host time per call. The region's two
+     forward kernels at the same shapes: the stats kernel's sums against the
+     plain version's, the one- and two-pass moments from them against
+     float64 within the plain fp32 path's own error, the apply kernel's y bit
+     for bit the plain forward's and its y > 0 the backward's mask, two
+     launches bit-identical; timed as the backward's, beside their bounds,
+     their plain versions and the region's whole plain forward (``_fwd_math``);
   7. dw training op: the depthwise autograd Function's gradients against the
      torch route's at one stride-1 and one stride-2 shape, bf16 and fp32;
   8. train: ``make_train_step`` on the production configuration
@@ -65,9 +71,10 @@ Phases, in order; any failure raises and exits non-zero:
      label smoothing 0.1) on the default train route (``TRAIN_ROUTE``) for 5
      steps on one fixed batch of 128x224x224x3 with seeded labels: the
      losses finite and falling from step 1 to step 5, and exactly 17 dw, 35
-     bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches per step the counters
-     see (``TrainRouted.counted``: eager and compiled calls, and a graph's
-     warm-up and capture, not its replays); under deterministic algorithms,
+     bn_bwd_reduce, 35 bn_bwd_dx, 35 bn_fwd_stats, 35 bn_relu_apply and 0
+     MBConv launches per step the counters see (``TrainRouted.counted``:
+     eager and compiled calls, and a graph's warm-up and capture, not its
+     replays); under deterministic algorithms,
      with dropout, a warmup-cosine rate that changes every step and the
      model EMA, 5 steps on the graph route and 5 steps eager, eager, graph,
      graph, eager on one state, each bit for bit the all-eager run; one
@@ -85,8 +92,9 @@ Phases, in order; any failure raises and exits non-zero:
      bf16; a full run takes it right after train). ``remat``: 3 steps with
      dropout, a changing rate and the model EMA, under deterministic
      algorithms, on the graph route with ``remat`` (this phase's main path:
-     exactly 33 dw, 35 bn_bwd_reduce, 35 bn_bwd_dx and 0 MBConv launches per
-     counted step, 16 of the dw launches the blocks' recomputes), bit for
+     exactly 33 dw, 35 bn_bwd_reduce, 35 bn_bwd_dx, 67 bn_fwd_stats, 67
+     bn_relu_apply and 0 MBConv launches per counted step, 16 dw and 32 of
+     each BN forward kernel's launches the blocks' recomputes), bit for
      bit the eager ``remat`` steps, which are bit for bit the steps without
      ``remat`` (losses, parameters, BN buffers with ``num_batches_tracked``,
      optimizer state, generator); the first step of the compile route with
@@ -224,7 +232,8 @@ Phases, in order; any failure raises and exits non-zero:
      ``DEADRANK_GLOO_BOUND_S``. (b) In this process, one process
      ``--resume``s that checkpoint at global batch 256 and finishes the
      run on the default (graph) route: exactly 17 dw, 35 bn_bwd_reduce,
-     35 bn_bwd_dx and 0 MBConv launches per counted train step, the counts
+     35 bn_bwd_dx, 35 of each BN forward kernel and 0 MBConv launches per
+     counted train step, the counts
      set to 0 just before and read just after, every kernel of the path
      launched. (c) On a machine with two or more cards: two NCCL ranks,
      one card each, on the graph route (the step's all-reduces replayed
@@ -365,12 +374,21 @@ from mnasnet_tpu_torch.models.layers import PW_AUTO, BatchNorm, nchw, set_replic
 from mnasnet_tpu_torch.ops.cuda import _build
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     _fwd_math,
+    _fwd_region,
+    apply_plan,
+    batch_moments,
     bn_bwd_dx,
     bn_bwd_dx_reference,
     bn_bwd_reduce,
     bn_bwd_reduce_reference,
+    bn_fwd_stats,
+    bn_fwd_stats_reference,
+    bn_relu_apply,
+    bn_relu_apply_reference,
     reduce_plan,
+    region_moments,
     relu_mask_reference,
+    stats_plan,
 )
 from mnasnet_tpu_torch.ops.cuda.dw_conv import (
     depthwise_conv_train,
@@ -459,9 +477,14 @@ BN_EPS = 1e-5
 TRAIN_LR = 0.01
 TRAIN_STEPS = 5
 LAUNCHES_PER_STEP = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 35, "bn_bwd_dx": 35,
-                     "mbconv_block": 0}
-# With remat each of the 16 blocks runs its dw kernel again in the backward.
-LAUNCHES_PER_REMAT_STEP = dict(LAUNCHES_PER_STEP, dw_conv_bn_act=17 + 16)
+                     "mbconv_block": 0, "bn_fwd_stats": 35, "bn_relu_apply": 35}
+# Under --deterministic (two_pass statistics) the stats kernel runs twice a
+# region.
+LAUNCHES_PER_TWO_PASS_STEP = dict(LAUNCHES_PER_STEP, bn_fwd_stats=70)
+# With remat each of the 16 blocks runs its dw kernel and its two BN+ReLU
+# regions' forward kernels again in the backward.
+LAUNCHES_PER_REMAT_STEP = dict(LAUNCHES_PER_STEP, dw_conv_bn_act=17 + 16,
+                               bn_fwd_stats=35 + 32, bn_relu_apply=35 + 32)
 KNOB_STEPS = 3
 REMAT_BIG_BATCH = 512
 KNOB_TARGET_MS = 500.0
@@ -469,14 +492,15 @@ KNOB_TARGET_MS = 500.0
 PW_ORDER = ("dot", "conv", "conv", "dot")
 # The port's kernels by a part of their CUDA function names, for profiles.
 KERNEL_NAMES = {"dw_conv_bn_act": "dw_conv_kernel", "mbconv_block": "mbconv_",
-                "bn_bwd_reduce": "bn_reduce_", "bn_bwd_dx": "bn_dx_kernel"}
+                "bn_bwd_reduce": "bn_reduce_", "bn_bwd_dx": "bn_dx_kernel",
+                "bn_fwd_stats": "bn_stats_kernel", "bn_relu_apply": "bn_apply_relu_kernel"}
 REPO = Path(__file__).resolve().parent
 # The trainer phase's ImageFolder: classes, train and val images per class.
 FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_VAL = 8, 48, 20
 LAUNCHES_PER_VAL_FORWARD = {"dw_conv_bn_act": 1, "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
-                            "mbconv_block": 16}
+                            "mbconv_block": 16, "bn_fwd_stats": 0, "bn_relu_apply": 0}
 LAUNCHES_PER_RECAL_FORWARD = {"dw_conv_bn_act": 17, "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
-                              "mbconv_block": 0}
+                              "mbconv_block": 0, "bn_fwd_stats": 35, "bn_relu_apply": 35}
 THROUGHPUT_STEPS = 10
 DIST_STEPS = 12
 # The fixed-batch data-parallel runs: their kinds held graph against eager,
@@ -1061,8 +1085,43 @@ def _native_bn_backward(g, x, gamma, mean, inv, mask):
         nchw(g), nchw(x), gamma, None, None, mean, inv, True, BN_EPS, mask)
 
 
+def _moment_errors(x, mean, var) -> tuple[float, float]:
+    """(mean's error in standard deviations, var's relative error), worst
+    channel, against float64 moments of x."""
+    x64 = x.double()
+    m64, v64 = x64.mean(dim=(0, 1, 2)), x64.var(dim=(0, 1, 2), unbiased=False)
+    return (float(((mean.double() - m64).abs() / v64.sqrt()).max()),
+            float(((var.double() - v64).abs() / v64).max()))
+
+
+def bn_forward_checks(x, y, vecs) -> dict:
+    """The region's forward kernels at one shape: the stats kernel's sums
+    against the plain version's, the moments from them against float64
+    beside the plain fp32 path's, each within the plain path's error
+    (floored at 2^-20), two launches bit-identical; the apply kernel bit for
+    bit the plain forward's ``y`` (from the same mean and var), its ``y > 0``
+    the backward's mask."""
+    sums, sums2, ref = bn_fwd_stats(x), bn_fwd_stats(x), bn_fwd_stats_reference(x)
+    y_k, y_k2 = bn_relu_apply(x, *vecs), bn_relu_apply(x, *vecs)
+    bits = torch.int16 if y.element_size() == 2 else torch.int32
+    row = {"stats_rel_err": rel_err(sums, ref),
+           "stats_max_abs_err": float((sums - ref).abs().max()),
+           "apply_max_abs_err": float((y_k.float() - y.float()).abs().max()),
+           "apply_bitwise_plain": bool(torch.equal(y_k.view(bits), y.view(bits))),
+           "apply_mask_matches": bool(torch.equal(y_k > 0, relu_mask_reference(x, *vecs))),
+           "fwd_deterministic": bool(torch.equal(sums, sums2) and torch.equal(y_k, y_k2))}
+    for stats in ("one_pass", "two_pass"):
+        ours = _moment_errors(x, *region_moments(x, stats))
+        plain = _moment_errors(x, *batch_moments(x, stats))
+        row[f"{stats}_mean_err"], row[f"{stats}_var_err"] = ours
+        row[f"{stats}_plain_mean_err"], row[f"{stats}_plain_var_err"] = plain
+        row[f"{stats}_within_plain"] = all(e <= max(p, 2.0 ** -20) for e, p in zip(ours, plain))
+    return row
+
+
 def bn_phase(timing: bool) -> list[dict]:
-    """The BN+ReLU backward kernels at the 35 regions of the training forward."""
+    """The BN+ReLU region's kernels, forward and backward, at the 35 regions
+    of the training forward."""
     g = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     for name, h, c in bn_region_shapes():
@@ -1095,11 +1154,17 @@ def bn_phase(timing: bool) -> list[dict]:
                    "mask_matches_plain": bool(torch.equal(
                        relu_mask_reference(x, *vecs), y > 0)),
                    "deterministic": bool(torch.equal(dg, dg2) and torch.equal(db, db2)
-                                         and torch.equal(dx, dx2))}
+                                         and torch.equal(dx, dx2)),
+                   **bn_forward_checks(x, y, vecs)}
             bad = [k for k in ("dgamma_rel_err", "dbeta_rel_err") if row[k] > TOL_BN_SUMS[dname]]
             if row["dx_rel_err"] > TOL_BN_DX[dname]:
                 bad.append("dx_rel_err")
-            bad += [k for k in ("mask_count_exact", "mask_matches_plain", "deterministic")
+            if row["stats_rel_err"] > TOL_BN_SUMS[dname]:
+                bad.append("stats_rel_err")
+            bad += [k for k in ("mask_count_exact", "mask_matches_plain", "deterministic",
+                                "apply_bitwise_plain", "apply_mask_matches",
+                                "fwd_deterministic", "one_pass_within_plain",
+                                "two_pass_within_plain")
                     if not row[k]]
             if bad or not torch.isfinite(dx).all():
                 raise RuntimeError(f"bn {name} {dname}: {bad}: {row}")
@@ -1108,8 +1173,38 @@ def bn_phase(timing: bool) -> list[dict]:
                 2 * plane + 6 * c * 4, 8 * x.numel(), "float32")
             row["dx_bound_ms"], row["dx_bound_by"] = bound(
                 3 * plane + 6 * c * 4, 10 * x.numel(), "float32")
+            # The forward's: the stats read x and write the (2, C) sums; the
+            # apply reads x and the four vectors and writes y.
+            row["stats_bound_ms"], row["stats_bound_by"] = bound(
+                plane + 2 * c * 4, 3 * x.numel(), "float32")
+            row["apply_bound_ms"], row["apply_bound_by"] = bound(
+                2 * plane + 4 * c * 4, 6 * x.numel(), "float32")
             row["reduce_plan"] = reduce_plan(x.numel() // c, c, x.element_size())._asdict()
+            row["stats_plan"] = stats_plan(x.numel() // c, c, x.element_size())._asdict()
+            row["apply_plan"] = apply_plan(x.numel() // c, c, x.element_size())._asdict()
             if timing and dt == torch.bfloat16:
+                def stats_once():
+                    return bn_fwd_stats(x)
+
+                def apply_once():
+                    return bn_relu_apply(x, *vecs)
+
+                # The forward's kernels, as the backward's below; the plain
+                # versions (the moments, the two-op apply) and the region's
+                # whole plain forward (_fwd_math) beside them.
+                for kind, once in (("stats", stats_once), ("apply", apply_once)):
+                    row[f"{kind}_ms"] = time_ms(once, 30.0)
+                    row[f"{kind}_host_ms"] = host_ms(once)
+                    row[f"{kind}_device_ms"] = time_ms(once, 30.0, graph=True)
+                row["stats_plain_ms"] = time_ms(lambda: batch_moments(x, "one_pass"), 30.0)
+                row["apply_plain_ms"] = time_ms(
+                    lambda: bn_relu_apply_reference(x, *vecs), 30.0)
+                row["fwd_plain_ms"] = time_ms(
+                    lambda: _fwd_math(x, gamma, beta, BN_EPS, "one_pass"), 30.0)
+                row["fwd_plain_device_ms"] = time_ms(
+                    lambda: _fwd_math(x, gamma, beta, BN_EPS, "one_pass"), 30.0, graph=True)
+                row["fwd_region_device_ms"] = time_ms(
+                    lambda: _fwd_region(x, gamma, beta, BN_EPS, "one_pass"), 30.0, graph=True)
                 def reduce_once():
                     return bn_bwd_reduce(x, dy, *vecs)
 
@@ -1411,11 +1506,13 @@ def train_phase() -> dict:
             "params_outside_rtol5e-3_atol1e-4": sum(
                 int((~torch.isclose(pk[n], pt[n], rtol=5e-3, atol=1e-4)).sum()) for n in pt),
             "param_count": sum(p.numel() for p in pt.values()),
-            "stats_max_rel_diff": max(rel_err(ka["stats"][n], tb["stats"][n])
-                                      for n in tb["stats"])}
+            # The BN statistics as the data-parallel phase holds them: the
+            # two routes sum the moments in different orders, and a mean near
+            # 0 has no relative error to speak of.
+            "moments_max_diff": _moments_diff(ka["stats"], tb["stats"])}
     out["fp32_kernel_vs_torch"] = fp32
     log(f"[train] fp32 one step, kernel route vs torch route: {json.dumps(fp32)}")
-    if fp32["loss_rel_diff"] > 1e-5 or fp32["stats_max_rel_diff"] > 1e-5 \
+    if fp32["loss_rel_diff"] > 1e-5 or fp32["moments_max_diff"] > 1e-5 \
             or fp32["update_rel_rms_diff"] > 1e-2:
         raise RuntimeError(f"fp32 kernel route disagrees with the torch route: {fp32}")
     del after, ka, tb, pk, pt
@@ -2450,9 +2547,9 @@ def _band_launches(model, replicas) -> dict:
     production model at IMAGE px make on this rank, by the band plan: a dw
     launch for each depthwise conv whose output band on this rank has rows
     (train: the separable and the 16 blocks' dw; eval: the separable dw,
-    the blocks on the fused MBConv kernel), and a reduce and a dx for each
-    of the 35 BN+ReLU regions, when no BN plane leaves this rank without
-    rows."""
+    the blocks on the fused MBConv kernel), and a stats, an apply, a reduce
+    and a dx for each of the 35 BN+ReLU regions, when no BN plane leaves this
+    rank without rows."""
     parts, i = replicas.mesh.spatial, replicas.mesh.spatial_index(replicas.rank)
 
     def has_rows(h, k, stride):
@@ -2462,9 +2559,11 @@ def _band_launches(model, replicas) -> dict:
     if not all(b > a for h, _ in model.planes(IMAGE, IMAGE)[1:] for a, b in [bands(h, parts)[i]]):
         raise RuntimeError("a BN plane of the production model leaves a rank without rows")
     return {"train": {"dw_conv_bn_act": has_rows(*sep) + sum(has_rows(*c) for c in blocks),
-                      "bn_bwd_reduce": 35, "bn_bwd_dx": 35, "mbconv_block": 0},
+                      "bn_bwd_reduce": 35, "bn_bwd_dx": 35, "mbconv_block": 0,
+                      "bn_fwd_stats": 35, "bn_relu_apply": 35},
             "eval": {"dw_conv_bn_act": has_rows(*sep), "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
-                     "mbconv_block": sum(has_rows(*c) for c in blocks)}}
+                     "mbconv_block": sum(has_rows(*c) for c in blocks), "bn_fwd_stats": 0,
+                     "bn_relu_apply": 0}}
 
 
 def _spatial_train(images, labels, replicas) -> dict:
@@ -2917,12 +3016,13 @@ def smoke_phase(card: str, started: dict | None = None) -> dict:
                          if c["kind"] == "validate")
         launches = rec["launches"]
         if sorted({c["route"] for c in train}) != [TRAIN_ROUTE] \
-                or step_launches != _scaled(LAUNCHES_PER_STEP, counted) or not val_mbconv \
-                or not all(launches.values()):
+                or step_launches != _scaled(LAUNCHES_PER_TWO_PASS_STEP, counted) \
+                or not val_mbconv or not all(launches.values()):
             raise RuntimeError(f"smoke: the straight run's routes {[c['route'] for c in train]}, "
                                f"{step_launches} over {counted} counted steps, launches "
                                f"{launches}; expected the {TRAIN_ROUTE} route, "
-                               f"{LAUNCHES_PER_STEP} a step and every kernel launched")
+                               f"{LAUNCHES_PER_TWO_PASS_STEP} a step (--deterministic: "
+                               "two_pass) and every kernel launched")
 
         a, b = (train_smoke.load_state(str(p)) for p in (chunked, straight))
         parts = ("model", "optimizer", "train_state", "curve", "next_epoch", "config_key")
@@ -3030,7 +3130,7 @@ def check_tool_record(kind: str, rec: dict) -> dict:
         rows = {r["grad_accum"]: r for r in rec["rows"]}
         for k, row in rows.items():
             want = {"dw_conv_bn_act": 17 * k, "mbconv_block": 0, "bn_bwd_reduce": 35 * k,
-                    "bn_bwd_dx": 35 * k}
+                    "bn_bwd_dx": 35 * k, "bn_fwd_stats": 35 * k, "bn_relu_apply": 35 * k}
             if row["oom"] or row["launches_per_step"] != want or not row["peak_allocated_gb"]:
                 raise RuntimeError(f"memory_probe K={k}: {row}")
         if rows[2]["saved_activation_bytes"] > 0.55 * rows[1]["saved_activation_bytes"]:
@@ -3066,9 +3166,13 @@ def check_tool_record(kind: str, rec: dict) -> dict:
     return {"kernel_ips": row["infer_kernel_ips"], "torch_ips": row["infer_torch_ips"]}
 
 
+BN_KINDS = {"bn_bwd_reduce": "reduce", "bn_bwd_dx": "dx", "bn_fwd_stats": "stats",
+            "bn_relu_apply": "apply"}
+
+
 def _bn_entry(name, rows, serving_free_launches, replaces):
     bf = [r for r in rows if r["dtype"] == "bfloat16"]
-    kind = "reduce" if name == "bn_bwd_reduce" else "dx"
+    kind = BN_KINDS[name]
 
     def total(key):
         return sum(r[key] for r in bf) if all(key in r for r in bf) else None
@@ -3084,6 +3188,9 @@ def _bn_entry(name, rows, serving_free_launches, replaces):
             "library_ms": total(f"{kind}_library_ms"),
             "library_device_ms": total(f"{kind}_library_device_ms"),
             "torch_route_region_ms": total("torch_route_ms"),
+            "plain_forward_ms": total("fwd_plain_ms"),
+            "plain_forward_device_ms": total("fwd_plain_device_ms"),
+            "region_forward_device_ms": total("fwd_region_device_ms"),
             "summed_over": f"{len(bf)} regions of one training step, bf16"}
 
 
@@ -3118,6 +3225,10 @@ def kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trai
                            f"a step made {dw_per_step}")
     bn = [_bn_entry(name, bn_rows, launches(name), f"mnasnet_tpu/ops/pallas/bn_bwd.py:{line}")
           for name, line in (("bn_bwd_reduce", 57), ("bn_bwd_dx", 86))]
+    # The forward's kernels replace no Pallas kernel: the reference's region
+    # forward is plain JAX (csrc/bn_bwd.cu's source note).
+    bn += [_bn_entry(name, bn_rows, launches(name), None)
+           for name in ("bn_fwd_stats", "bn_relu_apply")]
     for e in bn:
         e["launches_by_path"] = by_path(e["name"])
     return {"kernels": [

@@ -10,10 +10,11 @@
 //
 // Everything is fp32 inside; x, dy and dx are bf16 or fp32.
 //
-// The ReLU mask is the forward's, bit for bit. The forward (ops/cuda/bn_bwd.py:
-// _fwd_math) clamps x * a_io + b_io computed as two PyTorch ops in x's dtype,
-// with a and b rounded to that dtype first: one rounding after the multiply and
-// one after the add. The kernels repeat exactly that (Io<T>::positive): in bf16
+// The ReLU mask is the forward's, bit for bit. The forward (the plain version,
+// ops/cuda/bn_bwd.py:_fwd_math, and bn_apply_relu_kernel below) clamps x * a_io
+// + b_io computed as two PyTorch ops in x's dtype, with a and b rounded to that
+// dtype first: one rounding after the multiply and one after the add. The
+// kernels repeat exactly that (Io<T>::positive): in bf16
 // the product of two bf16 values is exact in fp32 and is rounded to bf16, then
 // the sum is rounded to bf16; in fp32 __fmul_rn / __fadd_rn keep nvcc from
 // contracting the two into one FMA the forward never did (nor may bf16x2
@@ -60,6 +61,31 @@
 // The dx pass: blockDim.x = TP channel pairs, blockDim.y = R row lanes,
 // blockIdx.x = slab, blockIdx.y = channel tile; each thread computes its
 // channels' constants once and then streams rows (plan in ops/cuda/bn_bwd.py).
+//
+// The region's forward (bn_fwd_stats, bn_relu_apply). These replace no Pallas
+// kernel: the reference's forward (mnasnet_tpu/ops/pallas/bn_bwd.py:_fwd_math)
+// is plain JAX, which XLA fuses into a pass or two on the TPU. In PyTorch the
+// same arithmetic ran as some seven full-plane library kernels a region (an
+// fp32 cast, two means, a square, the bf16 multiply, add and ReLU: ~34 bytes
+// an element against the 6 needed), the largest block of the training step
+// that far from its bound. So:
+//   * bn_stats_kernel: the (2, C) fp32 sums [sum(x - s), sum((x - s)^2)] of x
+//     for a (C,) shift s (none: zero), reading x once. The wrapper launches it
+//     once for the one-pass moments (s = 0), twice for the two-pass ones (s =
+//     0 for the mean, then s = mean). Its design is the reduce's with one
+//     input: row slabs x channel tiles, a 16-byte vector of channels a thread,
+//     the row loop unrolled (kStatsUnroll rows in flight, as many bytes as the
+//     reduce keeps), loads past L1, and the same fixed-order finish
+//     (finish_tile): deterministic, no float atomics.
+//   * bn_apply_relu_kernel: y = relu(x * a_io + b_io), a and b from
+//     mask_factors, rounded as the backward's mask rounds them (above), so
+//     y > 0 is that mask bit for bit; the ReLU is PyTorch's clamp_min (NaN
+//     kept, fmaxf otherwise). x read once and y written once in 16-byte
+//     vectors; each thread holds its channels' factors in registers and walks
+//     rows, blockIdx.x = channel tile, blockIdx.y = slab.
+// Both are bound by memory: 2 bytes an element read (stats) and 4 moved
+// (apply) in bf16, 0.367 and 0.733 ms at 3.35 TB/s over the 35 regions of
+// mnasnet1_0 @ 224 at batch 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,6 +246,55 @@ __device__ __forceinline__ void column_sums(int rows, int ncols, Load load, Stor
   }
 }
 
+// The end every ticketed reduce shares. Row lane `lane` of the block (when
+// `active`) puts its two sums of V channels into its row of the table
+// [lanes][2 * Ct + 1] (first, then second, at the thread's channel group
+// `grp`); the block sums its lanes in a fixed order into its partial row
+// (partial: [tiles][slabs][2][Ct]); the last block of the tile to finish (a
+// ticket per tile from atomicInc, which wraps it back to 0 for the next
+// launch) sums the tile's partials in slab order into out [2][C]. Atomics only
+// hand out tickets: no sum depends on which block finishes last. Every thread
+// of the block must call it.
+template <int V>
+__device__ __forceinline__ void finish_tile(const float (&first)[V], const float (&second)[V],
+                                            bool active, float* table, int lanes, int lane,
+                                            int grp, int Ct, float* __restrict__ partial,
+                                            unsigned int* __restrict__ tickets,
+                                            float* __restrict__ out, int C) {
+  __shared__ bool last;
+  const int ncols = 2 * Ct;
+  const int pitch = ncols + 1;  // odd: lanes of one column fall in other banks
+  if (active) {
+    float* row = table + lane * pitch + grp * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      row[e] = first[e];
+      row[Ct + e] = second[e];
+    }
+  }
+  __syncthreads();
+  const int slabs = gridDim.y;
+  float* tile = partial + (size_t)blockIdx.x * slabs * ncols;
+  float* mine = tile + (size_t)blockIdx.y * ncols;
+  column_sums(lanes, ncols, [&](int r, int j) { return table[r * pitch + j]; },
+              [&](int j, float v) { mine[j] = v; });
+  // Publish the partial row, then take a ticket; the last block of the tile
+  // sums the tile's partials in slab order.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicInc(&tickets[blockIdx.x], (unsigned int)(slabs - 1)) == (unsigned int)(slabs - 1);
+  __syncthreads();
+  if (!last) return;
+  const int cbase = blockIdx.x * Ct;
+  column_sums(slabs, ncols, [&](int r, int j) { return __ldcg(tile + (size_t)r * ncols + j); },
+              [&](int j, float v) {
+                const int q = j >= Ct;
+                const int c = cbase + j - q * Ct;
+                if (c < C) out[q * C + c] = v;
+              });
+}
+
 // Rows of x and dy a thread keeps in flight.
 constexpr int kUnroll = 4;
 
@@ -238,7 +313,6 @@ bn_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                  float* __restrict__ out, long long M, int C, int TG, long long rows_per_slab) {
   constexpr int V = kWords * Io<T>::kPerWord;
   extern __shared__ float4 smem[];
-  __shared__ bool last;
   const int lanes = blockDim.x / TG;
   const int grp = threadIdx.x % TG, lane = threadIdx.x / TG;
   const int Ct = TG * V;  // channels of a tile
@@ -285,37 +359,7 @@ bn_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     }
   }
   // The block's row lanes, summed in a fixed order, into its partial row.
-  const int ncols = 2 * Ct;
-  const int pitch = ncols + 1;  // odd: lanes of one column fall in other banks
-  if (lane < lanes) {
-    float* row = table + lane * pitch + grp * V;
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      row[e] = dg[e];
-      row[Ct + e] = db[e];
-    }
-  }
-  __syncthreads();
-  const int slabs = gridDim.y;
-  float* tile = partial + (size_t)blockIdx.x * slabs * ncols;
-  float* mine = tile + (size_t)blockIdx.y * ncols;
-  column_sums(lanes, ncols, [&](int r, int j) { return table[r * pitch + j]; },
-              [&](int j, float v) { mine[j] = v; });
-  // Publish the partial row, then take a ticket; the last block of the tile
-  // sums the tile's partials in slab order.
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicInc(&tickets[blockIdx.x], (unsigned int)(slabs - 1)) == (unsigned int)(slabs - 1);
-  __syncthreads();
-  if (!last) return;
-  const int cbase = blockIdx.x * Ct;
-  column_sums(slabs, ncols, [&](int r, int j) { return __ldcg(tile + (size_t)r * ncols + j); },
-              [&](int j, float v) {
-                const int q = j >= Ct;
-                const int c = cbase + j - q * Ct;
-                if (c < C) out[q * C + c] = v;
-              });
+  finish_tile<V>(dg, db, lane < lanes, table, lanes, lane, grp, Ct, partial, tickets, out, C);
 }
 
 struct ReduceArgs {
@@ -340,6 +384,207 @@ int launch_reduce(const ReduceArgs& a, cudaStream_t stream) {
   bn_reduce_kernel<T, kWords><<<dim3(tiles, a.slabs), a.threads, smem, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.mean, a.inv, a.gamma, a.beta,
       a.partial, a.tickets, a.out, a.M, a.C, a.TG, rows_per_slab);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The forward's statistics.
+
+// Rows of x a stats thread keeps in flight: the bytes the reduce keeps of x
+// and dy together.
+constexpr int kStatsUnroll = 2 * kUnroll;
+
+// Adds U rows' vectors of x, less the shift, into the thread's sums and sums
+// of squares, each channel's rows in order.
+template <typename T, int kWords, int U>
+__device__ __forceinline__ void accumulate_moments(const uint32_t (&xw)[U][kWords],
+                                                   const float* sh, float* s1, float* s2) {
+  constexpr int P = Io<T>::kPerWord;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int e = w * P + k;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float xf[P];
+        Io<T>::unpack(xw[u][w], xf);
+        const float d = xf[k] - sh[e];
+        s1[e] += d;
+        s2[e] = fmaf(d, d, s2[e]);
+      }
+    }
+  }
+}
+
+// Block (tile, slab) of a stats launch, blockDim.x threads: thread t owns
+// channel group t % TG of the tile (V channels from c0) and row lane t / TG.
+// shift: (C,) fp32 or null (zero); partial, tickets and out as the reduce's
+// (out: sum(x - s), then sum((x - s)^2)). Shared memory: the table of row
+// lane sums [lanes][2 * TG * V + 1] fp32.
+template <typename T, int kWords>
+__global__ void __launch_bounds__(kReduceThreads, kReduceBlocksPerSM)
+bn_stats_kernel(const T* __restrict__ x, const float* __restrict__ shift,
+                float* __restrict__ partial, unsigned int* __restrict__ tickets,
+                float* __restrict__ out, long long M, int C, int TG, long long rows_per_slab) {
+  constexpr int V = kWords * Io<T>::kPerWord;
+  extern __shared__ float4 smem[];
+  const int lanes = blockDim.x / TG;
+  const int grp = threadIdx.x % TG, lane = threadIdx.x / TG;
+  const int Ct = TG * V;
+  float* table = reinterpret_cast<float*>(smem);
+  const int c0 = (blockIdx.x * TG + grp) * V;
+  float s1[V], s2[V], sh[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s1[e] = s2[e] = sh[e] = 0.f;
+  if (lane < lanes && c0 < C) {
+    if (shift != nullptr) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) sh[e] = shift[c0 + e];
+    }
+    const long long row0 = (long long)blockIdx.y * rows_per_slab;
+    const long long row1 = min(M, row0 + rows_per_slab);
+    const T* xp = x + c0;
+    long long r = row0 + lane;
+    for (; r + (long long)(kStatsUnroll - 1) * lanes < row1;
+         r += (long long)kStatsUnroll * lanes) {
+      uint32_t xw[kStatsUnroll][kWords];
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u)
+        load_words<kWords>(xp + (size_t)(r + (long long)u * lanes) * C, xw[u]);
+      accumulate_moments<T, kWords, kStatsUnroll>(xw, sh, s1, s2);
+    }
+    for (; r < row1; r += lanes) {
+      uint32_t xw[1][kWords];
+      load_words<kWords>(xp + (size_t)r * C, xw[0]);
+      accumulate_moments<T, kWords, 1>(xw, sh, s1, s2);
+    }
+  }
+  finish_tile<V>(s1, s2, lane < lanes, table, lanes, lane, grp, Ct, partial, tickets, out, C);
+}
+
+struct StatsArgs {
+  const void* x;
+  const float* shift;
+  float* partial;
+  unsigned int* tickets;
+  float* out;
+  long long M;
+  int C, threads, TG, slabs;
+};
+
+template <typename T, int kWords>
+int launch_stats(const StatsArgs& a, cudaStream_t stream) {
+  constexpr int V = kWords * Io<T>::kPerWord;
+  if (a.C % V) return (int)cudaErrorInvalidValue;
+  const int tiles = (a.C / V + a.TG - 1) / a.TG;
+  const size_t smem = (size_t)(a.threads / a.TG) * (2 * a.TG * V + 1) * sizeof(float);
+  if (smem > kReduceSmemLimit) return (int)cudaErrorInvalidValue;
+  const long long rows_per_slab = (a.M + a.slabs - 1) / a.slabs;
+  bn_stats_kernel<T, kWords><<<dim3(tiles, a.slabs), a.threads, smem, stream>>>(
+      static_cast<const T*>(a.x), a.shift, a.partial, a.tickets, a.out, a.M, a.C, a.TG,
+      rows_per_slab);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The forward's normalise-and-ReLU.
+
+constexpr int kApplyThreads = 256;  // most threads of an apply block
+constexpr int kApplyUnroll = 4;     // rows of x a thread keeps in flight
+
+template <int kWords>
+__device__ __forceinline__ void store_words(void* p, const uint32_t (&w)[kWords]) {
+  if constexpr (kWords == 4)
+    *static_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (kWords == 2)
+    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *static_cast<uint32_t*>(p) = w[0];
+}
+
+// y = relu(x * a + b) of one element, as the forward's PyTorch ops compute it:
+// the product and the sum each rounded to T (Io<T>::positive's arithmetic),
+// then clamp_min(0), which keeps a NaN and is fmaxf otherwise.
+template <typename T>
+__device__ __forceinline__ float apply_relu(float x, float a, float b) {
+  const float v = Io<T>::round(__fadd_rn(Io<T>::round(__fmul_rn(x, a)), b));
+  return v != v ? v : fmaxf(v, 0.f);
+}
+
+// One vector of kWords words of x, normalised in place. A bf16 result is a
+// bf16 value held in an fp32, whose low half is zero, so its high half is the
+// bf16's bits.
+template <typename T, int kWords>
+__device__ __forceinline__ void apply_words(uint32_t (&w)[kWords], const float* a,
+                                            const float* b) {
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    if constexpr (Io<T>::kPerWord == 1) {
+      w[i] = __float_as_uint(apply_relu<T>(__uint_as_float(w[i]), a[i], b[i]));
+    } else {
+      float f[2];
+      Io<T>::unpack(w[i], f);
+      const float lo = apply_relu<T>(f[0], a[2 * i], b[2 * i]);
+      const float hi = apply_relu<T>(f[1], a[2 * i + 1], b[2 * i + 1]);
+      w[i] = (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+    }
+  }
+}
+
+// Block (tile, slab) of an apply launch: thread t owns channel group t % TG of
+// the tile (V channels from c0) and row lane t / TG; it computes its
+// channels' factors once and streams the slab's rows.
+template <typename T, int kWords>
+__global__ void __launch_bounds__(kApplyThreads)
+bn_apply_relu_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                     const float* __restrict__ inv, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, T* __restrict__ y, long long M, int C,
+                     int TG, long long rows_per_slab) {
+  constexpr int V = kWords * Io<T>::kPerWord;
+  const int lanes = blockDim.x / TG;
+  const int grp = threadIdx.x % TG, lane = threadIdx.x / TG;
+  const int c0 = (blockIdx.x * TG + grp) * V;
+  if (lane >= lanes || c0 >= C) return;
+  float a[V], b[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    mask_factors<T>(mean[c0 + e], inv[c0 + e], gamma[c0 + e], beta[c0 + e], &a[e], &b[e]);
+  const long long row0 = (long long)blockIdx.y * rows_per_slab;
+  const long long row1 = min(M, row0 + rows_per_slab);
+  const T* xp = x + c0;
+  T* yp = y + c0;
+  long long r = row0 + lane;
+  for (; r + (long long)(kApplyUnroll - 1) * lanes < row1; r += (long long)kApplyUnroll * lanes) {
+    uint32_t w[kApplyUnroll][kWords];
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u)
+      load_words<kWords>(xp + (size_t)(r + (long long)u * lanes) * C, w[u]);
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      apply_words<T, kWords>(w[u], a, b);
+      store_words<kWords>(yp + (size_t)(r + (long long)u * lanes) * C, w[u]);
+    }
+  }
+  for (; r < row1; r += lanes) {
+    uint32_t w[kWords];
+    load_words<kWords>(xp + (size_t)r * C, w);
+    apply_words<T, kWords>(w, a, b);
+    store_words<kWords>(yp + (size_t)r * C, w);
+  }
+}
+
+template <typename T, int kWords>
+int launch_apply(const void* x, const float* mean, const float* inv, const float* gamma,
+                 const float* beta, void* y, long long M, int C, int threads, int TG, int slabs,
+                 cudaStream_t stream) {
+  constexpr int V = kWords * Io<T>::kPerWord;
+  if (C % V) return (int)cudaErrorInvalidValue;
+  const int tiles = (C / V + TG - 1) / TG;
+  const long long rows_per_slab = (M + slabs - 1) / slabs;
+  bn_apply_relu_kernel<T, kWords><<<dim3(tiles, slabs), threads, 0, stream>>>(
+      static_cast<const T*>(x), mean, inv, gamma, beta, static_cast<T*>(y), M, C, TG,
+      rows_per_slab);
   return (int)cudaGetLastError();
 }
 
@@ -415,6 +660,13 @@ bool bad_plan(long long M, int C, int TP, int R, int slabs) {
          slabs > 65535 || (C / 2 + TP - 1) / TP > 65535;
 }
 
+// The vector widths and the alignment the forward's kernels take: 16, 8 or 4
+// bytes holding at least two elements, dividing every address.
+bool bad_vector(int vec_bytes, int is_bf16, uintptr_t addresses) {
+  return (vec_bytes != 4 && vec_bytes != 8 && vec_bytes != 16) || addresses % vec_bytes ||
+         (!is_bf16 && vec_bytes == 4);
+}
+
 }  // namespace
 
 extern "C" {
@@ -462,6 +714,53 @@ int bn_bwd_dx(const void* x, const void* dy, const void* mean, const void* inv,
   if (is_bf16)
     return dx_pass<__nv_bfloat16>(x, dy, m, i, g, b, dgp, dbp, dx, M, C, inv_n, TP, R, slabs, s);
   return dx_pass<float>(x, dy, m, i, g, b, dgp, dbp, dx, M, C, inv_n, TP, R, slabs, s);
+}
+
+// x (M, C) in bf16 or fp32, aligned to vec_bytes; shift (C,) fp32, or null for
+// zero; partial, tickets and the launch as the reduce's; out (2, C) fp32:
+// sum(x - shift), then sum((x - shift)^2). C even.
+int bn_fwd_stats(const void* x, const void* shift, void* partial, void* tickets, void* out,
+                 long long M, int C, int vec_bytes, int threads, int TG, int slabs, int is_bf16,
+                 void* stream) {
+  if (M <= 0 || C <= 0 || C % 2 || threads <= 0 || threads % 32 || threads > kReduceThreads ||
+      TG <= 0 || TG > threads || slabs <= 0 || slabs > 65535 ||
+      bad_vector(vec_bytes, is_bf16, (uintptr_t)x))
+    return (int)cudaErrorInvalidValue;
+  const StatsArgs a{x, static_cast<const float*>(shift), static_cast<float*>(partial),
+                    static_cast<unsigned int*>(tickets), static_cast<float*>(out), M, C,
+                    threads, TG, slabs};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (vec_bytes == 16) return launch_stats<__nv_bfloat16, 4>(a, s);
+    if (vec_bytes == 8) return launch_stats<__nv_bfloat16, 2>(a, s);
+    return launch_stats<__nv_bfloat16, 1>(a, s);
+  }
+  if (vec_bytes == 16) return launch_stats<float, 4>(a, s);
+  return launch_stats<float, 2>(a, s);
+}
+
+// x and y (M, C) in bf16 or fp32, both aligned to vec_bytes; mean, inv =
+// rsqrt(var + eps), gamma, beta (C,) fp32. One launch of `threads` threads a
+// block, TG vectors of a row a tile; C even.
+int bn_relu_apply(const void* x, const void* mean, const void* inv, const void* gamma,
+                  const void* beta, void* y, long long M, int C, int vec_bytes, int threads,
+                  int TG, int slabs, int is_bf16, void* stream) {
+  if (M <= 0 || C <= 0 || C % 2 || threads <= 0 || threads % 32 || threads > kApplyThreads ||
+      TG <= 0 || TG > threads || slabs <= 0 || slabs > 65535 ||
+      bad_vector(vec_bytes, is_bf16, (uintptr_t)x | (uintptr_t)y))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *m = static_cast<const float*>(mean), *i = static_cast<const float*>(inv),
+              *g = static_cast<const float*>(gamma), *b = static_cast<const float*>(beta);
+  if (is_bf16) {
+    if (vec_bytes == 16)
+      return launch_apply<__nv_bfloat16, 4>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+    if (vec_bytes == 8)
+      return launch_apply<__nv_bfloat16, 2>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+    return launch_apply<__nv_bfloat16, 1>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+  }
+  if (vec_bytes == 16) return launch_apply<float, 4>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+  return launch_apply<float, 2>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
 }
 
 }  // extern "C"

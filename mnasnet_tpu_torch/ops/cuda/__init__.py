@@ -2,11 +2,14 @@
 first use and bound with ``ctypes``. Each wrapper runs its plain PyTorch
 version for a CPU tensor and its kernel for a CUDA tensor, as a
 ``torch.library`` op (``mnasnet_tpu_torch::dw_conv_bn_act``, ``::mbconv_block``,
-``::bn_bwd_reduce``, ``::bn_bwd_dx``) with a CPU, a CUDA and a fake impl."""
+``::bn_fwd_stats``, ``::bn_relu_apply``, ``::bn_bwd_reduce``, ``::bn_bwd_dx``)
+with a CPU, a CUDA and a fake impl."""
 
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (  # noqa: F401
     bn_bwd_dx,
     bn_bwd_reduce,
+    bn_fwd_stats,
+    bn_relu_apply,
     bn_relu_train,
 )
 from mnasnet_tpu_torch.ops.cuda.dw_conv import (  # noqa: F401

@@ -1,38 +1,47 @@
-"""Training BatchNorm + ReLU with the region backward on two kernels (``csrc/bn_bwd.cu``).
+"""Training BatchNorm + ReLU on four kernels (``csrc/bn_bwd.cu``): two for the
+region's forward, two for its backward.
 
 Counterpart of ``mnasnet_tpu/ops/pallas/bn_bwd.py``. :func:`bn_relu_train`
 is the ``bn_relu_train`` custom VJP as a ``torch.autograd.Function``:
 
   forward   y = relu(x̂·γ + β), x̂ = (x − μ)·rsqrt(σ² + ε), batch μ and biased σ²
-            (plain PyTorch ops, :func:`_fwd_math`); returns (y, μ, σ²)
+            from the sums [Σ(x − s), Σ(x − s)²]          (:func:`bn_fwd_stats`;
+            one launch with s = 0, or two under ``two_pass``: s = 0, then s = μ),
+            y in one pass                                (:func:`bn_relu_apply`);
+            returns (y, μ, σ²)
   backward  g = dy·[y > 0] with the mask recomputed as the forward clamps it,
             dβ = Σg, dγ = Σg·x̂                     (:func:`bn_bwd_reduce`)
             dx = γ·rsqrt(σ² + ε)·(g − dβ/n − x̂·dγ/n)   (:func:`bn_bwd_dx`)
 
 The statistics carry no gradient: they feed the running-stat EMA only. The
-backward moves five plane-sized transfers (x and dy read twice, dx written
-once) where autograd of the same forward keeps y and more; the source note in
-``csrc/bn_bwd.cu`` has the kernels' design. :func:`reduce_plan` plans the
-reduce's one launch, :func:`plan` the dx pass.
+forward reads x twice and writes y once (the reference's forward is plain
+JAX, :func:`_fwd_math` here, which in PyTorch runs as some seven library
+kernels); the backward moves five plane-sized transfers (x and dy read twice,
+dx written once) where autograd of the same forward keeps y and more. The
+source note in ``csrc/bn_bwd.cu`` has the kernels' design. :func:`stats_plan`
+and :func:`reduce_plan` plan the two ticketed reductions, :func:`apply_plan`
+the forward's normalise-and-ReLU pass, :func:`plan` the dx pass.
 
 Sync-BN (``replicas``, a :class:`~mnasnet_tpu_torch.parallel.Replicas`):
-the moments are those of the global batch, summed over the replicas
-(:func:`batch_moments`), and the backward sums the reduce's (2, C) output
+the moments are those of the global batch, the forward's sums summed over
+the replicas as :func:`batch_moments` sums its own (:func:`region_moments`:
+the same collectives, which :func:`~mnasnet_tpu_torch.parallel.taped_sums`
+records and replays under ``remat``), and the backward sums the reduce's (2, C) output
 over them, in place, between its launch and the dx kernel's, which then
 divides by the global count (:func:`bn_bwd`). The kernels are the same.
 Under a spatial mesh x is a rank's band of rows: the sums are still
 world-wide, the count is the band plan's (``parallel/dist.py:global_rows``),
-and an empty band launches neither kernel.
+and an empty band launches no kernel and adds zeros to the sums.
 
-The two kernels are the ``torch.library`` ops ``mnasnet_tpu_torch::bn_bwd_reduce``
-and ``mnasnet_tpu_torch::bn_bwd_dx``, as the serving kernels are
-(``ops/cuda/dw_conv.py``), so that ``torch.compile`` records them in the
-backward it differentiates: the CPU impl is the plain PyTorch version
-(``*_reference``), the CUDA impl launches the kernel or raises, the fake impl
-gives the output's shape; nothing falls back from one to the other. A launch
-adds one to the wrapper's ``launches``; a CUDA-graph replay launches without
-it. With ``replicas`` the all-reduce between the two launches stays outside
-the ops.
+The four kernels are the ``torch.library`` ops ``mnasnet_tpu_torch::bn_fwd_stats``,
+``::bn_relu_apply``, ``::bn_bwd_reduce`` and ``::bn_bwd_dx``, as the serving
+kernels are (``ops/cuda/dw_conv.py``), so that ``torch.compile`` records them
+in the step it traces: the CPU impl is the plain PyTorch version (the
+arithmetic of :func:`batch_moments` and :func:`_fwd_math`, ``*_reference``),
+the CUDA impl launches the kernel or raises, the fake impl gives the output's
+shape; nothing falls back from one to the other. A launch adds one to the
+wrapper's ``launches``; a CUDA-graph replay launches without it. With
+``replicas`` the all-reduces between the launches stay outside the ops.
 
 Under a CUDA-graph capture of a data-parallel step (NCCL), the region's
 backward is captured whole: the reduce launch, the all-reduce of its
@@ -75,6 +84,9 @@ REDUCE_BLOCKS = 2 * 132
 TILE_BYTES = 64
 FINISH_BYTES = 32 * 1024
 REDUCE_SMEM_LIMIT = 48 * 1024
+# The forward's apply pass: the most vectors of a row one block's tile spans
+# (a warp then covers whole rows, or 512 contiguous bytes of one).
+APPLY_TILE_MAX = 32
 
 
 def batch_moments(x: torch.Tensor, stats: str, replicas: Replicas | None = None
@@ -112,13 +124,31 @@ def batch_moments(x: torch.Tensor, stats: str, replicas: Replicas | None = None
 
 
 def _fwd_math(x, gamma, beta, eps: float, stats: str, replicas: Replicas | None = None):
-    """``_fwd_math`` of ``bn_bwd.py:185``: factors in fp32, applied in x's
-    dtype as two ops (one rounding after the multiply, one after the add)."""
+    """``_fwd_math`` of ``bn_bwd.py:185``, in plain PyTorch ops: factors in
+    fp32, applied in x's dtype as two ops (one rounding after the multiply,
+    one after the add)."""
     mean, var = batch_moments(x, stats, replicas)
-    inv = gamma * torch.rsqrt(var + eps)
-    shift = beta - mean * inv
-    y = torch.relu(x * inv.to(x.dtype) + shift.to(x.dtype))
-    return y, mean, var
+    return bn_relu_apply_reference(x, mean, torch.rsqrt(var + eps), gamma, beta), mean, var
+
+
+def bn_fwd_stats_reference(x, shift=None) -> torch.Tensor:
+    """Plain PyTorch version of the stats kernel: the (2, C) sums
+    ``[Σ(x − s), Σ(x − s)²]`` over N, H, W in fp32 (float64 stays float64),
+    as :func:`batch_moments` sums them; ``shift`` None: s = 0."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    d = x32 if shift is None else x32 - shift
+    axes = tuple(range(x.dim() - 1))
+    return torch.stack([d.sum(dim=axes), d.square().sum(dim=axes)])
+
+
+def bn_relu_apply_reference(x, mean, inv, gamma, beta) -> torch.Tensor:
+    """Plain PyTorch version of the apply kernel: ``relu(x·a + b)`` in x's
+    dtype, a = γ·inv and b = β − μ·a rounded to it first (``inv`` is
+    ``rsqrt(var + eps)`` without γ), so ``y > 0`` is
+    :func:`relu_mask_reference`."""
+    a = gamma * inv
+    b = beta - mean * a
+    return torch.relu(x * a.to(x.dtype) + b.to(x.dtype))
 
 
 def relu_mask_reference(x, mean, inv, gamma, beta) -> torch.Tensor:
@@ -164,9 +194,10 @@ def plan(m: int, c: int) -> tuple[int, int, int]:
 
 
 class ReducePlan(NamedTuple):
-    """One launch of the reduce kernel: block (tile, slab) of ``threads``
-    threads sums ``tg`` vectors of ``vec`` channels over ``rows_per_slab``
-    rows, ``lanes`` rows side by side."""
+    """One launch of the reduce kernel (or of the stats kernel, which shares
+    its layout): block (tile, slab) of ``threads`` threads sums ``tg``
+    vectors of ``vec`` channels over ``rows_per_slab`` rows, ``lanes`` rows
+    side by side."""
     vec: int             # channels a thread loads as one vector
     vec_bytes: int       # 16, 8 or 4
     threads: int
@@ -176,7 +207,7 @@ class ReducePlan(NamedTuple):
     slabs: int
     rows_per_slab: int
     partial_floats: int  # scratch the launch writes: tiles x slabs x 2 x tile channels
-    smem: int            # the tile's factors and the table of row-lane sums, bytes
+    smem: int            # the tile's factors (the reduce's) and the table of row-lane sums, bytes
     finish_bytes: int    # what the last block of a tile reads: 8 x slabs x tile channels
 
 
@@ -186,10 +217,21 @@ def alignment(*ptrs: int) -> int:
     return low & -low
 
 
+def _vector_bytes(c: int, itemsize: int, align: int, what: str) -> int:
+    """The widest of 16, 8 and 4 bytes that holds at least two elements and
+    divides a row and the alignment."""
+    vec_bytes = next((b for b in (16, 8, 4) if b // itemsize >= 2 and c % (b // itemsize) == 0
+                      and align % b == 0), None)
+    if vec_bytes is None:
+        raise ValueError(f"{what} must be aligned to {2 * itemsize} bytes, got {align}")
+    return vec_bytes
+
+
 @functools.lru_cache(maxsize=None)
-def reduce_plan(m: int, c: int, itemsize: int, align: int = 16) -> ReducePlan:
+def reduce_plan(m: int, c: int, itemsize: int, align: int = 16, inputs: int = 2) -> ReducePlan:
     """The reduce's launch for ``m`` rows of ``c`` channels of ``itemsize``
-    bytes, with x and dy aligned to ``align`` bytes.
+    bytes, with x and dy aligned to ``align`` bytes; ``inputs=1``: the stats
+    kernel's over x alone (:func:`stats_plan`).
 
     The vector is the widest of 16, 8 and 4 bytes that holds at least two
     elements and divides a row and the alignment. Tiles split the row's
@@ -201,10 +243,7 @@ def reduce_plan(m: int, c: int, itemsize: int, align: int = 16) -> ReducePlan:
     ``FINISH_BYTES``."""
     if c <= 0 or c % 2 or m <= 0:
         raise ValueError(f"the reduce needs m > 0 rows and an even channel count, got {m}, {c}")
-    vec_bytes = next((b for b in (16, 8, 4) if b // itemsize >= 2 and c % (b // itemsize) == 0
-                      and align % b == 0), None)
-    if vec_bytes is None:
-        raise ValueError(f"x and dy must be aligned to {2 * itemsize} bytes, got {align}")
+    vec_bytes = _vector_bytes(c, itemsize, align, "x and dy" if inputs == 2 else "x")
     vec = vec_bytes // itemsize
     groups = c // vec
     tiles = max(-(-groups // max(1, TILE_BYTES // vec_bytes)),
@@ -213,21 +252,69 @@ def reduce_plan(m: int, c: int, itemsize: int, align: int = 16) -> ReducePlan:
     lanes = REDUCE_THREADS // tg
     slabs = min(-(-REDUCE_BLOCKS // -(-groups // tg)), -(-m // (lanes * MIN_ROWS_PER_THREAD)),
                 FINISH_BYTES // (8 * tg * vec))
-    return make_reduce_plan(m, c, itemsize, vec_bytes, tg, max(1, slabs))
+    return make_reduce_plan(m, c, itemsize, vec_bytes, tg, max(1, slabs), inputs)
+
+
+def stats_plan(m: int, c: int, itemsize: int, align: int = 16) -> ReducePlan:
+    """The stats kernel's launch for ``m`` rows of ``c`` channels: the
+    reduce's rules (:func:`reduce_plan`) for one input, whose blocks keep no
+    factors in shared memory."""
+    return reduce_plan(m, c, itemsize, align, inputs=1)
 
 
 def make_reduce_plan(m: int, c: int, itemsize: int, vec_bytes: int, tg: int,
-                     slabs: int) -> ReducePlan:
+                     slabs: int, inputs: int = 2) -> ReducePlan:
     """The plan with these free choices and what follows from them; slabs
-    that would be left empty are dropped."""
+    that would be left empty are dropped. ``inputs=1``: a stats launch,
+    without the reduce's factors in shared memory."""
     vec = vec_bytes // itemsize
     tiles = -(-(c // vec) // tg)
     lanes = REDUCE_THREADS // tg
     rows_per_slab = -(-m // slabs)
     slabs = -(-m // rows_per_slab)
+    factors = tg * vec * 16 if inputs == 2 else 0
     return ReducePlan(vec, vec_bytes, REDUCE_THREADS, tg, tiles, lanes, slabs, rows_per_slab,
-                      tiles * slabs * 2 * tg * vec, tg * vec * 16 + lanes * (2 * tg * vec + 1) * 4,
+                      tiles * slabs * 2 * tg * vec, factors + lanes * (2 * tg * vec + 1) * 4,
                       8 * slabs * tg * vec)
+
+
+class ApplyPlan(NamedTuple):
+    """One launch of the forward's normalise-and-ReLU kernel: block (tile,
+    slab) of ``threads`` threads, ``lanes`` rows side by side of ``tg``
+    vectors of ``vec`` channels, walks ``rows_per_slab`` rows."""
+    vec: int
+    vec_bytes: int
+    threads: int
+    tg: int
+    tiles: int
+    lanes: int
+    slabs: int
+    rows_per_slab: int
+
+
+@functools.lru_cache(maxsize=None)
+def apply_plan(m: int, c: int, itemsize: int, align: int = 16) -> ApplyPlan:
+    """The apply kernel's launch for ``m`` rows of ``c`` channels of
+    ``itemsize`` bytes, with x and y aligned to ``align`` bytes.
+
+    The vector is the reduce's (:func:`reduce_plan`). A tile is the widest
+    divisor of the row's vectors, at most ``APPLY_TILE_MAX``, that leaves at
+    most a sixteenth of a block's ``THREADS`` threads idle (one vector always
+    leaves none); slabs fill the grid to ``TARGET_BLOCKS`` unless a lane
+    would walk fewer than ``MIN_ROWS_PER_THREAD`` rows."""
+    if c <= 0 or c % 2 or m <= 0:
+        raise ValueError(f"the apply pass needs m > 0 rows and an even channel count, "
+                         f"got {m}, {c}")
+    vec_bytes = _vector_bytes(c, itemsize, align, "x and y")
+    vec = vec_bytes // itemsize
+    groups = c // vec
+    tg = max(t for t in range(1, min(groups, APPLY_TILE_MAX) + 1)
+             if groups % t == 0 and 16 * (THREADS // t * t) >= 15 * THREADS)
+    tiles, lanes = groups // tg, THREADS // tg
+    slabs = max(1, min(-(-TARGET_BLOCKS // tiles), -(-m // (lanes * MIN_ROWS_PER_THREAD)), 65535))
+    rows_per_slab = -(-m // slabs)
+    return ApplyPlan(vec, vec_bytes, THREADS, tg, tiles, lanes, -(-m // rows_per_slab),
+                     rows_per_slab)
 
 
 _PROTOTYPES = {
@@ -235,6 +322,10 @@ _PROTOTYPES = {
                       + [ctypes.c_void_p], ctypes.c_int),
     "bn_bwd_dx": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int),
+    "bn_fwd_stats": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p], ctypes.c_int),
+    "bn_relu_apply": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p], ctypes.c_int),
 }
 
 
@@ -244,10 +335,11 @@ def _lib() -> ctypes.CDLL:
 
 def _check(what, x, dy, vecs):
     """The checks every impl of an op runs (an artifact or a compiled graph
-    calls the op directly); the public wrappers also refuse autograd."""
+    calls the op directly); the public wrappers also refuse autograd. The
+    forward's ops have no ``dy`` and hold their vectors to x's device."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
-    if dy.shape != x.shape:
+    if dy is not None and dy.shape != x.shape:
         raise ValueError(f"dy must have x's shape {tuple(x.shape)}, got {tuple(dy.shape)}")
     c = x.shape[-1]
     for v in vecs:
@@ -255,14 +347,17 @@ def _check(what, x, dy, vecs):
             raise ValueError(f"the per-channel vectors must be ({c},), got {tuple(v.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
-    if dy.device != x.device:
+    if dy is not None and dy.device != x.device:
         raise ValueError(f"dy must be on x's device {x.device}, not {dy.device}")
+    if dy is None and any(v.device != x.device for v in vecs):
+        raise ValueError(f"the per-channel vectors must be on x's device {x.device}")
     if x.device.type == "cuda":
-        if x.dtype not in _DTYPES or dy.dtype != x.dtype:
-            raise TypeError(f"{what} takes x and dy both bf16 or both fp32, not "
-                            f"{x.dtype} and {dy.dtype}")
-        if not (x.is_contiguous() and dy.is_contiguous()):
-            raise ValueError("x and dy must be contiguous NHWC tensors")
+        ios, names = ((x,), "x") if dy is None else ((x, dy), "x and dy")
+        if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ios):
+            raise TypeError(f"{what} takes {names} in bf16 or fp32, one dtype, not "
+                            f"{[t.dtype for t in ios]}")
+        if not all(t.is_contiguous() for t in ios):
+            raise ValueError(f"{names} must be contiguous NHWC tensors")
         if c % 2:
             raise ValueError(f"{what} needs an even channel count, got {c}")
 
@@ -299,6 +394,11 @@ def _scratch(dev, stream: int, p: ReducePlan) -> tuple[torch.Tensor, torch.Tenso
     return got
 
 
+def _stream(dev) -> int:
+    """The raw handle of the current stream, without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan) -> torch.Tensor:
     """One launch of the reduce kernel with plan ``p`` on CUDA tensors that
     the op has checked; the (2, C) fp32 sums (dγ, then dβ). Counts nothing:
@@ -311,8 +411,7 @@ def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan) -> torch.Tensor:
     c = x.shape[-1]
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     lib = _lib()
-    # The raw handle of the current stream, without building a Stream object.
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    stream = _stream(dev)
     partial, tickets = _scratch(dev, stream, p)
     err = lib.bn_bwd_reduce(
         x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in vecs), partial.data_ptr(),
@@ -440,6 +539,179 @@ torch.library.register_fake("mnasnet_tpu_torch::bn_bwd_reduce", _reduce_fake, li
 torch.library.register_fake("mnasnet_tpu_torch::bn_bwd_dx", _dx_fake, lib=_LIB)
 
 
+def launch_stats(x, shift, p: ReducePlan) -> torch.Tensor:
+    """One launch of the stats kernel with plan ``p`` on a CUDA tensor that
+    the op has checked; the (2, C) fp32 sums. Counts nothing: the op's CUDA
+    impl counts its launches."""
+    dev = x.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch_stats(x, shift, p)
+    c = x.shape[-1]
+    shift = None if shift is None else _f32((shift,), dev)[0]
+    out = torch.empty((2, c), dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    partial, tickets = _scratch(dev, stream, p)
+    err = _lib().bn_fwd_stats(
+        x.data_ptr(), None if shift is None else shift.data_ptr(), partial.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), x.numel() // c, c, p.vec_bytes, p.threads, p.tg,
+        p.slabs, int(x.dtype == torch.bfloat16), stream)
+    _build.check(err, "bn_fwd_stats")
+    return out
+
+
+def _stats_vecs(shift):
+    return () if shift is None else (shift,)
+
+
+def _stats_cuda(x, shift):
+    """The stats op's CUDA impl: the checks, the plan, one counted launch."""
+    _check("bn_fwd_stats", x, None, _stats_vecs(shift))
+    if x.device.type != "cuda":
+        raise ValueError(f"the stats kernel takes x on the card, not on {x.device}")
+    c = x.shape[-1]
+    out = launch_stats(x, shift, stats_plan(x.numel() // c, c, x.element_size(),
+                                            alignment(x.data_ptr())))
+    bn_fwd_stats.launches += 1
+    return out
+
+
+def _stats_cpu(x, shift):
+    _check("bn_fwd_stats", x, None, _stats_vecs(shift))
+    return bn_fwd_stats_reference(x, shift)
+
+
+def _stats_fake(x, shift):
+    _check("bn_fwd_stats", x, None, _stats_vecs(shift))
+    return x.new_empty((2, x.shape[-1]), dtype=torch.promote_types(x.dtype, torch.float32))
+
+
+def bn_fwd_stats(x, shift=None) -> torch.Tensor:
+    """The (2, C) fp32 sums ``[Σ(x − s), Σ(x − s)²]`` over N, H, W.
+
+    x (N, H, W, C) bf16 or fp32, NHWC, contiguous; shift (C,) fp32, or None
+    for s = 0. Calls the op ``mnasnet_tpu_torch::bn_fwd_stats``: a CPU tensor
+    takes :func:`bn_fwd_stats_reference`; a CUDA tensor launches the kernel
+    once (``bn_fwd_stats.launches`` counts it) or raises. The sums are the
+    same from run to run: their order is fixed by the shape, and no float
+    atomics.
+    """
+    _build.refuse_autograd("bn_fwd_stats", x, *_stats_vecs(shift))
+    return torch.ops.mnasnet_tpu_torch.bn_fwd_stats.default(x, shift)
+
+
+bn_fwd_stats.launches = 0
+
+
+def launch_apply(x, mean, inv, gamma, beta, y, p: ApplyPlan) -> torch.Tensor:
+    """One launch of the apply kernel with plan ``p`` into ``y`` (x's shape
+    and dtype, contiguous) on CUDA tensors that the op has checked. Counts
+    nothing: the op's CUDA impl counts its launches."""
+    dev = x.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch_apply(x, mean, inv, gamma, beta, y, p)
+    vecs = _f32((mean, inv, gamma, beta), dev)
+    c = x.shape[-1]
+    err = _lib().bn_relu_apply(
+        x.data_ptr(), *(v.data_ptr() for v in vecs), y.data_ptr(), x.numel() // c, c,
+        p.vec_bytes, p.threads, p.tg, p.slabs, int(x.dtype == torch.bfloat16), _stream(dev))
+    _build.check(err, "bn_relu_apply")
+    return y
+
+
+def _apply_cuda(x, mean, inv, gamma, beta):
+    """The apply op's CUDA impl: the checks, the plan, one counted launch."""
+    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta))
+    if x.device.type != "cuda":
+        raise ValueError(f"the apply kernel takes x on the card, not on {x.device}")
+    c = x.shape[-1]
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    p = apply_plan(x.numel() // c, c, x.element_size(), alignment(x.data_ptr(), y.data_ptr()))
+    launch_apply(x, mean, inv, gamma, beta, y, p)
+    bn_relu_apply.launches += 1
+    return y
+
+
+def _apply_cpu(x, mean, inv, gamma, beta):
+    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta))
+    return bn_relu_apply_reference(x, mean, inv, gamma, beta).contiguous()
+
+
+def _apply_fake(x, mean, inv, gamma, beta):
+    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta))
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def bn_relu_apply(x, mean, inv, gamma, beta) -> torch.Tensor:
+    """y = relu(x·a + b) in x's dtype, a = γ·inv and b = β − μ·a rounded to
+    it as the backward's mask rounds them, so ``y > 0`` is that mask.
+
+    x (N, H, W, C) bf16 or fp32, NHWC, contiguous; mean, inv = rsqrt(var +
+    eps), gamma, beta (C,) fp32. Calls the op
+    ``mnasnet_tpu_torch::bn_relu_apply``: a CPU tensor takes
+    :func:`bn_relu_apply_reference`; a CUDA tensor launches the kernel once
+    (``bn_relu_apply.launches`` counts it) or raises.
+    """
+    _build.refuse_autograd("bn_relu_apply", x, mean, inv, gamma, beta)
+    return torch.ops.mnasnet_tpu_torch.bn_relu_apply.default(x, mean, inv, gamma, beta)
+
+
+bn_relu_apply.launches = 0
+
+_LIB.define("bn_fwd_stats(Tensor x, Tensor? shift) -> Tensor",
+            tags=(torch.Tag.needs_exact_strides,))
+_LIB.define("bn_relu_apply(Tensor x, Tensor mean, Tensor inv, Tensor gamma, Tensor beta) "
+            "-> Tensor", tags=(torch.Tag.needs_exact_strides,))
+_LIB.impl("bn_fwd_stats", _stats_cpu, "CPU")
+_LIB.impl("bn_fwd_stats", _stats_cuda, "CUDA")
+_LIB.impl("bn_relu_apply", _apply_cpu, "CPU")
+_LIB.impl("bn_relu_apply", _apply_cuda, "CUDA")
+torch.library.register_fake("mnasnet_tpu_torch::bn_fwd_stats", _stats_fake, lib=_LIB)
+torch.library.register_fake("mnasnet_tpu_torch::bn_relu_apply", _apply_fake, lib=_LIB)
+
+
+def region_moments(x: torch.Tensor, stats: str, replicas: Replicas | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`batch_moments` of a BN+ReLU region's forward, from the sums of
+    ``mnasnet_tpu_torch::bn_fwd_stats``: the same expectations, the same
+    collectives over ``replicas`` (``one_pass``: the (2, C) ``[Σx, Σx²]`` in
+    one; ``two_pass``: Σx, then Σ(x − μ)², one each) and, on the CPU, the
+    same bits. ``two_pass`` launches the kernel twice. An empty band of a
+    spatial mesh (a plane of fewer rows than ranks) launches nothing and adds
+    zeros to the sums."""
+    if stats not in STATS:
+        raise ValueError(f"unknown BN stats {stats!r}; choices: {STATS}")
+    c = x.shape[-1]
+    n = x.numel() // c
+    if replicas is not None:
+        n = global_rows(n, replicas)
+
+    def sums(shift=None):
+        if x.numel() == 0:
+            return x.new_zeros((2, c), dtype=torch.promote_types(x.dtype, torch.float32))
+        return torch.ops.mnasnet_tpu_torch.bn_fwd_stats.default(x, shift)
+
+    if stats == "one_pass":
+        s = all_reduce_sum(sums(), replicas) / n
+        mean = s[0]
+        return mean, torch.clamp_min(s[1] - mean.square(), 0.0)
+    mean = all_reduce_sum(sums()[0], replicas) / n
+    return mean, all_reduce_sum(sums(mean)[1], replicas) / n
+
+
+def _fwd_region(x, gamma, beta, eps: float, stats: str, replicas: Replicas | None = None):
+    """The region's forward on the ops (:func:`region_moments`, then
+    ``mnasnet_tpu_torch::bn_relu_apply``): (y, mean, var), the values of
+    :func:`_fwd_math`, on the CPU the same bits."""
+    mean, var = region_moments(x, stats, replicas)
+    if x.numel() == 0:
+        return torch.empty_like(x), mean, var
+    inv = torch.rsqrt(var + eps)  # as bn_bwd recomputes it
+    y = torch.ops.mnasnet_tpu_torch.bn_relu_apply.default(x, mean, inv, gamma, beta)
+    return y, mean, var
+
+
 def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None = None):
     """(dx, dγ, dβ) of y = relu((x − mean)·rsqrt(var + eps)·γ + β), mean and
     var the batch statistics of x (``_bn_bwd_pallas``, ``bn_bwd.py:129``).
@@ -474,7 +746,7 @@ class _BNReluTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, stats, replicas):
         x = x.contiguous()
-        y, mean, var = _fwd_math(x, gamma, beta, eps, stats, replicas)
+        y, mean, var = _fwd_region(x, gamma, beta, eps, stats, replicas)
         ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.eps = eps
         ctx.replicas = replicas
@@ -491,11 +763,12 @@ class _BNReluTrain(torch.autograd.Function):
 def bn_relu_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   eps: float = 1e-5, stats: str = "one_pass",
                   replicas: Replicas | None = None):
-    """Training-mode BN (batch statistics) + ReLU with the region backward.
+    """Training-mode BN (batch statistics) + ReLU with the region forward
+    and backward on the kernels.
 
     x (N, H, W, C) NHWC in the compute dtype; gamma, beta (C,) fp32. Returns
     (y, mean, biased_var); the caller applies the EMA and Bessel's correction
     to the statistics (``models/layers.py``, ``BatchNorm.relu_train_region``).
-    ``replicas``: sync-BN over them (:func:`batch_moments`, :func:`bn_bwd`).
+    ``replicas``: sync-BN over them (:func:`region_moments`, :func:`bn_bwd`).
     """
     return _BNReluTrain.apply(x, gamma, beta, eps, stats, replicas)

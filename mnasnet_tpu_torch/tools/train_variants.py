@@ -35,7 +35,7 @@ from pathlib import Path
 import torch
 
 from mnasnet_tpu_torch import create_model
-from mnasnet_tpu_torch.ops.cuda.bn_bwd import bn_bwd_dx, bn_bwd_reduce
+from mnasnet_tpu_torch.ops.cuda.bn_bwd import bn_bwd_dx, bn_bwd_reduce, bn_fwd_stats, bn_relu_apply
 from mnasnet_tpu_torch.ops.cuda.dw_conv import dw_conv_bn_act
 from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fused
 from mnasnet_tpu_torch.tools.tune_plans import time_ms
@@ -46,7 +46,8 @@ from mnasnet_tpu_torch.utils.routing import TRAIN_ROUTE, BatchRouted
 
 ARCH, IMAGE, LR = "mnasnet1_0", 224, 0.01
 COUNTERS = {"dw_conv_bn_act": dw_conv_bn_act, "mbconv_block": mbconv_fused,
-            "bn_bwd_reduce": bn_bwd_reduce, "bn_bwd_dx": bn_bwd_dx}
+            "bn_bwd_reduce": bn_bwd_reduce, "bn_bwd_dx": bn_bwd_dx,
+            "bn_fwd_stats": bn_fwd_stats, "bn_relu_apply": bn_relu_apply}
 
 # Model and optimizer knobs of each variant, over the reference's defaults
 # (module BN EMA, unfused optimizer, no s2d stem); "fused" is the optimizer's.

@@ -1,16 +1,17 @@
 """Sweep the kernels' launch plans on the card, at the shapes of a model.
 
     python -m mnasnet_tpu_torch.tools.tune_plans [--arch mnasnet1_0] [--out tune.json]
-        [--only mbconv|dw|bn_reduce]
+        [--only mbconv|dw|bn_reduce|bn_stats]
 
 For every MBConv block of the model at 224 px, batch 128, bf16, it times
 each tile plan of the fused MBConv kernel (output tile, chunk width, 256 or
 512 threads) that the kernel can run; for every depthwise shape, each plan
 of the dw kernel (band of output rows, channel group, strip of outputs per
-thread); for every BN+ReLU region, each plan of the BN backward reduce (tile
-width, slab count). It checks each plan against the plain version and
-reports the fastest beside the one :func:`mbconv.plan`, :func:`dw_conv.plan`
-or :func:`bn_bwd.reduce_plan` picks. Needs a CUDA device.
+thread); for every BN+ReLU region, each plan of the BN backward reduce and
+of the forward's stats kernel (tile width, slab count). It checks each plan
+against the plain version and reports the fastest beside the one
+:func:`mbconv.plan`, :func:`dw_conv.plan`, :func:`bn_bwd.reduce_plan` or
+:func:`bn_bwd.stats_plan` picks. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -223,12 +224,12 @@ def sweep_mbconv(alpha: float) -> list[dict]:
     return out
 
 
-def _reduce_candidates(m, c, eb):
+def _reduce_candidates(m, c, eb, inputs=2):
     """The reduce plans the sweep times: the planner's; then with 16- and
     8-byte vectors, every even split of the channel groups into tiles down to
     32-byte runs, with one to four blocks per SM, each within the kernel's
-    limits and a finish of at most 64 KB."""
-    p0 = bn_bwd.reduce_plan(m, c, eb)
+    limits and a finish of at most 64 KB. ``inputs=1``: the stats kernel's."""
+    p0 = bn_bwd.reduce_plan(m, c, eb, inputs=inputs)
     out = [p0]
     for vec_bytes in (16, 8):
         groups = c * eb // vec_bytes
@@ -239,7 +240,7 @@ def _reduce_candidates(m, c, eb):
             tiles = -(-groups // tg)
             for blocks in (132, 264, 396, 528):
                 slabs = max(1, min(65535, -(-blocks // tiles)))
-                p = bn_bwd.make_reduce_plan(m, c, eb, vec_bytes, tg, slabs)
+                p = bn_bwd.make_reduce_plan(m, c, eb, vec_bytes, tg, slabs, inputs)
                 if p.smem <= bn_bwd.REDUCE_SMEM_LIMIT and p.finish_bytes <= 64 * 1024 \
                         and p not in out:
                     out.append(p)
@@ -283,7 +284,41 @@ def sweep_bn_reduce(alpha: float) -> list[dict]:
     return out
 
 
-SWEEPS = {"mbconv": sweep_mbconv, "dw": sweep_dw, "bn_reduce": sweep_bn_reduce}
+def sweep_bn_stats(alpha: float) -> list[dict]:
+    """The forward's stats kernel at every distinct BN+ReLU region, bf16: each
+    plan of :func:`_reduce_candidates` for one input checked against the
+    plain version and timed, beside the planner's (:func:`bn_bwd.stats_plan`,
+    the reduce's rules); ``regions`` counts the regions of that shape."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    shapes = [(h, c) for _, h, c in bn_region_shapes(alpha)]
+    out = []
+    for h, c in sorted(set(shapes), key=lambda hc: -hc[0] * hc[0] * hc[1]):
+        x = (torch.randn(BATCH, h, h, c, device="cuda", generator=g) * 2 + 0.3)
+        x = x.to(torch.bfloat16)
+        ref = bn_bwd.bn_fwd_stats_reference(x)
+        m = BATCH * h * h
+        rows = []
+        for p in _reduce_candidates(m, c, 2, inputs=1):
+            got = bn_bwd.launch_stats(x, None, p)
+            err = float((got - ref).abs().max() / ref.abs().max())
+            if err > 1e-4:
+                raise RuntimeError(f"stats plan {p} at {h}x{h}x{c}: error {err:.3g}")
+            rows.append({**p._asdict(), "err": err, "ms": time_ms(
+                lambda: bn_bwd.launch_stats(x, None, p), 30.0, graph=True)})
+        picked, best = rows[0], min(rows, key=lambda r: r["ms"])
+        bound_ms = x.numel() * 2 / 3.35e12 * 1e3
+        print(f"[bn_stats] {h}x{h}x{c} x{shapes.count((h, c))}: planner {picked['ms']:.4f} ms "
+              f"(tg {picked['tg']}, slabs {picked['slabs']}), fastest {best['ms']:.4f} ms "
+              f"(tg {best['tg']}, slabs {best['slabs']}), bound {bound_ms:.4f} ms, "
+              f"{len(rows)} plans", flush=True)
+        out.append({"shape": [h, c], "regions": shapes.count((h, c)), "bound_ms": bound_ms,
+                    "planner": picked, "fastest": best, "plans": rows})
+        del x, ref
+    return out
+
+
+SWEEPS = {"mbconv": sweep_mbconv, "dw": sweep_dw, "bn_reduce": sweep_bn_reduce,
+          "bn_stats": sweep_bn_stats}
 
 
 def main() -> None:

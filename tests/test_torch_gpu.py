@@ -18,11 +18,16 @@ from mnasnet_tpu_torch.models.mnasnet import InvertedResidual
 from mnasnet_tpu_torch.ops.cuda import bn_bwd, dw_conv, mbconv
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     _fwd_math,
+    batch_moments,
     bn_bwd_dx,
     bn_bwd_dx_reference,
     bn_bwd_reduce,
     bn_bwd_reduce_reference,
+    bn_fwd_stats,
+    bn_fwd_stats_reference,
+    bn_relu_apply,
     bn_relu_train,
+    region_moments,
     relu_mask_reference,
 )
 from mnasnet_tpu_torch.ops.cuda.dw_conv import (
@@ -34,6 +39,7 @@ from mnasnet_tpu_torch.ops.cuda.mbconv import mbconv_fused, mbconv_reference
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.train.optim import create_optimizer
 from mnasnet_tpu_torch.train.state import TrainState
+from mnasnet_tpu_torch.tools.tune_plans import bn_region_shapes
 from mnasnet_tpu_torch.train.steps import make_train_step
 
 pytestmark = pytest.mark.gpu
@@ -235,6 +241,19 @@ def test_cuda_wrappers_reject(cuda):
         dw_conv_bn_act(torch.zeros(1, 8, 8, 12, device=cuda), w[..., :12], s[:12], b[:12])
 
 
+def _close_moments(ours: dict, ref: dict, tol: float):
+    """Every BN's running statistics of two state dicts within ``tol``: each
+    channel's mean in units of its standard deviation and its variance
+    relative to itself (a mean near 0 has no relative error to speak of, and
+    routes that sum the moments in different orders differ there by
+    rounding alone)."""
+    for n, v in ref.items():
+        if n.endswith("running_var"):
+            m = n[:-len("var")] + "mean"
+            assert float(((ours[m] - ref[m]).abs() / v.clamp(min=1e-12).sqrt()).max()) <= tol, m
+            assert float(((ours[n] - v).abs() / v.clamp(min=1e-12)).max()) <= tol, n
+
+
 def _bn_case(cuda, shape, dtype, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     c = shape[-1]
@@ -399,15 +418,190 @@ def test_bn_relu_train_on_the_kernels(cuda):
     xs = [x.detach().requires_grad_() for _ in range(2)]
     gs = [gamma.detach().requires_grad_() for _ in range(2)]
     bs = [beta.detach().requires_grad_() for _ in range(2)]
-    before = (bn_bwd_reduce.launches, bn_bwd_dx.launches)
+    before = (bn_fwd_stats.launches, bn_relu_apply.launches, bn_bwd_reduce.launches,
+              bn_bwd_dx.launches)
     y, _, _ = bn_relu_train(xs[0], gs[0], bs[0], 1e-5, "one_pass")
     y.backward(dy)
-    assert (bn_bwd_reduce.launches, bn_bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+    assert (bn_fwd_stats.launches, bn_relu_apply.launches, bn_bwd_reduce.launches,
+            bn_bwd_dx.launches) == tuple(b + 1 for b in before)
     # The same region through autograd of the plain forward.
     _fwd_math(xs[1], gs[1], bs[1], 1e-5, "one_pass")[0].backward(dy)
     for ours, ref in ((xs[0].grad, xs[1].grad), (gs[0].grad, gs[1].grad),
                       (bs[0].grad, bs[1].grad)):
         torch.testing.assert_close(ours, ref, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------- the region's forward
+
+# The distinct (H, C) of the 35 BN+ReLU regions of mnasnet1_0@224.
+REGION_SHAPES = sorted({(h, c) for _, h, c in bn_region_shapes()})
+# Widths that reach the forward kernels' 16-, 8- and 4-byte vectors (as the
+# reduce's cases above), and a single row.
+SMALL_BN_SHAPES = [(1, 1, 3, 2), (3, 9, 9, 8), (2, 5, 5, 12), (3, 5, 5, 6), (4, 6, 6, 4)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _moment_errors(x, mean, var):
+    """(mean's error in standard deviations, var's relative error), worst
+    channel, against float64 moments of x."""
+    x64 = x.double()
+    m64 = x64.mean(dim=(0, 1, 2))
+    v64 = x64.var(dim=(0, 1, 2), unbiased=False)
+    return (float(((mean.double() - m64).abs() / v64.sqrt()).max()),
+            float(((var.double() - v64).abs() / v64).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_relu_apply_is_the_plain_forward_bit_for_bit(cuda, dtype):
+    """At the 35 region shapes of mnasnet1_0@224 (batch 2) and the small
+    widths, given the plain forward's mean and var: the apply kernel gives
+    the bits of ``relu(x·inv + shift)`` as its two ops round it, and its
+    ``y > 0`` is the backward's recomputed mask."""
+    cases = [(2, h, h, c) for _, h, c in bn_region_shapes()] + SMALL_BN_SHAPES
+    for i, shape in enumerate(cases):
+        x, _, y_plain, vecs = _bn_case(cuda, shape, dtype, seed=i)
+        before = bn_relu_apply.launches
+        y = bn_relu_apply(x, *vecs)
+        torch.cuda.synchronize()
+        assert bn_relu_apply.launches == before + 1
+        assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+        assert torch.equal(_bits(y), _bits(y_plain)), shape
+        assert torch.equal(y > 0, relu_mask_reference(x, *vecs)), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_relu_apply_at_an_unaligned_offset(cuda, dtype):
+    """x 300 (bf16) or 600 (fp32) bytes into its storage: the apply kernel
+    takes the widest vector both addresses allow, and the same bits."""
+    x, _, y_plain, vecs = _bn_case(cuda, (3, 5, 5, 6), dtype, seed=2)
+    x, y_plain = x[1:], y_plain[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _, mean, var = _fwd_math(x, vecs[2], vecs[3], 1e-5, "one_pass")
+    vecs = (mean, torch.rsqrt(var + 1e-5), vecs[2], vecs[3])
+    assert torch.equal(_bits(bn_relu_apply(x, *vecs)),
+                       _bits(_fwd_math(x, vecs[2], vecs[3], 1e-5, "one_pass")[0]))
+    sums = bn_fwd_stats(x)
+    torch.testing.assert_close(sums, bn_fwd_stats_reference(x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("stats", ["one_pass", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_fwd_stats_against_float64(cuda, dtype, stats):
+    """The moments from the stats kernel's sums (``region_moments``) at the
+    distinct region shapes (batch 2) and the small widths, against float64
+    moments of the same x: the mean's error in standard deviations and the
+    variance's relative error each within the plain fp32 path's own
+    (``batch_moments`` on the card), floored at 2^-20. ``two_pass`` launches
+    the kernel twice."""
+    cases = [(2, h, h, c) for h, c in REGION_SHAPES] + SMALL_BN_SHAPES
+    for i, shape in enumerate(cases):
+        x = _bn_case(cuda, shape, dtype, seed=10 + i)[0]
+        before = bn_fwd_stats.launches
+        mean, var = region_moments(x, stats)
+        torch.cuda.synchronize()
+        assert bn_fwd_stats.launches - before == (1 if stats == "one_pass" else 2)
+        assert mean.dtype == var.dtype == torch.float32
+        ours = _moment_errors(x, mean, var)
+        plain = _moment_errors(x, *batch_moments(x, stats))
+        for e, p in zip(ours, plain):
+            assert e <= max(p, 2.0 ** -20), (shape, ours, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_forward_kernels_repeat_and_replay_bit_for_bit(cuda, dtype):
+    """Two launches of each forward kernel give the same bits (a fixed order
+    of sums, no float atomics), back to back over shapes; a CUDA graph of
+    them, replayed twice, gives the eager bits."""
+    cases = [_bn_case(cuda, shape, dtype, seed=i) for i, shape in enumerate(
+        [(4, 14, 14, 240), (2, 56, 56, 48), (3, 5, 5, 6), (2, 7, 7, 1280)])]
+
+    def run(x, vecs):
+        mean = vecs[0]
+        return bn_fwd_stats(x), bn_fwd_stats(x, mean), bn_relu_apply(x, *vecs)
+
+    first = [run(x, vecs) for x, _, _, vecs in cases]
+    second = [run(x, vecs) for x, _, _, vecs in cases]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert all(torch.equal(_bits(u), _bits(v)) for u, v in zip(a, b))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run(x, vecs) for x, _, _, vecs in cases]
+    for _ in range(2):
+        for outs in captured:
+            for t in outs:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(first, captured):
+            assert all(torch.equal(_bits(u), _bits(v)) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("stats", ["one_pass", "two_pass"])
+def test_bn_relu_train_region_matches_autograd_of_the_plain_forward(cuda, stats):
+    """The region, forward on the two forward kernels and backward on the
+    other two, against autograd of the plain forward (``_fwd_math``) in fp32,
+    at the tolerance of tests/test_bn_bwd.py:58-60 (the moments' summation
+    order differs, so y is not bit for bit); each kernel launches once, the
+    stats kernel twice under ``two_pass``."""
+    x, dy, _, (_, _, gamma, beta) = _bn_case(cuda, (4, 28, 28, 120), torch.float32, seed=5)
+    xs = [x.detach().requires_grad_() for _ in range(2)]
+    gs = [gamma.detach().requires_grad_() for _ in range(2)]
+    bs = [beta.detach().requires_grad_() for _ in range(2)]
+    counters = (bn_fwd_stats, bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    before = [f.launches for f in counters]
+    y, mean, var = bn_relu_train(xs[0], gs[0], bs[0], 1e-5, stats)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [1 if stats == "one_pass" else 2, 1, 1, 1]
+    yr, mr, vr = _fwd_math(xs[1], gs[1], bs[1], 1e-5, stats)
+    yr.backward(dy)
+    torch.testing.assert_close(mean, mr, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(var, vr, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(y, yr, rtol=2e-4, atol=2e-4)
+    for ours, ref in ((xs[0].grad, xs[1].grad), (gs[0].grad, gs[1].grad),
+                      (bs[0].grad, bs[1].grad)):
+        torch.testing.assert_close(ours, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bn_stats,stats_per_step", [("one_pass", 35), ("two_pass", 70)])
+def test_bn_forward_launches_per_counted_graph_step(cuda, bn_stats, stats_per_step):
+    """The graph route's step launches the forward kernels at each of the 35
+    regions, per counted step (the warm-up and the capture; a replay
+    launches without the wrappers): the stats kernel once a region, twice
+    under ``two_pass``."""
+    model, tx, state = _route_setup(cuda, bn_stats=bn_stats)
+    step = make_train_step(model, tx, 0.1, route="graph")
+    images, labels = _route_batch(cuda)
+    before = (bn_fwd_stats.launches, bn_relu_apply.launches)
+    for _ in range(3):
+        state, _ = step(state, images, labels)
+    torch.cuda.synchronize()
+    n = step.counted()
+    assert n == 2 and sum(step.replays.values()) == 2
+    assert (bn_fwd_stats.launches - before[0], bn_relu_apply.launches - before[1]) == \
+        (stats_per_step * n, 35 * n)
+
+
+@pytest.mark.parametrize("stats", ["one_pass", "two_pass"])
+def test_an_empty_band_launches_no_bn_kernel(cuda, stats):
+    """A band of no rows (a plane with fewer rows than ranks): the region's
+    forward and backward launch nothing; y and dx are empty, dγ and dβ 0."""
+    x = torch.empty(2, 0, 7, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    gamma = torch.ones(16, device=cuda, requires_grad=True)
+    beta = torch.zeros(16, device=cuda, requires_grad=True)
+    counters = (bn_fwd_stats, bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    before = [f.launches for f in counters]
+    y, _, _ = bn_relu_train(x, gamma, beta, 1e-5, stats)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == before
+    assert y.shape == x.shape and x.grad.shape == x.shape
+    assert not gamma.grad.any() and not beta.grad.any()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-4)),
@@ -481,10 +675,9 @@ def test_train_step_kernel_route_matches_torch_route(cuda):
         out.append((float(metrics["loss"]), model.state_dict()))
     (lk, sk), (lt, st) = out
     assert abs(lk - lt) <= 1e-5 * abs(lt)
+    _close_moments(sk, st, 1e-5)
     for k in st:
-        if k.endswith(("running_mean", "running_var")):
-            _close(sk[k], st[k], 1e-5)
-        elif not k.endswith("num_batches_tracked"):
+        if not k.endswith(("running_mean", "running_var", "num_batches_tracked")):
             torch.testing.assert_close(sk[k], st[k], rtol=5e-3, atol=1e-4)
 
 
@@ -864,11 +1057,7 @@ def test_compile_train_route_within_the_fp32_bars(cuda):
                      dict(model.named_buffers()))
     (le, p0, pe, be), (_, _, pm, _), (lc, _, pc, bc) = out["eager"], out["moved"], out["compile"]
     assert abs(lc - le) <= 1e-5 * abs(le)
-    for n, v in be.items():
-        if n.endswith("running_var"):
-            m = n[:-len("var")] + "mean"
-            assert float(((bc[m] - be[m]).abs() / v.clamp(min=1e-12).sqrt()).max()) <= 1e-5, m
-            assert float(((bc[n] - v).abs() / v.clamp(min=1e-12)).max()) <= 1e-5, n
+    _close_moments(bc, be, 1e-5)
 
     def rel_rms(pa):
         num = sum(float(((pa[n] - pe[n]) ** 2).sum()) for n in pe)
@@ -1108,10 +1297,9 @@ def test_channel_pad_64_kernel_route_matches_torch_route(cuda):
         steps.append((float(metrics["loss"]), m.state_dict()))
     (lk, sk), (lt, st) = steps
     assert abs(lk - lt) <= 1e-5 * abs(lt)
+    _close_moments(sk, st, 1e-5)
     for k in st:
-        if k.endswith(("running_mean", "running_var")):
-            _close(sk[k], st[k], 1e-5)
-        elif not k.endswith("num_batches_tracked"):
+        if not k.endswith(("running_mean", "running_var", "num_batches_tracked")):
             torch.testing.assert_close(sk[k], st[k], rtol=5e-3, atol=1e-4)
 
 
@@ -1329,7 +1517,8 @@ def test_tool_memory_probe(cuda, tmp_path):
         assert row["oom"] is False and len(row["ms_runs"]) == 2 and row["ms_per_step"] > 0
         assert row["peak_allocated_gb"] > 0 and row["peak_reserved_gb"] >= 0
         assert row["launches_per_step"] == {"dw_conv_bn_act": 17 * k, "mbconv_block": 0,
-                                            "bn_bwd_reduce": 35 * k, "bn_bwd_dx": 35 * k}
+                                            "bn_bwd_reduce": 35 * k, "bn_bwd_dx": 35 * k,
+                                            "bn_fwd_stats": 35 * k, "bn_relu_apply": 35 * k}
     assert rows[2]["saved_activation_bytes"] <= 0.55 * rows[1]["saved_activation_bytes"]
     assert rows[2]["peak_allocated_gb"] < rows[1]["peak_allocated_gb"]
 

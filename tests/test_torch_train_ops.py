@@ -10,6 +10,7 @@ within 2 bf16 ulps of the largest reference value.
 
 import ctypes
 import re
+import types
 
 import numpy as np
 import pytest
@@ -32,17 +33,29 @@ from mnasnet_tpu_torch.ops.cuda import bn_bwd as bn_bwd_mod
 from mnasnet_tpu_torch.ops.cuda import dw_conv as dw_conv_mod
 from mnasnet_tpu_torch.ops.cuda import mbconv as mbconv_mod
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
+    APPLY_TILE_MAX,
     FINISH_BYTES,
     MIN_ROWS_PER_THREAD,
     REDUCE_SMEM_LIMIT,
+    _fwd_math,
+    _fwd_region,
     alignment,
+    apply_plan,
+    batch_moments,
     bn_bwd_dx,
     bn_bwd_dx_reference,
     bn_bwd_reduce,
     bn_bwd_reduce_reference,
+    bn_fwd_stats,
+    bn_fwd_stats_reference,
+    bn_relu_apply,
+    bn_relu_apply_reference,
     bn_relu_train,
     plan,
     reduce_plan,
+    region_moments,
+    relu_mask_reference,
+    stats_plan,
 )
 from mnasnet_tpu_torch.ops.cuda.dw_conv import depthwise_conv_train
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d, dw_grad_weights, dw_transposed_dx
@@ -157,10 +170,12 @@ def test_bn_plan(m, c):
         assert slabs * tiles >= 8 * 132
 
 
-def _check_reduce_plan(m, c, itemsize, align=16):
+def _check_reduce_plan(m, c, itemsize, align=16, inputs=2):
     """The launch the reduce kernel makes from ``reduce_plan(m, c, itemsize,
-    align)``, walked as ``bn_reduce_kernel`` walks it (csrc/bn_bwd.cu)."""
-    p = reduce_plan(m, c, itemsize, align)
+    align)``, walked as ``bn_reduce_kernel`` walks it (csrc/bn_bwd.cu);
+    ``inputs=1``: the stats kernel's from ``stats_plan``, walked as
+    ``bn_stats_kernel`` walks it (no factors in shared memory)."""
+    p = reduce_plan(m, c, itemsize, align) if inputs == 2 else stats_plan(m, c, itemsize, align)
     # The vector: 16, 8 or 4 bytes, at least two elements, dividing C and
     # the alignment.
     assert p.vec_bytes in (16, 8, 4) and p.vec_bytes == p.vec * itemsize and p.vec >= 2
@@ -178,7 +193,8 @@ def _check_reduce_plan(m, c, itemsize, align=16):
     assert p.threads % 32 == 0 and p.threads <= 256 and 1 <= p.tg <= p.threads
     assert p.lanes == p.threads // p.tg >= 1
     assert p.tiles < 2 ** 31 and 1 <= p.slabs <= 65535
-    assert p.smem == p.tg * p.vec * 16 + p.lanes * (2 * p.tg * p.vec + 1) * 4 <= REDUCE_SMEM_LIMIT
+    factors = p.tg * p.vec * 16 if inputs == 2 else 0
+    assert p.smem == factors + p.lanes * (2 * p.tg * p.vec + 1) * 4 <= REDUCE_SMEM_LIMIT
     # The scratch holds every partial row a block writes: [tiles][slabs][2][tg * vec].
     last = ((p.tiles - 1) * p.slabs + p.slabs - 1) * 2 * p.tg * p.vec + 2 * p.tg * p.vec
     assert p.partial_floats >= last
@@ -217,6 +233,174 @@ def test_reduce_plans_of_small_shapes(c, m, align, itemsize):
         _check_reduce_plan(m, c, itemsize, align)
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("alpha", [0.35, 0.5, 0.75, 1.0, 1.3, 1.4])
+def test_forward_plans_of_every_alpha(alpha, itemsize):
+    """The stats and apply kernels' launches at every BN+ReLU region of the
+    training forward at 224 px, batch 128: 16-byte vectors, the stats grid
+    the reduce's, the apply grid full unless a lane would walk fewer than
+    MIN_ROWS_PER_THREAD rows."""
+    from mnasnet_tpu_torch.tools.tune_plans import bn_region_shapes
+
+    for _, h, c in bn_region_shapes(alpha):
+        m = 128 * h * h
+        p = _check_reduce_plan(m, c, itemsize, inputs=1)
+        assert p.vec_bytes == 16 and p._replace(smem=0) == reduce_plan(m, c, itemsize)._replace(
+            smem=0)
+        a = _check_apply_plan(m, c, itemsize)
+        assert a.vec_bytes == 16
+        # (slabs left empty by rounding the rows up are dropped: 1% at most)
+        assert 100 * a.tiles * a.slabs >= 99 * 8 * 132 \
+            or a.rows_per_slab <= a.lanes * MIN_ROWS_PER_THREAD
+
+
+def _check_apply_plan(m, c, itemsize, align=16):
+    """The launch the apply kernel makes from ``apply_plan(m, c, itemsize,
+    align)``, walked as ``bn_apply_relu_kernel`` walks it (csrc/bn_bwd.cu)."""
+    p = apply_plan(m, c, itemsize, align)
+    assert p.vec_bytes == reduce_plan(m, c, itemsize, align).vec_bytes == p.vec * itemsize
+    groups = c // p.vec
+    # Tiles of tg vectors cover the row exactly; at most a sixteenth of a
+    # block's threads idle.
+    assert groups % p.tg == 0 and p.tiles * p.tg == groups and p.tg <= APPLY_TILE_MAX
+    assert p.threads == 256 and p.lanes == p.threads // p.tg
+    assert 16 * p.lanes * p.tg >= 15 * p.threads
+    assert p.rows_per_slab * (p.slabs - 1) < m <= p.rows_per_slab * p.slabs
+    assert 1 <= p.slabs <= 65535
+    return p
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("align", [16, 8, 4])
+@pytest.mark.parametrize("m", [1, 10, 256])
+@pytest.mark.parametrize("c", [2, 6, 12, 72])
+def test_forward_plans_of_small_shapes(c, m, align, itemsize):
+    if align < 2 * itemsize:
+        for fn in (stats_plan, apply_plan):
+            with pytest.raises(ValueError, match="aligned"):
+                fn(m, c, itemsize, align)
+    else:
+        _check_reduce_plan(m, c, itemsize, align, inputs=1)
+        _check_apply_plan(m, c, itemsize, align)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 16), (2, 14, 14, 72), (3, 5, 5, 6)])
+def test_forward_ops_on_cpu_are_the_plain_arithmetic(shape, dtype):
+    """The two forward ops' CPU impls: the sums of ``batch_moments`` (fp32,
+    float64 staying float64) and the two-op apply of ``_fwd_math``, bit for
+    bit; the wrappers are the ops and count no launch on the CPU."""
+    x, gamma, beta, _ = _bn_inputs(shape, seed=4)
+    x, gamma, beta = _t(x).to(dtype), _t(gamma), _t(beta)
+    before = (bn_fwd_stats.launches, bn_relu_apply.launches)
+    sums = bn_fwd_stats(x)
+    x32 = x.to(torch.promote_types(dtype, torch.float32))
+    assert sums.shape == (2, shape[-1]) and sums.dtype == x32.dtype
+    assert torch.equal(sums[0], x32.sum(dim=(0, 1, 2)))
+    assert torch.equal(sums[1], x32.square().sum(dim=(0, 1, 2)))
+    mean = sums[0] / (x.numel() // shape[-1])
+    shifted = bn_fwd_stats(x, mean)
+    assert torch.equal(shifted[1], (x32 - mean).square().sum(dim=(0, 1, 2)))
+    assert torch.equal(shifted, bn_fwd_stats_reference(x, mean))
+    _, m, v = _fwd_math(x, gamma, beta, 1e-5, "one_pass")
+    vecs = (m, torch.rsqrt(v + 1e-5), gamma, beta)
+    y = bn_relu_apply(x, *vecs)
+    assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+    assert torch.equal(y, _fwd_math(x, gamma, beta, 1e-5, "one_pass")[0])
+    assert torch.equal(y, bn_relu_apply_reference(x, *vecs))
+    assert torch.equal(y > 0, relu_mask_reference(x, *vecs))
+    assert (bn_fwd_stats.launches, bn_relu_apply.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("stats", ["one_pass", "two_pass"])
+def test_region_forward_on_the_ops_is_the_plain_forward_on_cpu(stats, dtype):
+    """The region's forward through the ops (``_fwd_region``,
+    ``region_moments``) is ``_fwd_math`` / ``batch_moments`` bit for bit on
+    the CPU: y, the mean and the variance."""
+    x, gamma, beta, _ = _bn_inputs((2, 14, 14, 72), seed=6)
+    x = _t(x).to(dtype)
+    gamma, beta = _t(gamma).to(torch.promote_types(dtype, torch.float32)), _t(beta)
+    assert all(torch.equal(a, b) for a, b in zip(region_moments(x, stats),
+                                                 batch_moments(x, stats)))
+    assert all(torch.equal(a, b) for a, b in zip(_fwd_region(x, gamma, beta, 1e-5, stats),
+                                                 _fwd_math(x, gamma, beta, 1e-5, stats)))
+    with pytest.raises(ValueError, match="unknown BN stats"):
+        region_moments(x, "three_pass")
+
+
+@pytest.mark.parametrize("stats", ["one_pass", "two_pass"])
+def test_region_on_an_empty_band_runs_no_op(stats, monkeypatch):
+    """An empty band (a plane with fewer rows than ranks): the region's
+    forward calls neither forward op, and y is empty."""
+    called = []
+    for name in ("bn_fwd_stats", "bn_relu_apply"):
+        op = getattr(torch.ops.mnasnet_tpu_torch, name)
+        monkeypatch.setattr(torch.ops.mnasnet_tpu_torch, name, types.SimpleNamespace(
+            default=lambda *a, op=op, name=name: called.append(name) or op.default(*a)))
+    x = torch.empty(2, 0, 7, 16)
+    y, mean, var = bn_relu_train(x, torch.ones(16), torch.zeros(16), 1e-5, stats)
+    assert y.shape == x.shape and mean.shape == var.shape == (16,) and not called
+    y, _, _ = bn_relu_train(torch.ones(2, 1, 7, 16), torch.ones(16), torch.zeros(16), 1e-5, stats)
+    assert called.count("bn_fwd_stats") == (1 if stats == "one_pass" else 2)
+    assert called.count("bn_relu_apply") == 1
+
+
+def _fake_cuda(*shape, dtype=torch.float32):
+    return torch.empty(*shape, device="cuda", dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_ops_fake_impls(dtype):
+    """The fake impls on CUDA tensors (no card needed): the output shapes
+    and dtypes, and the CUDA checks: an odd C, a 3-d input, a strided input,
+    a vector on another device, another dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ops = torch.ops.mnasnet_tpu_torch
+    with FakeTensorMode():
+        x, v = _fake_cuda(2, 5, 5, 6, dtype=dtype), _fake_cuda(6)
+        sums = ops.bn_fwd_stats.default(x, None)
+        assert sums.shape == (2, 6) and sums.dtype == torch.float32 and sums.is_cuda
+        assert ops.bn_fwd_stats.default(x, v).shape == (2, 6)
+        y = ops.bn_relu_apply.default(x, v, v, v, v)
+        assert y.shape == x.shape and y.dtype == dtype and y.is_contiguous() and y.is_cuda
+        odd = _fake_cuda(2, 5, 5, 7, dtype=dtype)
+        with pytest.raises(ValueError, match="even channel count"):
+            ops.bn_fwd_stats.default(odd, None)
+        with pytest.raises(ValueError, match="even channel count"):
+            ops.bn_relu_apply.default(odd, *[_fake_cuda(7)] * 4)
+        with pytest.raises(ValueError, match="NHWC"):
+            ops.bn_fwd_stats.default(_fake_cuda(10, 6, dtype=dtype), None)
+        with pytest.raises(ValueError, match="NHWC"):
+            ops.bn_relu_apply.default(_fake_cuda(10, 6, dtype=dtype), v, v, v, v)
+        strided = _fake_cuda(2, 6, 5, 5, dtype=dtype).permute(0, 2, 3, 1)
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.bn_relu_apply.default(strided, v, v, v, v)
+        with pytest.raises(ValueError, match="x's device"):
+            ops.bn_fwd_stats.default(x, torch.empty(6))
+        with pytest.raises(ValueError, match="x's device"):
+            ops.bn_relu_apply.default(x, v, torch.empty(6), v, v)
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            ops.bn_fwd_stats.default(_fake_cuda(2, 5, 5, 6, dtype=torch.float16), None)
+
+
+def test_forward_ops_cpu_checks_and_autograd_refusal():
+    """The CPU impls take any even or odd C but refuse a non-NHWC input, a
+    vector of another width and a vector on another device; the wrappers
+    refuse an input that requires grad."""
+    x, v = torch.randn(2, 3, 3, 5), torch.randn(5)
+    assert bn_fwd_stats(x).shape == (2, 5) and bn_relu_apply(x, v, v, v, v).shape == x.shape
+    with pytest.raises(ValueError, match="NHWC"):
+        bn_fwd_stats(torch.randn(9, 5))
+    with pytest.raises(ValueError, match="per-channel"):
+        bn_relu_apply(x, v[:3], v, v, v)
+    with pytest.raises(ValueError, match="x's device"):
+        bn_fwd_stats(x, torch.empty(5, device="meta"))
+    with pytest.raises(RuntimeError, match="autograd"):
+        bn_relu_apply(x.requires_grad_(), v, v, v, v)
+
+
 def test_alignment_of_addresses():
     assert alignment(0) == 16 and alignment(4096, 32) == 16
     assert alignment(4096, 4104) == 8 and alignment(300) == 4 and alignment(16, 2) == 2
@@ -239,6 +423,7 @@ _CTYPES_OF = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctyp
 
 @pytest.mark.parametrize("module,fn", [
     (bn_bwd_mod, "bn_bwd_reduce"), (bn_bwd_mod, "bn_bwd_dx"),
+    (bn_bwd_mod, "bn_fwd_stats"), (bn_bwd_mod, "bn_relu_apply"),
     (dw_conv_mod, "dw_conv_bn_act"), (dw_conv_mod, "dw_conv_smem_bytes"),
     (mbconv_mod, "mbconv_block"), (mbconv_mod, "mbconv_smem_bytes"),
 ])

@@ -1,8 +1,8 @@
 """The train route (``utils/routing.py:TrainRouted``, ``train/steps.py``), the
 BN+ReLU backward ops and the optimizer's step scalars, on the CPU.
 
-* ``opcheck`` of ``mnasnet_tpu_torch::bn_bwd_reduce``, ``::bn_bwd_dx`` and
-  ``::dw_grad_weights``; the BN ops' CPU impls against the JAX
+* ``opcheck`` of ``mnasnet_tpu_torch::bn_bwd_reduce``, ``::bn_bwd_dx``,
+  ``::bn_fwd_stats``, ``::bn_relu_apply`` and ``::dw_grad_weights``; the BN ops' CPU impls against the JAX
   ``_bn_bwd_pallas`` in Pallas interpret mode, at the tolerance of
   tests/test_torch_train_ops.py (fp32 rtol = atol = 2e-4, bf16 two ulps of
   the largest reference value).
@@ -112,6 +112,21 @@ def test_opcheck_bn_bwd_dx(dtype):
     for n in (50, 150):  # the local count, and a larger (sync-BN) one
         torch.library.opcheck(torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default,
                               (x, dy, mean, inv, gamma, beta, dg, db, n))
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_bn_fwd_stats(dtype, shifted):
+    x, _, mean, _, _, _ = _bn_case((2, 5, 5, 6), dtype)
+    torch.library.opcheck(torch.ops.mnasnet_tpu_torch.bn_fwd_stats.default,
+                          (x, mean if shifted else None))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_bn_relu_apply(dtype):
+    x, _, mean, var, gamma, beta = _bn_case((2, 5, 5, 6), dtype)
+    torch.library.opcheck(torch.ops.mnasnet_tpu_torch.bn_relu_apply.default,
+                          (x, mean, torch.rsqrt(var + 1e-5), gamma, beta))
 
 
 @pytest.mark.parametrize("k,stride", [(3, 1), (5, 2)])
@@ -485,11 +500,13 @@ def test_compile_route_equals_eager(compiled_runs):
 
 def test_compile_route_holds_the_kernels_as_ops(compiled_runs):
     """One forward and one backward graph, no break (``fullgraph``): the
-    forward holds the 17 dw ops, the backward 35 of each BN op and the 17
-    dw weight-gradient ops."""
+    forward holds the 17 dw ops and 35 of each BN forward op, the backward
+    35 of each BN backward op and the 17 dw weight-gradient ops."""
     _, rec = compiled_runs
     assert len(rec.fw) == 1 and len(rec.bw) == 1
-    assert _Recorder.ops(rec.fw) == {"mnasnet_tpu_torch.dw_conv_bn_act.default": 17}
+    assert _Recorder.ops(rec.fw) == {"mnasnet_tpu_torch.dw_conv_bn_act.default": 17,
+                                     "mnasnet_tpu_torch.bn_fwd_stats.default": 35,
+                                     "mnasnet_tpu_torch.bn_relu_apply.default": 35}
     assert _Recorder.ops(rec.bw) == {"mnasnet_tpu_torch.bn_bwd_reduce.default": 35,
                                      "mnasnet_tpu_torch.bn_bwd_dx.default": 35,
                                      "mnasnet_tpu_torch.dw_grad_weights.default": 17}
