@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only tools   # the measurement tools phase only
     python3 chip_smoke.py --only smoke   # the train smoke's long-run path only
     python3 chip_smoke.py --only spatial # the data x spatial mesh phase only
+    python3 chip_smoke.py --only b4      # the efficientnet_b4 phase only
 
 Phases, in order; any failure raises and exits non-zero:
   1. device: requires CUDA and prints the card's name and power limit;
@@ -65,6 +66,21 @@ Phases, in order; any failure raises and exits non-zero:
      their plain versions and the region's whole plain forward (``_fwd_math``);
   7. dw training op: the depthwise autograd Function's gradients against the
      torch route's at one stride-1 and one stride-2 shape, bf16 and fp32;
+  7b. b4: efficientnet_b4's kernels at its own shapes (380 px, batch 64,
+     bf16 and fp32): the SiLU apply, reduce and dx at each distinct shape of
+     its 64 BN+SiLU regions against their plain versions
+     (``bn_relu_apply_reference``, ``bn_bwd_reduce_reference`` and
+     ``bn_bwd_dx_reference`` with ``act="silu"``) at the ReLU kernels' bars
+     (the apply within one rounding of its dtype), each op's launches counted
+     under SiLU and none under ReLU, two launches bit-identical, and the
+     ReLU versions failing each bar; the dw kernel's SiLU epilogue at each
+     distinct shape of its 32 dw convs against its plain version at the dw
+     bars, the ReLU and linear epilogues failing them; timed (bf16) beside
+     their bounds and summed over one step's regions and convs; then one
+     counted train step (5 steps on the default train route, the counters
+     zeroed just before): exactly 64 bn_fwd_stats, 64 each of the SiLU
+     apply, reduce and dx, 0 of their ReLU kernels, 32 dw and 0 MBConv
+     launches per counted step, and finite losses;
   8. train: ``make_train_step`` on the production configuration
      (``create_model("mnasnet1_0", dtype=bf16, bn_ema="external",
      stem_s2d=True)``, ``create_optimizer("rmsprop", 0.01, fused="small")``,
@@ -255,7 +271,7 @@ Phases, in order; any failure raises and exits non-zero:
      only (16 fused blocks and 1 dw launch a forward, no shape refused);
      each record's keys, and the card's name and power limit in it.
 A full run takes the phases in this order: device, build, dw, mbconv,
-serving, bn, dw training op; then it starts the background jobs
+serving, bn, dw training op, b4; then it starts the background jobs
 (``FARM_JOBS``: the compile routes' first steps, the compilation cache, the
 knobs' GPU tests, the dist phase's ranks and dry run, each a process of its
 own at a lower priority) and takes, beside them, the checks that run no
@@ -264,7 +280,8 @@ are tens of seconds), and smoke (whose first two processes run beside
 deadrank); it waits for the jobs, then times the serving routes, the train
 routes and the knobs' variants and runs trainer, dist, spatial and tools,
 with no job left running beside any timing window.
-It then prints the ``kernels`` JSON line, the card line, and as its last line
+It then prints the ``kernels`` JSON line (the b4 phase's kernels at the
+end), the card line, and as its last line
 ``{"ok": true, "device": {...}}``. A kernel's "ms" (and its plain version's
 and library call's) is the time per call from CUDA events over back-to-back
 eager calls through the counted wrapper, as the model makes them: where the
@@ -472,6 +489,20 @@ TOL_BN_SUMS = {"float32": 1e-4, "bfloat16": 1e-4}
 TOL_BN_DX = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 TOL_DW_TRAIN = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -6)}  # (dx, dw)
 BN_EPS = 1e-5
+# The SiLU apply against its plain version (the same two-op bf16 z, then
+# SiLU): within one rounding of the output dtype at the largest value.
+TOL_SILU_APPLY = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+# The b4 phase: efficientnet_b4 at its published 380 px and the train cell's
+# batch, with EfficientNet's BN epsilon; per counted step of its train
+# route, 64 BN+SiLU regions (stats and the SiLU apply, reduce and dx), 32 dw
+# kernels, no ReLU region kernel and no fused MBConv.
+B4_IMAGE = 380
+B4_BATCH = 64
+B4_BN_EPS = 1e-3
+B4_LAUNCHES_PER_STEP = {"dw_conv_bn_act": 32, "mbconv_block": 0, "bn_fwd_stats": 64,
+                        "bn_relu_apply.silu": 64, "bn_bwd_reduce.silu": 64,
+                        "bn_bwd_dx.silu": 64, "bn_relu_apply.relu": 0,
+                        "bn_bwd_reduce.relu": 0, "bn_bwd_dx.relu": 0}
 # The production train configuration (bench.py's "optimized" build): the
 # learning rate its RMSProp is timed at.
 TRAIN_LR = 0.01
@@ -1275,6 +1306,256 @@ def dw_train_phase() -> list[dict]:
                 raise RuntimeError(f"dw training op {row['shape']} {dname} disagrees: {row}")
             rows.append(row)
     return rows
+
+
+def b4_shapes(size: int = B4_IMAGE) -> tuple[list, list]:
+    """(name, H, C) of the 64 BN+SiLU regions of efficientnet_b4's training
+    forward at ``size`` px (the stem, each block's expand BN where it has
+    one and its dw BN, the head) and (name, H, C, k, stride) of its 32 dw
+    convs, H the conv's input plane."""
+    from mnasnet_tpu_torch.models.efficientnet import B0_STEM, VARIANTS, stage_table
+    from mnasnet_tpu_torch.models.mnasnet import round_to_multiple_of
+
+    width, depth = VARIANTS["efficientnet_b4"][:2]
+    h = out_size(size, 3, 2)
+    regions, dws = [("stem", h, round_to_multiple_of(B0_STEM * width, 8))], []
+    table = stage_table(width, depth)
+    for i, (e, k, s, cin, cout, repeats) in enumerate(table):
+        for j in range(repeats):
+            ci, st = (cin, s) if j == 0 else (cout, 1)
+            mid = round_to_multiple_of(ci * e, 8)
+            if e != 1:
+                regions.append((f"s{i + 1}b{j}.expand", h, mid))
+            dws.append((f"s{i + 1}b{j}", h, mid, k, st))
+            h = out_size(h, k, st)
+            regions.append((f"s{i + 1}b{j}.dw", h, mid))
+    return regions + [("head", h, 4 * table[-1][4])], dws
+
+
+def _b4_region_row(h, c, dt, g, timing) -> dict:
+    """The SiLU apply, reduce and dx kernels at one region shape of
+    efficientnet_b4 (batch B4_BATCH) against their plain versions on the
+    same tensors; beside each error, the ReLU version's distance from the
+    SiLU one (what a kernel of the wrong activation would read)."""
+    dname = str(dt).split(".")[1]
+    gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+    beta = torch.rand(c, device="cuda", generator=g) - 0.5
+    x = (torch.randn(B4_BATCH, h, h, c, device="cuda", generator=g) * 2 + 0.3).to(dt)
+    dy = torch.randn(B4_BATCH, h, h, c, device="cuda", generator=g).to(dt)
+    mean, var = batch_moments(x, "one_pass")
+    vecs = (mean, torch.rsqrt(var + B4_BN_EPS), gamma, beta)
+    ops = (bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    before = [dict(op.launches_by_act) for op in ops]
+    y = bn_relu_apply(x, *vecs, act="silu")
+    dg, db = bn_bwd_reduce(x, dy, *vecs, act="silu")
+    dx = bn_bwd_dx(x, dy, *vecs, dg, db, act="silu")
+    dg2, db2 = bn_bwd_reduce(x, dy, *vecs, act="silu")
+    dx2 = bn_bwd_dx(x, dy, *vecs, dg2, db2, act="silu")
+    torch.cuda.synchronize()
+    counted = [(op.launches_by_act["silu"] - b["silu"], op.launches_by_act["relu"] - b["relu"])
+               for op, b in zip(ops, before)]
+    ry = bn_relu_apply_reference(x, *vecs, act="silu")
+    rdg, rdb = bn_bwd_reduce_reference(x, dy, *vecs, act="silu")
+    rdx = bn_bwd_dx_reference(x, dy, *vecs, rdg, rdb, act="silu")
+    relu_y = bn_relu_apply_reference(x, *vecs, act="relu")
+    relu_dg, relu_db = bn_bwd_reduce_reference(x, dy, *vecs, act="relu")
+    relu_dx = bn_bwd_dx_reference(x, dy, *vecs, relu_dg, relu_db, act="relu")
+    row = {"shape": f"{h}x{h}x{c}", "dtype": dname,
+           "apply_rel_err": rel_err(y, ry), "dgamma_rel_err": rel_err(dg, rdg),
+           "dbeta_rel_err": rel_err(db, rdb), "dx_rel_err": rel_err(dx, rdx),
+           "apply_max_abs_err": float((y.float() - ry.float()).abs().max()),
+           "reduce_max_abs_err": float(torch.maximum((dg - rdg).abs().max(),
+                                                     (db - rdb).abs().max())),
+           "dx_max_abs_err": float((dx.float() - rdx.float()).abs().max()),
+           "relu_apply_rel_err": rel_err(relu_y, ry), "relu_dgamma_rel_err": rel_err(relu_dg, rdg),
+           "relu_dx_rel_err": rel_err(relu_dx, rdx),
+           "launches_silu_relu": counted,
+           "deterministic": bool(torch.equal(dg, dg2) and torch.equal(db, db2)
+                                 and torch.equal(dx, dx2))}
+    tols = {"apply_rel_err": TOL_SILU_APPLY[dname], "dgamma_rel_err": TOL_BN_SUMS[dname],
+            "dbeta_rel_err": TOL_BN_SUMS[dname], "dx_rel_err": TOL_BN_DX[dname]}
+    bad = [k for k, tol in tols.items() if row[k] > tol]
+    # The bars tell the activations apart: a kernel of the wrong activation
+    # (the ReLU versions here) fails each of them.
+    bad += [k for k, tol in (("relu_apply_rel_err", tols["apply_rel_err"]),
+                             ("relu_dgamma_rel_err", tols["dgamma_rel_err"]),
+                             ("relu_dx_rel_err", tols["dx_rel_err"])) if row[k] <= tol]
+    if counted != [(2 if op is not bn_relu_apply else 1, 0) for op in ops]:
+        bad.append("launches_silu_relu")
+    if not row["deterministic"]:
+        bad.append("deterministic")
+    if bad or not torch.isfinite(dx).all() or dx.dtype != dt or y.dtype != dt:
+        raise RuntimeError(f"b4 region {row['shape']} {dname}: {bad}: {row}")
+    plane = x.numel() * x.element_size()
+    row["stats_bound_ms"], _ = bound(plane + 2 * c * 4, 3 * x.numel(), "float32")
+    row["apply_bound_ms"], _ = bound(2 * plane + 4 * c * 4, 6 * x.numel(), "float32")
+    row["reduce_bound_ms"], _ = bound(2 * plane + 6 * c * 4, 8 * x.numel(), "float32")
+    row["dx_bound_ms"], _ = bound(3 * plane + 6 * c * 4, 10 * x.numel(), "float32")
+    if timing and dt == torch.bfloat16:
+        once = {"stats": lambda: bn_fwd_stats(x),
+                "apply": lambda: bn_relu_apply(x, *vecs, act="silu"),
+                "reduce": lambda: bn_bwd_reduce(x, dy, *vecs, act="silu"),
+                "dx": lambda: bn_bwd_dx(x, dy, *vecs, dg, db, act="silu")}
+        for kind, fn in once.items():
+            row[f"{kind}_ms"] = time_ms(fn, 30.0)
+            row[f"{kind}_device_ms"] = time_ms(fn, 30.0, graph=True)
+        row["apply_plain_ms"] = time_ms(
+            lambda: bn_relu_apply_reference(x, *vecs, act="silu"), 30.0)
+    return row
+
+
+def _b4_dw_row(h, c, k, s, dt, g, timing) -> dict:
+    """The dw kernel's SiLU epilogue (EfficientNet's eval forward) at one
+    of efficientnet_b4's dw shapes (batch B4_BATCH) against its plain
+    version, beside the ReLU epilogue's distance from it."""
+    dname = str(dt).split(".")[1]
+    x = torch.randn(B4_BATCH, h, h, c, device="cuda", generator=g).to(dt)
+    w = torch.randn(k, k, 1, c, device="cuda", generator=g) * 0.3
+    scale = torch.rand(c, device="cuda", generator=g) + 0.5
+    bias = torch.randn(c, device="cuda", generator=g) * 0.1
+    before = dw_conv_bn_act.launches
+    y = dw_conv_bn_act(x, w, scale, bias, stride=s, relu=False, silu=True)
+    torch.cuda.synchronize()
+    ref = dw_conv_reference(x, w, scale, bias, stride=s, relu=False, silu=True)
+    # An epilogue of the wrong activation (ReLU, or none) fails the bar.
+    relu = dw_conv_reference(x, w, scale, bias, stride=s, relu=True)
+    linear = dw_conv_reference(x, w, scale, bias, stride=s, relu=False)
+    row = {"shape": f"{h}x{h}x{c} k{k} s{s}", "dtype": dname, "rel_err": rel_err(y, ref),
+           "max_abs_err": float((y.float() - ref.float()).abs().max()),
+           "relu_rel_err": rel_err(relu, ref), "linear_rel_err": rel_err(linear, ref),
+           "tol": TOL_DW[dname], "launches": dw_conv_bn_act.launches - before}
+    if (row["rel_err"] > TOL_DW[dname]
+            or min(row["relu_rel_err"], row["linear_rel_err"]) <= TOL_DW[dname]
+            or row["launches"] != 1 or y.dtype != dt or not torch.isfinite(y).all()):
+        raise RuntimeError(f"b4 dw SiLU epilogue {row['shape']} {dname}: {row}")
+    ho = out_size(h, k, s)
+    row["bound_ms"], row["bound_by"] = bound(
+        (x.numel() + B4_BATCH * ho * ho * c) * x.element_size() + (k * k + 2) * c * 4,
+        2 * k * k * B4_BATCH * ho * ho * c, dname)
+    if timing and dt == torch.bfloat16:
+        fn = lambda: dw_conv_bn_act(x, w, scale, bias, stride=s, relu=False, silu=True)  # noqa: E731
+        row["ms"] = time_ms(fn, 30.0)
+        row["device_ms"] = time_ms(fn, 30.0, graph=True)
+        row["plain_ms"] = time_ms(
+            lambda: dw_conv_reference(x, w, scale, bias, stride=s, relu=False, silu=True), 30.0)
+    return row
+
+
+def _summed(rows: list, counts: dict, keys) -> dict:
+    """Each key of the bf16 rows summed over the step's regions or convs:
+    a shape's row counted as often as the step runs that shape."""
+    bf = {r["shape"]: r for r in rows if r["dtype"] == "bfloat16"}
+    return {k: sum(bf[s][k] * n for s, n in counts.items()) if all(
+        k in r for r in bf.values()) else None for k in keys}
+
+
+def b4_phase(timing: bool) -> dict:
+    """efficientnet_b4's kernels on its own shapes: the SiLU apply, reduce
+    and dx at each distinct BN+SiLU region shape and the dw SiLU epilogue
+    at each distinct dw shape (380 px, batch 64, bf16 and fp32) against
+    their plain versions, timed beside their bounds and summed over a
+    step; then one counted train step on the default train route with the
+    counters zeroed just before it."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    regions, dws = b4_shapes()
+    region_counts, dw_counts = {}, {}
+    for _, h, c in regions:
+        region_counts[f"{h}x{h}x{c}"] = region_counts.get(f"{h}x{h}x{c}", 0) + 1
+    for _, h, c, k, s in dws:
+        key = f"{h}x{h}x{c} k{k} s{s}"
+        dw_counts[key] = dw_counts.get(key, 0) + 1
+    region_rows, dw_rows = [], []
+    for shape in region_counts:
+        h, _, c = (int(v) for v in shape.split("x"))
+        for dt in (torch.bfloat16, torch.float32):
+            row = _b4_region_row(h, c, dt, g, timing)
+            log(f"[b4] region {row}")
+            region_rows.append(row)
+    for h, c, k, s in dict.fromkeys((h, c, k, s) for _, h, c, k, s in dws):
+        for dt in (torch.bfloat16, torch.float32):
+            row = _b4_dw_row(h, c, k, s, dt, g, timing)
+            log(f"[b4] dw {row}")
+            dw_rows.append(row)
+    torch.cuda.empty_cache()
+    kinds = ("stats", "apply", "reduce", "dx")
+    out = {"regions": len(regions), "dws": len(dws), "region_rows": region_rows,
+           "dw_rows": dw_rows,
+           "region_step": _summed(region_rows, region_counts,
+                                  [f"{k}_{w}" for k in kinds for w in ("ms", "device_ms",
+                                                                       "bound_ms")]
+                                  + ["apply_plain_ms"]),
+           "dw_step": _summed(dw_rows, dw_counts, ("ms", "device_ms", "bound_ms", "plain_ms"))}
+
+    # One counted step of the production train step, counters zeroed just
+    # before it and read just after.
+    model = create_model("efficientnet_b4", device="cuda", num_classes=1000,
+                         dtype=torch.bfloat16, bn_ema="external", stem_s2d=True, seed=19)
+    tx = create_optimizer("rmsprop", 1e-4, fused="small")
+    state = TrainState.create(model, tx, seed=20)
+    step = make_train_step(model, tx, 0.1)
+    images = torch.randn(B4_BATCH, B4_IMAGE, B4_IMAGE, 3, device="cuda", generator=g)
+    labels = torch.randint(0, 1000, (B4_BATCH,), device="cuda", generator=g)
+    ops = (bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    for fn in (bn_fwd_stats, dw_conv_bn_act, mbconv_fused, *ops):
+        fn.launches = 0
+    for op in ops:
+        for act in op.launches_by_act:
+            op.launches_by_act[act] = 0
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, images, labels)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    counted = step.counted()
+    launches = {"dw_conv_bn_act": dw_conv_bn_act.launches, "mbconv_block": mbconv_fused.launches,
+                "bn_fwd_stats": bn_fwd_stats.launches,
+                **{f"{op.__name__}.{act}": op.launches_by_act[act]
+                   for act in ("silu", "relu") for op in ops}}
+    losses = [float(v) for v in losses]
+    out["train"] = {"route": step.route, "counted_steps": counted, "launches": launches,
+                    "losses": losses, "memory_peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[b4] {TRAIN_STEPS} steps on the {step.route} route: {out['train']}")
+    if step.route != TRAIN_ROUTE or counted < 1:
+        raise RuntimeError(f"expected counted steps on the {TRAIN_ROUTE} route: {out['train']}")
+    if launches != _scaled(B4_LAUNCHES_PER_STEP, counted):
+        raise RuntimeError(f"expected {B4_LAUNCHES_PER_STEP} launches per counted step, "
+                           f"got {launches} over {counted}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"b4 losses not finite: {losses}")
+    del model, state, step, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def b4_kernel_entries(b4: dict) -> list[dict]:
+    """The kernels line's entries of efficientnet_b4's kernels: each SiLU
+    kernel and the dw SiLU epilogue summed over one step's launches (bf16,
+    batch 64, 380 px) beside its bound, its largest error over both dtypes."""
+    reg, rows = b4["region_step"], b4["region_rows"]
+    where = f"{b4['regions']} regions of one efficientnet_b4 step at 380 px, batch 64, bf16"
+
+    def entry(name, kind, err):
+        return {"name": name, "route": "cuda", "source": "mnasnet_tpu_torch/csrc/bn_bwd.cu",
+                "launches_per_step": b4["regions"],
+                "max_abs_err": max(r[err] for r in rows),
+                "ms": reg[f"{kind}_ms"], "device_ms": reg[f"{kind}_device_ms"],
+                "bound_ms": reg[f"{kind}_bound_ms"], "summed_over": where}
+
+    out = [entry("bn_fwd_stats.b4", "stats", "apply_max_abs_err"),
+           entry("bn_silu_apply", "apply", "apply_max_abs_err"),
+           entry("bn_silu_bwd_reduce", "reduce", "reduce_max_abs_err"),
+           entry("bn_silu_bwd_dx", "dx", "dx_max_abs_err")]
+    # The stats kernel is held to its plain version by the bn phase; its
+    # entry here carries the times only.
+    out[0].pop("max_abs_err")
+    out[1]["plain_ms"] = reg["apply_plain_ms"]
+    out.append({"name": "dw_conv_bn_act.silu", "route": "cuda",
+                "source": "mnasnet_tpu_torch/csrc/dw_conv.cu", "launches_per_step": b4["dws"],
+                "max_abs_err": max(r["max_abs_err"] for r in b4["dw_rows"]),
+                **b4["dw_step"],
+                "summed_over": f"{b4['dws']} dw convs of one efficientnet_b4 eval forward "
+                               "at 380 px, batch 64, bf16"})
+    return out
 
 
 def train_batch():
@@ -3377,7 +3658,7 @@ def main() -> int:
                     help="also write torch.profiler tables of each route's forward and "
                          "train step to DIR")
     ap.add_argument("--only", choices=("all", "train", "kernels", "trainer", "dist", "serve",
-                                       "knobs", "deadrank", "tools", "smoke", "spatial"),
+                                       "knobs", "deadrank", "tools", "smoke", "spatial", "b4"),
                     default="all",
                     help="'train' runs the bn, dw training and train phases only; "
                          "'kernels' the dw and mbconv phases only; 'trainer' the trainer "
@@ -3385,7 +3666,8 @@ def main() -> int:
                          "serving deployment phase only; 'knobs' the model knobs phase only; "
                          "'deadrank' the dead-rank phase only; 'tools' the measurement "
                          "tools phase only; 'smoke' the train smoke's phase only; 'spatial' "
-                         "the data x spatial mesh phase only")
+                         "the data x spatial mesh phase only; 'b4' the efficientnet_b4 "
+                         "phase only")
     if sys.argv[1:2] == ["--dist-worker"]:
         return dist_worker(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--dist-fixed"]:
@@ -3484,10 +3766,18 @@ def run_phases(only: str, timing: bool, card: str, profile_dir: Path | None, pha
         log(json.dumps({"spatial": phase("spatial", spatial_phase, card, timing)}))
         log(card)
         return 0
+    if only == "b4":
+        b4 = phase("b4", b4_phase, timing)
+        log(json.dumps({"kernels": b4_kernel_entries(b4)}))
+        log(json.dumps({"b4": b4}))
+        log(card)
+        return 0
     if only == "all":
         serving = phase("serving", serving_phase, timing, card, profile_dir)
     bn_rows = phase("bn", bn_phase, timing)
     dw_train = phase("dw-train", dw_train_phase)
+    if only == "all":
+        b4 = phase("b4", b4_phase, timing)
 
     # Nothing is timed from here until the jobs are done; each phase of this
     # process hands its cached device memory back for the jobs'.
@@ -3534,8 +3824,11 @@ def run_phases(only: str, timing: bool, card: str, profile_dir: Path | None, pha
         dist = phase("dist", dist_phase, timing, card, trainer, profile_dir)
         spatial = phase("spatial", spatial_phase, card, timing)
         tools = phase("tools", tools_phase, card)
-        log(json.dumps(kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train,
-                                    trainer, dist, knobs, deadrank, smoke, spatial)))
+        line = kernels_line(dw_rows, dw_step, mb_rows, serving, serve, bn_rows, train, trainer,
+                            dist, knobs, deadrank, smoke, spatial)
+        line["kernels"] += b4_kernel_entries(b4)
+        log(json.dumps(line))
+        log(json.dumps({"b4": b4}))
         log(json.dumps({"serving": serving}))
         log(json.dumps({"serve": serve}))
         log(json.dumps({"trainer": trainer}))

@@ -86,10 +86,27 @@
 // Both are bound by memory: 2 bytes an element read (stats) and 4 moved
 // (apply) in bf16, 0.367 and 0.733 ms at 3.35 TB/s over the 35 regions of
 // mnasnet1_0 @ 224 at batch 128.
+//
+// The activation is a compile-time functor (Relu, Silu) of the apply, reduce
+// and dx bodies; each activation's kernels are __global__ functions of their
+// own names (bn_apply_relu_kernel, bn_reduce_kernel, bn_dx_kernel for ReLU;
+// bn_apply_silu_kernel, bn_silu_reduce_kernel, bn_silu_dx_kernel for SiLU)
+// and C entries of their own, so the ReLU kernels are the same code as
+// before and no kernel branches on the activation at run time. For SiLU,
+// z = x * a_io + b_io is the ReLU path's pre-activation, rounded as it is;
+// the apply writes silu(z) = z / (1 + exp(-z)) computed in fp32 and rounded
+// once to the I/O dtype, as PyTorch's silu computes it, and the backward
+// takes g = dy * s * (1 + z * (1 - s)), s = sigmoid(z), with z recomputed from
+// the x it reads: nothing is saved beyond what the ReLU region saves. The
+// SiLU backward's sigmoid uses the fast exp and reciprocal (ex2 and rcp on the
+// SFU; two an element, well under its 16 a clock per SM at the bytes the
+// reduce moves): g stays fp32 and feeds sums, where a few ulps are noise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -141,6 +158,40 @@ __device__ __forceinline__ void mask_factors(float mean, float inv, float gamma,
   *b_io = Io<T>::round(b);
 }
 
+// The forward's pre-activation z = x * a + b in T: the product and the sum each
+// rounded to T, as two PyTorch ops in T round them.
+template <typename T>
+__device__ __forceinline__ float pre_activation(float x, float a, float b) {
+  return Io<T>::round(__fadd_rn(Io<T>::round(__fmul_rn(x, a)), b));
+}
+
+// The activations: grad<T>(x, a, b, dy) is dy times the activation's
+// derivative at the forward's z (from x and the rounded factors), apply<T>
+// the forward's output as a float holding a T value.
+struct Relu {
+  template <typename T>
+  static __device__ __forceinline__ float grad(float x, float a, float b, float dy) {
+    return Io<T>::positive(x, a, b) ? dy : 0.f;
+  }
+  template <typename T>
+  static __device__ __forceinline__ float apply(float x, float a, float b);
+};
+
+struct Silu {
+  template <typename T>
+  static __device__ __forceinline__ float grad(float x, float a, float b, float dy) {
+    const float z = pre_activation<T>(x, a, b);
+    const float s = __frcp_rn(1.f + __expf(-z));
+    return dy * (s * (1.f + z * (1.f - s)));
+  }
+  // PyTorch's silu: x / (1 + exp(-x)) in fp32, rounded once to T.
+  template <typename T>
+  static __device__ __forceinline__ float apply(float x, float a, float b) {
+    const float z = pre_activation<T>(x, a, b);
+    return Io<T>::round(z / (1.f + expf(-z)));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // The reduce.
 
@@ -179,7 +230,7 @@ __device__ __forceinline__ float4 load_factors(const float4* f) {
 
 // Adds U rows' vectors of x and dy into the thread's sums, each channel's
 // rows in order; fac holds the thread's V channels' factors.
-template <typename T, int kWords, int U>
+template <typename T, int kWords, int U, class Act>
 __device__ __forceinline__ void accumulate(const uint32_t (&xw)[U][kWords],
                                            const uint32_t (&dw)[U][kWords], const float4* fac,
                                            float* db, float* dg) {
@@ -195,7 +246,7 @@ __device__ __forceinline__ void accumulate(const uint32_t (&xw)[U][kWords],
         float xf[P], df[P];
         Io<T>::unpack(xw[u][w], xf);
         Io<T>::unpack(dw[u][w], df);
-        const float g = Io<T>::positive(xf[k], f.x, f.y) ? df[k] : 0.f;
+        const float g = Act::template grad<T>(xf[k], f.x, f.y, df[k]);
         db[e] += g;
         dg[e] += g * ((xf[k] - f.z) * f.w);
       }
@@ -304,13 +355,13 @@ constexpr int kUnroll = 4;
 // zero before the launch and after it; out: [2][C] fp32 (dg, then db).
 // Shared memory: the tile's factors [TG * V] float4, then the table of row
 // lane sums [lanes][2 * TG * V + 1] fp32.
-template <typename T, int kWords>
-__global__ void __launch_bounds__(kReduceThreads, kReduceBlocksPerSM)
-bn_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                 const float* __restrict__ mean, const float* __restrict__ inv,
-                 const float* __restrict__ gamma, const float* __restrict__ beta,
-                 float* __restrict__ partial, unsigned int* __restrict__ tickets,
-                 float* __restrict__ out, long long M, int C, int TG, long long rows_per_slab) {
+template <typename T, int kWords, class Act>
+__device__ __forceinline__ void
+reduce_body(const T* __restrict__ x, const T* __restrict__ dy,
+            const float* __restrict__ mean, const float* __restrict__ inv,
+            const float* __restrict__ gamma, const float* __restrict__ beta,
+            float* __restrict__ partial, unsigned int* __restrict__ tickets,
+            float* __restrict__ out, long long M, int C, int TG, long long rows_per_slab) {
   constexpr int V = kWords * Io<T>::kPerWord;
   extern __shared__ float4 smem[];
   const int lanes = blockDim.x / TG;
@@ -348,18 +399,39 @@ bn_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
         load_words<kWords>(xp + off, xw[u]);
         load_words<kWords>(dp + off, dw[u]);
       }
-      accumulate<T, kWords, kUnroll>(xw, dw, mine, db, dg);
+      accumulate<T, kWords, kUnroll, Act>(xw, dw, mine, db, dg);
     }
     for (; r < row1; r += lanes) {
       uint32_t xw[1][kWords], dw[1][kWords];
       const size_t off = (size_t)r * C;
       load_words<kWords>(xp + off, xw[0]);
       load_words<kWords>(dp + off, dw[0]);
-      accumulate<T, kWords, 1>(xw, dw, mine, db, dg);
+      accumulate<T, kWords, 1, Act>(xw, dw, mine, db, dg);
     }
   }
   // The block's row lanes, summed in a fixed order, into its partial row.
   finish_tile<V>(dg, db, lane < lanes, table, lanes, lane, grp, Ct, partial, tickets, out, C);
+}
+
+#define BN_REDUCE_PARAMS                                                                    \
+  const T *__restrict__ x, const T *__restrict__ dy, const float *__restrict__ mean,        \
+      const float *__restrict__ inv, const float *__restrict__ gamma,                       \
+      const float *__restrict__ beta, float *__restrict__ partial,                          \
+      unsigned int *__restrict__ tickets, float *__restrict__ out, long long M, int C, int TG, \
+      long long rows_per_slab
+#define BN_REDUCE_ARGS x, dy, mean, inv, gamma, beta, partial, tickets, out, M, C, TG, rows_per_slab
+
+// The reduce of a BN+ReLU region and of a BN+SiLU region.
+template <typename T, int kWords>
+__global__ void __launch_bounds__(kReduceThreads, kReduceBlocksPerSM)
+bn_reduce_kernel(BN_REDUCE_PARAMS) {
+  reduce_body<T, kWords, Relu>(BN_REDUCE_ARGS);
+}
+
+template <typename T, int kWords>
+__global__ void __launch_bounds__(kReduceThreads, kReduceBlocksPerSM)
+bn_silu_reduce_kernel(BN_REDUCE_PARAMS) {
+  reduce_body<T, kWords, Silu>(BN_REDUCE_ARGS);
 }
 
 struct ReduceArgs {
@@ -372,7 +444,7 @@ struct ReduceArgs {
   int C, threads, TG, slabs;
 };
 
-template <typename T, int kWords>
+template <typename T, int kWords, class Act>
 int launch_reduce(const ReduceArgs& a, cudaStream_t stream) {
   constexpr int V = kWords * Io<T>::kPerWord;
   if (a.C % V) return (int)cudaErrorInvalidValue;
@@ -381,7 +453,9 @@ int launch_reduce(const ReduceArgs& a, cudaStream_t stream) {
                       (size_t)(a.threads / a.TG) * (2 * a.TG * V + 1) * sizeof(float);
   if (smem > kReduceSmemLimit) return (int)cudaErrorInvalidValue;
   const long long rows_per_slab = (a.M + a.slabs - 1) / a.slabs;
-  bn_reduce_kernel<T, kWords><<<dim3(tiles, a.slabs), a.threads, smem, stream>>>(
+  auto kernel = std::is_same<Act, Relu>::value ? bn_reduce_kernel<T, kWords>
+                                                : bn_silu_reduce_kernel<T, kWords>;
+  kernel<<<dim3(tiles, a.slabs), a.threads, smem, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.mean, a.inv, a.gamma, a.beta,
       a.partial, a.tickets, a.out, a.M, a.C, a.TG, rows_per_slab);
   return (int)cudaGetLastError();
@@ -512,21 +586,26 @@ __device__ __forceinline__ float apply_relu(float x, float a, float b) {
   return v != v ? v : fmaxf(v, 0.f);
 }
 
+template <typename T>
+__device__ __forceinline__ float Relu::apply(float x, float a, float b) {
+  return apply_relu<T>(x, a, b);
+}
+
 // One vector of kWords words of x, normalised in place. A bf16 result is a
 // bf16 value held in an fp32, whose low half is zero, so its high half is the
 // bf16's bits.
-template <typename T, int kWords>
+template <typename T, int kWords, class Act>
 __device__ __forceinline__ void apply_words(uint32_t (&w)[kWords], const float* a,
                                             const float* b) {
 #pragma unroll
   for (int i = 0; i < kWords; ++i) {
     if constexpr (Io<T>::kPerWord == 1) {
-      w[i] = __float_as_uint(apply_relu<T>(__uint_as_float(w[i]), a[i], b[i]));
+      w[i] = __float_as_uint(Act::template apply<T>(__uint_as_float(w[i]), a[i], b[i]));
     } else {
       float f[2];
       Io<T>::unpack(w[i], f);
-      const float lo = apply_relu<T>(f[0], a[2 * i], b[2 * i]);
-      const float hi = apply_relu<T>(f[1], a[2 * i + 1], b[2 * i + 1]);
+      const float lo = Act::template apply<T>(f[0], a[2 * i], b[2 * i]);
+      const float hi = Act::template apply<T>(f[1], a[2 * i + 1], b[2 * i + 1]);
       w[i] = (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
     }
   }
@@ -535,12 +614,12 @@ __device__ __forceinline__ void apply_words(uint32_t (&w)[kWords], const float* 
 // Block (tile, slab) of an apply launch: thread t owns channel group t % TG of
 // the tile (V channels from c0) and row lane t / TG; it computes its
 // channels' factors once and streams the slab's rows.
-template <typename T, int kWords>
-__global__ void __launch_bounds__(kApplyThreads)
-bn_apply_relu_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                     const float* __restrict__ inv, const float* __restrict__ gamma,
-                     const float* __restrict__ beta, T* __restrict__ y, long long M, int C,
-                     int TG, long long rows_per_slab) {
+template <typename T, int kWords, class Act>
+__device__ __forceinline__ void
+apply_body(const T* __restrict__ x, const float* __restrict__ mean,
+           const float* __restrict__ inv, const float* __restrict__ gamma,
+           const float* __restrict__ beta, T* __restrict__ y, long long M, int C,
+           int TG, long long rows_per_slab) {
   constexpr int V = kWords * Io<T>::kPerWord;
   const int lanes = blockDim.x / TG;
   const int grp = threadIdx.x % TG, lane = threadIdx.x / TG;
@@ -562,19 +641,36 @@ bn_apply_relu_kernel(const T* __restrict__ x, const float* __restrict__ mean,
       load_words<kWords>(xp + (size_t)(r + (long long)u * lanes) * C, w[u]);
 #pragma unroll
     for (int u = 0; u < kApplyUnroll; ++u) {
-      apply_words<T, kWords>(w[u], a, b);
+      apply_words<T, kWords, Act>(w[u], a, b);
       store_words<kWords>(yp + (size_t)(r + (long long)u * lanes) * C, w[u]);
     }
   }
   for (; r < row1; r += lanes) {
     uint32_t w[kWords];
     load_words<kWords>(xp + (size_t)r * C, w);
-    apply_words<T, kWords>(w, a, b);
+    apply_words<T, kWords, Act>(w, a, b);
     store_words<kWords>(yp + (size_t)r * C, w);
   }
 }
 
+#define BN_APPLY_PARAMS                                                                    \
+  const T *__restrict__ x, const float *__restrict__ mean, const float *__restrict__ inv,  \
+      const float *__restrict__ gamma, const float *__restrict__ beta, T *__restrict__ y, \
+      long long M, int C, int TG, long long rows_per_slab
+#define BN_APPLY_ARGS x, mean, inv, gamma, beta, y, M, C, TG, rows_per_slab
+
+// The normalise-and-activation pass of a BN+ReLU region and of a BN+SiLU region.
 template <typename T, int kWords>
+__global__ void __launch_bounds__(kApplyThreads) bn_apply_relu_kernel(BN_APPLY_PARAMS) {
+  apply_body<T, kWords, Relu>(BN_APPLY_ARGS);
+}
+
+template <typename T, int kWords>
+__global__ void __launch_bounds__(kApplyThreads) bn_apply_silu_kernel(BN_APPLY_PARAMS) {
+  apply_body<T, kWords, Silu>(BN_APPLY_ARGS);
+}
+
+template <typename T, int kWords, class Act>
 int launch_apply(const void* x, const float* mean, const float* inv, const float* gamma,
                  const float* beta, void* y, long long M, int C, int threads, int TG, int slabs,
                  cudaStream_t stream) {
@@ -582,7 +678,9 @@ int launch_apply(const void* x, const float* mean, const float* inv, const float
   if (C % V) return (int)cudaErrorInvalidValue;
   const int tiles = (C / V + TG - 1) / TG;
   const long long rows_per_slab = (M + slabs - 1) / slabs;
-  bn_apply_relu_kernel<T, kWords><<<dim3(tiles, slabs), threads, 0, stream>>>(
+  auto kernel = std::is_same<Act, Relu>::value ? bn_apply_relu_kernel<T, kWords>
+                                                : bn_apply_silu_kernel<T, kWords>;
+  kernel<<<dim3(tiles, slabs), threads, 0, stream>>>(
       static_cast<const T*>(x), mean, inv, gamma, beta, static_cast<T*>(y), M, C, TG,
       rows_per_slab);
   return (int)cudaGetLastError();
@@ -607,13 +705,16 @@ __device__ __forceinline__ Tile tile_of(long long M, int C2, long long rows_per_
   return t;
 }
 
-template <typename T>
-__global__ void bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                             const float* __restrict__ mean, const float* __restrict__ inv,
-                             const float* __restrict__ gamma, const float* __restrict__ beta,
-                             const float* __restrict__ dg, const float* __restrict__ db,
-                             T* __restrict__ dx, long long M, int C, float inv_n,
-                             long long rows_per_slab) {
+template <typename T, class Act>
+__device__ __forceinline__ void dx_body(const T* __restrict__ x, const T* __restrict__ dy,
+                                        const float* __restrict__ mean,
+                                        const float* __restrict__ inv,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ beta,
+                                        const float* __restrict__ dg,
+                                        const float* __restrict__ db, T* __restrict__ dx,
+                                        long long M, int C, float inv_n,
+                                        long long rows_per_slab) {
   using P2 = typename Io<T>::P2;
   const int C2 = C / 2;
   const Tile t = tile_of(M, C2, rows_per_slab);
@@ -633,8 +734,8 @@ __global__ void bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     const size_t off = (size_t)r * C2 + t.pair;
     const float2 xv = Io<T>::to_f2(x2[off]);
     const float2 dv = Io<T>::to_f2(dy2[off]);
-    const float g0 = Io<T>::positive(xv.x, a0, b0) ? dv.x : 0.f;
-    const float g1 = Io<T>::positive(xv.y, a1, b1) ? dv.y : 0.f;
+    const float g0 = Act::template grad<T>(xv.x, a0, b0, dv.x);
+    const float g1 = Act::template grad<T>(xv.y, a1, b1, dv.y);
     float2 o;
     o.x = s0 * (g0 - cb0 - ((xv.x - m0) * i0) * cg0);
     o.y = s1 * (g1 - cb1 - ((xv.y - m1) * i1) * cg1);
@@ -642,14 +743,34 @@ __global__ void bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+#define BN_DX_PARAMS                                                                      \
+  const T *__restrict__ x, const T *__restrict__ dy, const float *__restrict__ mean,      \
+      const float *__restrict__ inv, const float *__restrict__ gamma,                     \
+      const float *__restrict__ beta, const float *__restrict__ dg,                       \
+      const float *__restrict__ db, T *__restrict__ dx, long long M, int C, float inv_n,  \
+      long long rows_per_slab
+#define BN_DX_ARGS x, dy, mean, inv, gamma, beta, dg, db, dx, M, C, inv_n, rows_per_slab
+
+// The dx pass of a BN+ReLU region and of a BN+SiLU region.
 template <typename T>
+__global__ void bn_dx_kernel(BN_DX_PARAMS) {
+  dx_body<T, Relu>(BN_DX_ARGS);
+}
+
+template <typename T>
+__global__ void bn_silu_dx_kernel(BN_DX_PARAMS) {
+  dx_body<T, Silu>(BN_DX_ARGS);
+}
+
+template <typename T, class Act>
 int dx_pass(const void* x, const void* dy, const float* mean, const float* inv,
             const float* gamma, const float* beta, const float* dg, const float* db, void* dx,
             long long M, int C, float inv_n, int TP, int R, int slabs, cudaStream_t stream) {
   const long long rows_per_slab = (M + slabs - 1) / slabs;
   const dim3 grid(slabs, (C / 2 + TP - 1) / TP);
   const dim3 block(TP, R);
-  bn_dx_kernel<T><<<grid, block, 0, stream>>>(
+  auto kernel = std::is_same<Act, Relu>::value ? bn_dx_kernel<T> : bn_silu_dx_kernel<T>;
+  kernel<<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, gamma, beta, dg, db,
       static_cast<T*>(dx), M, C, inv_n, rows_per_slab);
   return (int)cudaGetLastError();
@@ -667,21 +788,11 @@ bool bad_vector(int vec_bytes, int is_bf16, uintptr_t addresses) {
          (!is_bf16 && vec_bytes == 4);
 }
 
-}  // namespace
-
-extern "C" {
-
-// x, dy (M = N*H*W rows, C) in bf16 (is_bf16=1) or fp32, both aligned to
-// vec_bytes (16, 8 or 4: the vector a thread loads, at least two elements);
-// mean, inv, gamma, beta (C,) fp32; partial fp32 scratch of tiles * slabs * 2 *
-// TG * V floats (V = vec_bytes / element size, tiles = ceil(C / V / TG));
-// tickets: tiles zeroed uint32, left zeroed; out (2, C) fp32: dg, then db.
-// One launch of `threads` threads a block; C even. Returns its
-// cudaGetLastError().
-int bn_bwd_reduce(const void* x, const void* dy, const void* mean, const void* inv,
-                  const void* gamma, const void* beta, void* partial, void* tickets, void* out,
-                  long long M, int C, int vec_bytes, int threads, int TG, int slabs, int is_bf16,
-                  void* stream) {
+template <class Act>
+int reduce_entry(const void* x, const void* dy, const void* mean, const void* inv,
+                 const void* gamma, const void* beta, void* partial, void* tickets, void* out,
+                 long long M, int C, int vec_bytes, int threads, int TG, int slabs, int is_bf16,
+                 void* stream) {
   if (M <= 0 || C <= 0 || C % 2 || threads <= 0 || threads % 32 || threads > kReduceThreads ||
       TG <= 0 || TG > threads || slabs <= 0 || slabs > 65535 ||
       (vec_bytes != 4 && vec_bytes != 8 && vec_bytes != 16) ||
@@ -693,27 +804,96 @@ int bn_bwd_reduce(const void* x, const void* dy, const void* mean, const void* i
                      static_cast<float*>(out), M, C, threads, TG, slabs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (vec_bytes == 16) return launch_reduce<__nv_bfloat16, 4>(a, s);
-    if (vec_bytes == 8) return launch_reduce<__nv_bfloat16, 2>(a, s);
-    return launch_reduce<__nv_bfloat16, 1>(a, s);
+    if (vec_bytes == 16) return launch_reduce<__nv_bfloat16, 4, Act>(a, s);
+    if (vec_bytes == 8) return launch_reduce<__nv_bfloat16, 2, Act>(a, s);
+    return launch_reduce<__nv_bfloat16, 1, Act>(a, s);
   }
-  if (vec_bytes == 16) return launch_reduce<float, 4>(a, s);
-  return launch_reduce<float, 2>(a, s);
+  if (vec_bytes == 16) return launch_reduce<float, 4, Act>(a, s);
+  return launch_reduce<float, 2, Act>(a, s);
 }
 
-// The same inputs plus dg, db (C,) fp32; dx (M, C) in x's dtype out.
-int bn_bwd_dx(const void* x, const void* dy, const void* mean, const void* inv,
-              const void* gamma, const void* beta, const void* dg, const void* db, void* dx,
-              long long M, int C, float inv_n, int TP, int R, int slabs, int is_bf16,
-              void* stream) {
+template <class Act>
+int dx_entry(const void* x, const void* dy, const void* mean, const void* inv,
+             const void* gamma, const void* beta, const void* dg, const void* db, void* dx,
+             long long M, int C, float inv_n, int TP, int R, int slabs, int is_bf16,
+             void* stream) {
   if (bad_plan(M, C, TP, R, slabs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *m = static_cast<const float*>(mean), *i = static_cast<const float*>(inv),
               *g = static_cast<const float*>(gamma), *b = static_cast<const float*>(beta),
               *dgp = static_cast<const float*>(dg), *dbp = static_cast<const float*>(db);
   if (is_bf16)
-    return dx_pass<__nv_bfloat16>(x, dy, m, i, g, b, dgp, dbp, dx, M, C, inv_n, TP, R, slabs, s);
-  return dx_pass<float>(x, dy, m, i, g, b, dgp, dbp, dx, M, C, inv_n, TP, R, slabs, s);
+    return dx_pass<__nv_bfloat16, Act>(x, dy, m, i, g, b, dgp, dbp, dx, M, C, inv_n, TP, R,
+                                       slabs, s);
+  return dx_pass<float, Act>(x, dy, m, i, g, b, dgp, dbp, dx, M, C, inv_n, TP, R, slabs, s);
+}
+
+template <class Act>
+int apply_entry(const void* x, const void* mean, const void* inv, const void* gamma,
+                const void* beta, void* y, long long M, int C, int vec_bytes, int threads,
+                int TG, int slabs, int is_bf16, void* stream) {
+  if (M <= 0 || C <= 0 || C % 2 || threads <= 0 || threads % 32 || threads > kApplyThreads ||
+      TG <= 0 || TG > threads || slabs <= 0 || slabs > 65535 ||
+      bad_vector(vec_bytes, is_bf16, (uintptr_t)x | (uintptr_t)y))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *m = static_cast<const float*>(mean), *i = static_cast<const float*>(inv),
+              *g = static_cast<const float*>(gamma), *b = static_cast<const float*>(beta);
+  if (is_bf16) {
+    if (vec_bytes == 16)
+      return launch_apply<__nv_bfloat16, 4, Act>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+    if (vec_bytes == 8)
+      return launch_apply<__nv_bfloat16, 2, Act>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+    return launch_apply<__nv_bfloat16, 1, Act>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+  }
+  if (vec_bytes == 16)
+    return launch_apply<float, 4, Act>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+  return launch_apply<float, 2, Act>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, dy (M = N*H*W rows, C) in bf16 (is_bf16=1) or fp32, both aligned to
+// vec_bytes (16, 8 or 4: the vector a thread loads, at least two elements);
+// mean, inv, gamma, beta (C,) fp32; partial fp32 scratch of tiles * slabs * 2 *
+// TG * V floats (V = vec_bytes / element size, tiles = ceil(C / V / TG));
+// tickets: tiles zeroed uint32, left zeroed; out (2, C) fp32: dg, then db.
+// One launch of `threads` threads a block; C even. Returns its
+// cudaGetLastError(). bn_silu_bwd_reduce: the same for a BN+SiLU region.
+int bn_bwd_reduce(const void* x, const void* dy, const void* mean, const void* inv,
+                  const void* gamma, const void* beta, void* partial, void* tickets, void* out,
+                  long long M, int C, int vec_bytes, int threads, int TG, int slabs, int is_bf16,
+                  void* stream) {
+  return reduce_entry<Relu>(x, dy, mean, inv, gamma, beta, partial, tickets, out, M, C,
+                            vec_bytes, threads, TG, slabs, is_bf16, stream);
+}
+
+int bn_silu_bwd_reduce(const void* x, const void* dy, const void* mean, const void* inv,
+                       const void* gamma, const void* beta, void* partial, void* tickets,
+                       void* out, long long M, int C, int vec_bytes, int threads, int TG,
+                       int slabs, int is_bf16, void* stream) {
+  return reduce_entry<Silu>(x, dy, mean, inv, gamma, beta, partial, tickets, out, M, C,
+                            vec_bytes, threads, TG, slabs, is_bf16, stream);
+}
+
+// The same inputs plus dg, db (C,) fp32; dx (M, C) in x's dtype out.
+// bn_silu_bwd_dx: the same for a BN+SiLU region.
+int bn_bwd_dx(const void* x, const void* dy, const void* mean, const void* inv,
+              const void* gamma, const void* beta, const void* dg, const void* db, void* dx,
+              long long M, int C, float inv_n, int TP, int R, int slabs, int is_bf16,
+              void* stream) {
+  return dx_entry<Relu>(x, dy, mean, inv, gamma, beta, dg, db, dx, M, C, inv_n, TP, R, slabs,
+                        is_bf16, stream);
+}
+
+int bn_silu_bwd_dx(const void* x, const void* dy, const void* mean, const void* inv,
+                   const void* gamma, const void* beta, const void* dg, const void* db,
+                   void* dx, long long M, int C, float inv_n, int TP, int R, int slabs,
+                   int is_bf16, void* stream) {
+  return dx_entry<Silu>(x, dy, mean, inv, gamma, beta, dg, db, dx, M, C, inv_n, TP, R, slabs,
+                        is_bf16, stream);
 }
 
 // x (M, C) in bf16 or fp32, aligned to vec_bytes; shift (C,) fp32, or null for
@@ -741,26 +921,20 @@ int bn_fwd_stats(const void* x, const void* shift, void* partial, void* tickets,
 
 // x and y (M, C) in bf16 or fp32, both aligned to vec_bytes; mean, inv =
 // rsqrt(var + eps), gamma, beta (C,) fp32. One launch of `threads` threads a
-// block, TG vectors of a row a tile; C even.
+// block, TG vectors of a row a tile; C even. bn_silu_apply: y = silu(x * a +
+// b) for a BN+SiLU region.
 int bn_relu_apply(const void* x, const void* mean, const void* inv, const void* gamma,
                   const void* beta, void* y, long long M, int C, int vec_bytes, int threads,
                   int TG, int slabs, int is_bf16, void* stream) {
-  if (M <= 0 || C <= 0 || C % 2 || threads <= 0 || threads % 32 || threads > kApplyThreads ||
-      TG <= 0 || TG > threads || slabs <= 0 || slabs > 65535 ||
-      bad_vector(vec_bytes, is_bf16, (uintptr_t)x | (uintptr_t)y))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *m = static_cast<const float*>(mean), *i = static_cast<const float*>(inv),
-              *g = static_cast<const float*>(gamma), *b = static_cast<const float*>(beta);
-  if (is_bf16) {
-    if (vec_bytes == 16)
-      return launch_apply<__nv_bfloat16, 4>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
-    if (vec_bytes == 8)
-      return launch_apply<__nv_bfloat16, 2>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
-    return launch_apply<__nv_bfloat16, 1>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
-  }
-  if (vec_bytes == 16) return launch_apply<float, 4>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
-  return launch_apply<float, 2>(x, m, i, g, b, y, M, C, threads, TG, slabs, s);
+  return apply_entry<Relu>(x, mean, inv, gamma, beta, y, M, C, vec_bytes, threads, TG, slabs,
+                           is_bf16, stream);
+}
+
+int bn_silu_apply(const void* x, const void* mean, const void* inv, const void* gamma,
+                  const void* beta, void* y, long long M, int C, int vec_bytes, int threads,
+                  int TG, int slabs, int is_bf16, void* stream) {
+  return apply_entry<Silu>(x, mean, inv, gamma, beta, y, M, C, vec_bytes, threads, TG, slabs,
+                           is_bf16, stream);
 }
 
 }  // extern "C"

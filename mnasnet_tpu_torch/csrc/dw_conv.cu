@@ -1,5 +1,5 @@
 // Fused depthwise k x k conv + per-channel affine (folded BatchNorm) + optional
-// ReLU, NHWC, for Hopper (sm_90a).
+// ReLU or SiLU, NHWC, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels _dw_s1_kernel (mnasnet_tpu/ops/pallas/dw_conv.py:56)
 // and _dw_s2_kernel (:96), reached through _dw_fused_raw (:167). It owes their
@@ -35,7 +35,10 @@
 // of the shared traffic, and strips of 7 outputs (every width of the model at
 // 224 px is a multiple of 7) cut them per output.
 // Scale and bias wait in shared memory for the epilogue, which keeps the
-// registers for the strip's accumulators.
+// registers for the strip's accumulators. The epilogue's activation is a
+// template parameter: none, ReLU, or SiLU (EfficientNet's eval forward),
+// o / (1 + exp(-o)) in fp32 before the one cast, as PyTorch's silu computes
+// it; no kernel branches on it at run time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,7 +125,7 @@ struct Plan {
   int TH, CG, R, RP;
 };
 
-template <typename T, int K, int S, int R, bool RELU>
+template <typename T, int K, int S, int R, bool RELU, bool SILU>
 __global__ void __launch_bounds__(kMaxThreads)
 dw_conv_kernel(const T* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ scale, const float* __restrict__ bias,
@@ -236,6 +239,7 @@ dw_conv_kernel(const T* __restrict__ x, const float* __restrict__ w,
         for (int i = 0; i < 8; ++i) {
           o[i] = acc[r][i] * sc[i] + bi[i];
           if (RELU) o[i] = fmaxf(o[i], 0.f);
+          if (SILU) o[i] = o[i] / (1.f + expf(-o[i]));
         }
         Vec8<T>::store(out + (size_t)r * C, o);
       }
@@ -244,7 +248,7 @@ dw_conv_kernel(const T* __restrict__ x, const float* __restrict__ w,
   cp_async_wait<0>();
 }
 
-template <typename T, int K, int S, int R, bool RELU>
+template <typename T, int K, int S, int R, bool RELU, bool SILU>
 int launch(const void* x, const void* w, const void* scale, const void* bias, void* y,
            int N, int H, int W, int C, Plan pl, cudaStream_t stream) {
   const int Ho = (H + 2 * (K / 2) - K) / S + 1;
@@ -252,7 +256,7 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, vo
   const int threads = (pl.CG / 8) * ((Wo + R - 1) / R) * pl.RP;
   if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
   const size_t smem = dw_smem_bytes(K, S, Wo, pl.TH, pl.CG, R, pl.RP, (int)sizeof(T));
-  auto kernel = dw_conv_kernel<T, K, S, R, RELU>;
+  auto kernel = dw_conv_kernel<T, K, S, R, RELU, SILU>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -264,14 +268,24 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, vo
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K, int S>
-int dispatch_strip(int relu, const void* x, const void* w, const void* scale, const void* bias,
-                   void* y, int N, int H, int W, int C, Plan pl, cudaStream_t s) {
+// act: 0 none, 1 ReLU, 2 SiLU.
+template <typename T, int K, int S, int R>
+int dispatch_act(int act, const void* x, const void* w, const void* scale, const void* bias,
+                 void* y, int N, int H, int W, int C, Plan pl, cudaStream_t s) {
 #define DW_ARGS x, w, scale, bias, y, N, H, W, C, pl, s
-  if (pl.R == 2)
-    return relu ? launch<T, K, S, 2, true>(DW_ARGS) : launch<T, K, S, 2, false>(DW_ARGS);
-  if (pl.R == 7)
-    return relu ? launch<T, K, S, 7, true>(DW_ARGS) : launch<T, K, S, 7, false>(DW_ARGS);
+  if (act == 1) return launch<T, K, S, R, true, false>(DW_ARGS);
+  if (act == 2) return launch<T, K, S, R, false, true>(DW_ARGS);
+  if (act == 0) return launch<T, K, S, R, false, false>(DW_ARGS);
+#undef DW_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int K, int S>
+int dispatch_strip(int act, const void* x, const void* w, const void* scale, const void* bias,
+                   void* y, int N, int H, int W, int C, Plan pl, cudaStream_t s) {
+#define DW_ARGS act, x, w, scale, bias, y, N, H, W, C, pl, s
+  if (pl.R == 2) return dispatch_act<T, K, S, 2>(DW_ARGS);
+  if (pl.R == 7) return dispatch_act<T, K, S, 7>(DW_ARGS);
 #undef DW_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -303,7 +317,8 @@ long long dw_conv_smem_bytes(int k, int stride, int Wo, int TH, int CG, int R, i
 // aligned; w (k,k,C), scale and bias (C,) fp32. Plan: TH output rows per
 // block, CG channels per block (a multiple of 8 dividing C), R outputs per
 // thread (2 or 7), RP rows side by side; (CG/8)*ceil(Wo/R)*RP threads, at
-// most 512. Returns cudaGetLastError().
+// most 512. relu: the epilogue's activation, 0 none, 1 ReLU, 2 SiLU. Returns
+// cudaGetLastError().
 int dw_conv_bn_act(const void* x, const void* w, const void* scale, const void* bias, void* y,
                    int N, int H, int W, int C, int k, int stride, int relu, int is_bf16,
                    int TH, int CG, int R, int RP, void* stream) {

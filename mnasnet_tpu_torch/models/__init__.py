@@ -16,3 +16,9 @@ from mnasnet_tpu_torch.models.mnasnet import (  # noqa: F401
     STACKS,
 )
 from mnasnet_tpu_torch.models.layers import BatchNorm  # noqa: F401
+from mnasnet_tpu_torch.models.efficientnet import (  # noqa: F401
+    EFFICIENTNET_REGISTRY,
+    EfficientNet,
+    efficientnet_b0,
+    efficientnet_b4,
+)

@@ -36,6 +36,7 @@ from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.parallel.dist import Replicas, global_rows
 from mnasnet_tpu_torch.parallel.mesh import spatial_of
 from mnasnet_tpu_torch.parallel.spatial import banded
+from mnasnet_tpu_torch.utils.profiling import span
 
 BN_MOMENTUM = 0.9997  # EMA decay; torch momentum = 1 - 0.9997 = 3e-4
 BN_EPSILON = 1e-5
@@ -157,19 +158,20 @@ class BatchNorm(nn.Module):
         inv = self.weight * torch.rsqrt(var + self.eps)
         return _affine(x, inv, self.bias - mean * inv), mean, var
 
-    def relu_train_forward(self, x: torch.Tensor
+    def relu_train_forward(self, x: torch.Tensor, act: str = "relu"
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Train-mode BN + ReLU with the region backward of
-        ``ops/cuda/bn_bwd.py`` (two CUDA kernels, or their plain versions on
-        the CPU), without the running-stat update: (y, mean, biased var). The
-        forward is that of ``relu(self(x))``; only the backward differs."""
+        """Train-mode BN + ReLU (or SiLU: ``act="silu"``) with the region
+        forward and backward of ``ops/cuda/bn_bwd.py`` (CUDA kernels, or their
+        plain versions on the CPU), without the running-stat update: (y, mean,
+        biased var). The forward is that of ``relu(self(x))`` (``silu``);
+        only the backward differs."""
         y, mean, var = bn_relu_train(nhwc(x), self.weight, self.bias, self.eps, self.stats,
-                                     self.replicas)
+                                     self.replicas, act)
         return nchw(y), mean, var
 
-    def relu_train_region(self, x: torch.Tensor) -> torch.Tensor:
+    def relu_train_region(self, x: torch.Tensor, act: str = "relu") -> torch.Tensor:
         """:meth:`relu_train_forward` with the running-stat update."""
-        y, mean, var = self.relu_train_forward(x)
+        y, mean, var = self.relu_train_forward(x, act)
         self.update_stats(rows(x), mean, var)
         return y
 
@@ -316,3 +318,37 @@ class DepthwiseConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.on_band(x, lambda y: depthwise_conv2d(y, self.kernel(), stride=self.stride,
                                                           impl=self.impl))
+
+
+class BiasedPointwiseConv(nn.Module):
+    """A 1x1 conv with a bias on pooled features (N, Cin) -> (N, Cout): the
+    squeeze-and-excitation block's ``fc1`` and ``fc2`` (torchvision's
+    ``nn.Conv2d(cin, cout, 1)``, so its ``weight`` is (Cout, Cin, 1, 1)),
+    computed as a linear layer in the features' dtype."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, s: torch.Tensor) -> torch.Tensor:
+        return F.linear(s, self.weight[:, :, 0, 0].to(s.dtype), self.bias.to(s.dtype))
+
+
+class SqueezeExcitation(nn.Module):
+    """torchvision's ``SqueezeExcitation`` with SiLU (EfficientNet): the
+    plane's mean over H and W, ``fc1`` to ``squeeze`` channels, SiLU, ``fc2``
+    back, sigmoid, and the plane scaled by that gate, all in x's dtype as
+    plain PyTorch ops (span ``mnasnet.model.se``). NCHW channels_last in and
+    out."""
+
+    def __init__(self, channels: int, squeeze: int):
+        super().__init__()
+        self.fc1 = BiasedPointwiseConv(channels, squeeze)
+        self.fc2 = BiasedPointwiseConv(squeeze, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("mnasnet.model.se"):
+            y = nhwc(x)
+            gate = torch.sigmoid(self.fc2(F.silu(self.fc1(y.mean(dim=(1, 2))))))
+            return nchw(y * gate[:, None, None, :])

@@ -536,13 +536,25 @@ def create_model(name: str, *, device="cuda", **kwargs) -> MNASNet:
 
     Registry names cover the reference ctor set plus 1.4; any other
     ``mnasnet<int>_<frac>`` spelling (e.g. ``mnasnet0_9``) builds that depth
-    multiplier. ``kwargs`` go to :class:`MNASNet` (``num_classes``,
+    multiplier; ``efficientnet_b0`` and ``efficientnet_b4`` build those
+    (``models/efficientnet.py``, which takes the same knobs but ``remat``
+    and ``channel_pad``). ``kwargs`` go to :class:`MNASNet` (``num_classes``,
     ``dropout``, ``dtype``, ``dw_impl``, ``seed``, the training knobs
     ``bn_stats``, ``bn_ema``, ``bn_momentum``, ``stem_s2d``, ``bn_bwd``, and
     the model knobs ``remat``, ``pw_lowering``, ``channel_pad``). The
     weights are made on the CPU from ``seed`` and moved, so a seed gives the
     same weights on every device. ``device="cuda"`` without a card raises.
     """
+    if name.startswith("efficientnet"):
+        from mnasnet_tpu_torch.models.efficientnet import (
+            EFFICIENTNET_REGISTRY,
+            create_efficientnet,
+        )
+
+        if name not in EFFICIENTNET_REGISTRY:
+            raise ValueError(f"unknown arch {name!r}; EfficientNet choices: "
+                             f"{sorted(EFFICIENTNET_REGISTRY)}")
+        return create_efficientnet(name, device=device, **kwargs)
     dev = resolve_device(device)
     if name in MODEL_REGISTRY:
         model = MODEL_REGISTRY[name](**kwargs)

@@ -1,5 +1,5 @@
-"""Training BatchNorm + ReLU on four kernels (``csrc/bn_bwd.cu``): two for the
-region's forward, two for its backward.
+"""Training BatchNorm + ReLU (or SiLU) on four kernels (``csrc/bn_bwd.cu``):
+two for the region's forward, two for its backward.
 
 Counterpart of ``mnasnet_tpu/ops/pallas/bn_bwd.py``. :func:`bn_relu_train`
 is the ``bn_relu_train`` custom VJP as a ``torch.autograd.Function``:
@@ -12,6 +12,13 @@ is the ``bn_relu_train`` custom VJP as a ``torch.autograd.Function``:
   backward  g = dy·[y > 0] with the mask recomputed as the forward clamps it,
             dβ = Σg, dγ = Σg·x̂                     (:func:`bn_bwd_reduce`)
             dx = γ·rsqrt(σ² + ε)·(g − dβ/n − x̂·dγ/n)   (:func:`bn_bwd_dx`)
+
+With ``act="silu"`` (EfficientNet's BN+SiLU regions) the apply writes
+y = silu(z), z = x̂·γ + β as the ReLU path rounds it, and the backward takes
+g = dy·σ(z)·(1 + z·(1 − σ(z))) with z recomputed from x: the same kernels'
+SiLU instantiations (their own CUDA names and C entries), the same plans, no
+tensor saved beyond the ReLU region's. Each op's ``launches`` counts every
+launch and ``launches_by_act`` splits them by activation.
 
 The statistics carry no gradient: they feed the running-stat EMA only. The
 forward reads x twice and writes y once (the reference's forward is plain
@@ -65,6 +72,8 @@ from mnasnet_tpu_torch.parallel.dist import Replicas, all_reduce_sum, all_reduce
 
 _DTYPES = (torch.bfloat16, torch.float32)
 STATS = ("one_pass", "two_pass")
+# The region's activations; each has its own kernels (``csrc/bn_bwd.cu``).
+ACTS = ("relu", "silu")
 # Threads of one block, and the blocks the planner aims for: eight per SM of
 # an H100 (132 SMs).
 THREADS = 256
@@ -141,37 +150,54 @@ def bn_fwd_stats_reference(x, shift=None) -> torch.Tensor:
     return torch.stack([d.sum(dim=axes), d.square().sum(dim=axes)])
 
 
-def bn_relu_apply_reference(x, mean, inv, gamma, beta) -> torch.Tensor:
-    """Plain PyTorch version of the apply kernel: ``relu(x·a + b)`` in x's
-    dtype, a = γ·inv and b = β − μ·a rounded to it first (``inv`` is
-    ``rsqrt(var + eps)`` without γ), so ``y > 0`` is
-    :func:`relu_mask_reference`."""
+def _pre_activation(x, mean, inv, gamma, beta) -> torch.Tensor:
+    """``z = x·a + b`` in x's dtype, a = γ·inv and b = β − μ·a rounded to it
+    first (``inv`` is ``rsqrt(var + eps)`` without γ): two PyTorch ops, one
+    rounding after each."""
     a = gamma * inv
     b = beta - mean * a
-    return torch.relu(x * a.to(x.dtype) + b.to(x.dtype))
+    return x * a.to(x.dtype) + b.to(x.dtype)
+
+
+def bn_relu_apply_reference(x, mean, inv, gamma, beta, act: str = "relu") -> torch.Tensor:
+    """Plain PyTorch version of the apply kernel: ``relu(x·a + b)`` (or
+    ``silu``) in x's dtype, a = γ·inv and b = β − μ·a rounded to it first
+    (``inv`` is ``rsqrt(var + eps)`` without γ), so for ReLU ``y > 0`` is
+    :func:`relu_mask_reference`."""
+    z = _pre_activation(x, mean, inv, gamma, beta)
+    return torch.nn.functional.silu(z) if act == "silu" else torch.relu(z)
 
 
 def relu_mask_reference(x, mean, inv, gamma, beta) -> torch.Tensor:
     """The forward's ``y > 0``, bit for bit (``_relu_mask``, ``bn_bwd.py:47``):
     ``inv`` is ``rsqrt(var + eps)`` without γ."""
-    inv_total = gamma * inv
-    shift = beta - mean * inv_total
-    return (x * inv_total.to(x.dtype) + shift.to(x.dtype)) > 0
+    return _pre_activation(x, mean, inv, gamma, beta) > 0
 
 
-def bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta):
+def act_grad_reference(x, dy, mean, inv, gamma, beta, act: str = "relu") -> torch.Tensor:
+    """``g``, dy times the activation's derivative at the forward's z, in fp32:
+    the ReLU mask, or σ(z)·(1 + z·(1 − σ(z))) at z rounded as the forward's."""
+    if act == "silu":
+        z = _pre_activation(x, mean, inv, gamma, beta).float()
+        s = torch.sigmoid(z)
+        return dy.float() * (s * (1.0 + z * (1.0 - s)))
+    return dy.float() * relu_mask_reference(x, mean, inv, gamma, beta).float()
+
+
+def bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta, act: str = "relu"):
     """Plain PyTorch version of the reduce kernel: (dγ, dβ) in fp32."""
     axes = tuple(range(x.dim() - 1))
     xhat = (x.float() - mean) * inv
-    g = dy.float() * relu_mask_reference(x, mean, inv, gamma, beta).float()
+    g = act_grad_reference(x, dy, mean, inv, gamma, beta, act)
     return (g * xhat).sum(dim=axes), g.sum(dim=axes)
 
 
-def bn_bwd_dx_reference(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None):
+def bn_bwd_dx_reference(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None,
+                        act: str = "relu"):
     """Plain PyTorch version of the dx kernel: dx in x's dtype."""
     inv_n = 1.0 / (n or x.numel() // x.shape[-1])
     xhat = (x.float() - mean) * inv
-    g = dy.float() * relu_mask_reference(x, mean, inv, gamma, beta).float()
+    g = act_grad_reference(x, dy, mean, inv, gamma, beta, act)
     dx = (gamma * inv) * (g - inv_n * db - xhat * (inv_n * dg))
     return dx.to(x.dtype)
 
@@ -317,26 +343,38 @@ def apply_plan(m: int, c: int, itemsize: int, align: int = 16) -> ApplyPlan:
                      rows_per_slab)
 
 
+_REDUCE_PROTO = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p], ctypes.c_int)
+_DX_PROTO = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)
+_APPLY_PROTO = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                + [ctypes.c_void_p], ctypes.c_int)
 _PROTOTYPES = {
-    "bn_bwd_reduce": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-                      + [ctypes.c_void_p], ctypes.c_int),
-    "bn_bwd_dx": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int),
+    "bn_bwd_reduce": _REDUCE_PROTO,
+    "bn_silu_bwd_reduce": _REDUCE_PROTO,
+    "bn_bwd_dx": _DX_PROTO,
+    "bn_silu_bwd_dx": _DX_PROTO,
     "bn_fwd_stats": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                      + [ctypes.c_void_p], ctypes.c_int),
-    "bn_relu_apply": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-                      + [ctypes.c_void_p], ctypes.c_int),
+    "bn_relu_apply": _APPLY_PROTO,
+    "bn_silu_apply": _APPLY_PROTO,
 }
+# The C entry of each op by activation.
+_ENTRIES = {"reduce": {"relu": "bn_bwd_reduce", "silu": "bn_silu_bwd_reduce"},
+            "dx": {"relu": "bn_bwd_dx", "silu": "bn_silu_bwd_dx"},
+            "apply": {"relu": "bn_relu_apply", "silu": "bn_silu_apply"}}
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("bn_bwd", _PROTOTYPES)
 
 
-def _check(what, x, dy, vecs):
+def _check(what, x, dy, vecs, act: str = "relu"):
     """The checks every impl of an op runs (an artifact or a compiled graph
     calls the op directly); the public wrappers also refuse autograd. The
     forward's ops have no ``dy`` and hold their vectors to x's device."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}; choices: {ACTS}")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     if dy is not None and dy.shape != x.shape:
@@ -399,58 +437,66 @@ def _stream(dev) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan) -> torch.Tensor:
-    """One launch of the reduce kernel with plan ``p`` on CUDA tensors that
-    the op has checked; the (2, C) fp32 sums (dγ, then dβ). Counts nothing:
-    the op's CUDA impl counts its launches."""
+def _count(op, act: str) -> None:
+    op.launches += 1
+    op.launches_by_act[act] += 1
+
+
+def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan,
+                  act: str = "relu") -> torch.Tensor:
+    """One launch of the reduce kernel of ``act`` with plan ``p`` on CUDA
+    tensors that the op has checked; the (2, C) fp32 sums (dγ, then dβ).
+    Counts nothing: the op's CUDA impl counts its launches."""
     dev = x.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return launch_reduce(x, dy, mean, inv, gamma, beta, p)
+            return launch_reduce(x, dy, mean, inv, gamma, beta, p, act)
     vecs = _f32((mean, inv, gamma, beta), dev)
     c = x.shape[-1]
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = _stream(dev)
     partial, tickets = _scratch(dev, stream, p)
-    err = lib.bn_bwd_reduce(
+    err = getattr(lib, _ENTRIES["reduce"][act])(
         x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in vecs), partial.data_ptr(),
         tickets.data_ptr(), out.data_ptr(), x.numel() // c, c, p.vec_bytes, p.threads, p.tg,
         p.slabs, int(x.dtype == torch.bfloat16), stream)
-    _build.check(err, "bn_bwd_reduce")
+    _build.check(err, _ENTRIES["reduce"][act])
     return out
 
 
-def _reduce_cuda(x, dy, mean, inv, gamma, beta):
+def _reduce_cuda(x, dy, mean, inv, gamma, beta, act="relu"):
     """The reduce op's CUDA impl: the checks, the plan, one counted launch."""
-    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
+    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta), act)
     if x.device.type != "cuda":
         raise ValueError(f"the reduce kernel takes x on the card, not on {x.device}")
     c = x.shape[-1]
     p = reduce_plan(x.numel() // c, c, x.element_size(), alignment(x.data_ptr(), dy.data_ptr()))
-    out = launch_reduce(x, dy, mean, inv, gamma, beta, p)
-    bn_bwd_reduce.launches += 1
+    out = launch_reduce(x, dy, mean, inv, gamma, beta, p, act)
+    _count(bn_bwd_reduce, act)
     return out
 
 
-def _reduce_cpu(x, dy, mean, inv, gamma, beta):
-    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
-    return torch.stack(bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta))
+def _reduce_cpu(x, dy, mean, inv, gamma, beta, act="relu"):
+    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta), act)
+    return torch.stack(bn_bwd_reduce_reference(x, dy, mean, inv, gamma, beta, act))
 
 
-def _reduce_fake(x, dy, mean, inv, gamma, beta):
-    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta))
+def _reduce_fake(x, dy, mean, inv, gamma, beta, act="relu"):
+    _check("bn_bwd_reduce", x, dy, (mean, inv, gamma, beta), act)
     return x.new_empty((2, x.shape[-1]), dtype=torch.float32)
 
 
-def _reduce(x, dy, mean, inv, gamma, beta) -> torch.Tensor:
+def _reduce(x, dy, mean, inv, gamma, beta, act: str = "relu") -> torch.Tensor:
     """The (2, C) fp32 sums (dγ, then dβ) of :func:`bn_bwd_reduce`, as one
     tensor: the op ``mnasnet_tpu_torch::bn_bwd_reduce``."""
-    return torch.ops.mnasnet_tpu_torch.bn_bwd_reduce.default(x, dy, mean, inv, gamma, beta)
+    return torch.ops.mnasnet_tpu_torch.bn_bwd_reduce.default(x, dy, mean, inv, gamma, beta, act)
 
 
-def bn_bwd_reduce(x, dy, mean, inv, gamma, beta) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dγ, dβ), fp32 (C,): ``Σ g·x̂`` and ``Σ g`` over N, H, W.
+def bn_bwd_reduce(x, dy, mean, inv, gamma, beta, act: str = "relu"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dγ, dβ), fp32 (C,): ``Σ g·x̂`` and ``Σ g`` over N, H, W, with g = dy
+    times ``act``'s derivative (:func:`act_grad_reference`).
 
     x, dy (N, H, W, C) bf16 or fp32, NHWC, contiguous; mean, inv = rsqrt(var +
     eps), gamma, beta (C,) fp32. Calls the op
@@ -461,17 +507,18 @@ def bn_bwd_reduce(x, dy, mean, inv, gamma, beta) -> tuple[torch.Tensor, torch.Te
     order is fixed by the shape, and no float atomics.
     """
     _build.refuse_autograd("bn_bwd_reduce", x, dy, mean, inv, gamma, beta)
-    dg, db = _reduce(x, dy, mean, inv, gamma, beta).unbind()
+    dg, db = _reduce(x, dy, mean, inv, gamma, beta, act).unbind()
     return dg, db
 
 
 bn_bwd_reduce.launches = 0
+bn_bwd_reduce.launches_by_act = dict.fromkeys(ACTS, 0)
 
 
-def _dx_cuda(x, dy, mean, inv, gamma, beta, dg, db, n):
+def _dx_cuda(x, dy, mean, inv, gamma, beta, dg, db, n, act="relu"):
     """The dx op's CUDA impl: the checks, the plan, one counted launch."""
     vecs = (mean, inv, gamma, beta, dg, db)
-    _check("bn_bwd_dx", x, dy, vecs)
+    _check("bn_bwd_dx", x, dy, vecs, act)
     if x.device.type != "cuda":
         raise ValueError(f"the dx kernel takes x on the card, not on {x.device}")
     if n <= 0:
@@ -485,29 +532,37 @@ def _dx_cuda(x, dy, mean, inv, gamma, beta, dg, db, n):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bn_bwd_dx(
+        err = getattr(lib, _ENTRIES["dx"][act])(
             x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in v32), dx.data_ptr(),
             m, c, 1.0 / n, tp, r, slabs, int(x.dtype == torch.bfloat16), stream)
-    _build.check(err, "bn_bwd_dx")
-    bn_bwd_dx.launches += 1
+    _build.check(err, _ENTRIES["dx"][act])
+    _count(bn_bwd_dx, act)
     return dx
 
 
-def _dx_cpu(x, dy, mean, inv, gamma, beta, dg, db, n):
-    _check("bn_bwd_dx", x, dy, (mean, inv, gamma, beta, dg, db))
+def _dx_cpu(x, dy, mean, inv, gamma, beta, dg, db, n, act="relu"):
+    _check("bn_bwd_dx", x, dy, (mean, inv, gamma, beta, dg, db), act)
     if n <= 0:
         raise ValueError(f"bn_bwd_dx needs a positive count, got n={n}")
-    return bn_bwd_dx_reference(x, dy, mean, inv, gamma, beta, dg, db, n)
+    return bn_bwd_dx_reference(x, dy, mean, inv, gamma, beta, dg, db, n, act)
 
 
-def _dx_fake(x, dy, mean, inv, gamma, beta, dg, db, n):
-    _check("bn_bwd_dx", x, dy, (mean, inv, gamma, beta, dg, db))
+def _dx_fake(x, dy, mean, inv, gamma, beta, dg, db, n, act="relu"):
+    _check("bn_bwd_dx", x, dy, (mean, inv, gamma, beta, dg, db), act)
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
-def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None) -> torch.Tensor:
+def _dx(x, dy, mean, inv, gamma, beta, dg, db, n: int, act: str = "relu") -> torch.Tensor:
+    """The op ``mnasnet_tpu_torch::bn_bwd_dx``."""
+    return torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(x, dy, mean, inv, gamma, beta, dg, db,
+                                                         n, act)
+
+
+def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None,
+              act: str = "relu") -> torch.Tensor:
     """dx = γ·inv·(g − dβ/n − x̂·dγ/n) in x's dtype, n = N·H·W unless given
-    (sync-BN: the count over all replicas, with dγ and dβ their sums).
+    (sync-BN: the count over all replicas, with dγ and dβ their sums), g as
+    :func:`bn_bwd_reduce` takes it for ``act``.
 
     The inputs of :func:`bn_bwd_reduce` plus its (dγ, dβ). Calls the op
     ``mnasnet_tpu_torch::bn_bwd_dx``: a CPU tensor takes
@@ -517,19 +572,20 @@ def bn_bwd_dx(x, dy, mean, inv, gamma, beta, dg, db, n: int | None = None) -> to
     _build.refuse_autograd("bn_bwd_dx", x, dy, mean, inv, gamma, beta, dg, db)
     if n is not None and n <= 0:
         raise ValueError(f"bn_bwd_dx needs a positive count, got n={n}")
-    return torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(
-        x, dy, mean, inv, gamma, beta, dg, db, n or x.numel() // max(x.shape[-1], 1))
+    return _dx(x, dy, mean, inv, gamma, beta, dg, db, n or x.numel() // max(x.shape[-1], 1),
+               act)
 
 
 bn_bwd_dx.launches = 0
+bn_bwd_dx.launches_by_act = dict.fromkeys(ACTS, 0)
 
 # The ops. ``needs_exact_strides``: a compiler hands x and dy over with the
 # strides they have in eager mode (contiguous NHWC), never re-laid out.
 _LIB = torch.library.Library("mnasnet_tpu_torch", "FRAGMENT")
 _LIB.define("bn_bwd_reduce(Tensor x, Tensor dy, Tensor mean, Tensor inv, Tensor gamma, "
-            "Tensor beta) -> Tensor", tags=(torch.Tag.needs_exact_strides,))
+            "Tensor beta, str act=\"relu\") -> Tensor", tags=(torch.Tag.needs_exact_strides,))
 _LIB.define("bn_bwd_dx(Tensor x, Tensor dy, Tensor mean, Tensor inv, Tensor gamma, "
-            "Tensor beta, Tensor dg, Tensor db, int n) -> Tensor",
+            "Tensor beta, Tensor dg, Tensor db, int n, str act=\"relu\") -> Tensor",
             tags=(torch.Tag.needs_exact_strides,))
 _LIB.impl("bn_bwd_reduce", _reduce_cpu, "CPU")
 _LIB.impl("bn_bwd_reduce", _reduce_cuda, "CUDA")
@@ -603,49 +659,56 @@ def bn_fwd_stats(x, shift=None) -> torch.Tensor:
 bn_fwd_stats.launches = 0
 
 
-def launch_apply(x, mean, inv, gamma, beta, y, p: ApplyPlan) -> torch.Tensor:
-    """One launch of the apply kernel with plan ``p`` into ``y`` (x's shape
-    and dtype, contiguous) on CUDA tensors that the op has checked. Counts
-    nothing: the op's CUDA impl counts its launches."""
+def launch_apply(x, mean, inv, gamma, beta, y, p: ApplyPlan, act: str = "relu") -> torch.Tensor:
+    """One launch of the apply kernel of ``act`` with plan ``p`` into ``y``
+    (x's shape and dtype, contiguous) on CUDA tensors that the op has
+    checked. Counts nothing: the op's CUDA impl counts its launches."""
     dev = x.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return launch_apply(x, mean, inv, gamma, beta, y, p)
+            return launch_apply(x, mean, inv, gamma, beta, y, p, act)
     vecs = _f32((mean, inv, gamma, beta), dev)
     c = x.shape[-1]
-    err = _lib().bn_relu_apply(
+    err = getattr(_lib(), _ENTRIES["apply"][act])(
         x.data_ptr(), *(v.data_ptr() for v in vecs), y.data_ptr(), x.numel() // c, c,
         p.vec_bytes, p.threads, p.tg, p.slabs, int(x.dtype == torch.bfloat16), _stream(dev))
-    _build.check(err, "bn_relu_apply")
+    _build.check(err, _ENTRIES["apply"][act])
     return y
 
 
-def _apply_cuda(x, mean, inv, gamma, beta):
+def _apply_cuda(x, mean, inv, gamma, beta, act="relu"):
     """The apply op's CUDA impl: the checks, the plan, one counted launch."""
-    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta))
+    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta), act)
     if x.device.type != "cuda":
         raise ValueError(f"the apply kernel takes x on the card, not on {x.device}")
     c = x.shape[-1]
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     p = apply_plan(x.numel() // c, c, x.element_size(), alignment(x.data_ptr(), y.data_ptr()))
-    launch_apply(x, mean, inv, gamma, beta, y, p)
-    bn_relu_apply.launches += 1
+    launch_apply(x, mean, inv, gamma, beta, y, p, act)
+    _count(bn_relu_apply, act)
     return y
 
 
-def _apply_cpu(x, mean, inv, gamma, beta):
-    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta))
-    return bn_relu_apply_reference(x, mean, inv, gamma, beta).contiguous()
+def _apply_cpu(x, mean, inv, gamma, beta, act="relu"):
+    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta), act)
+    return bn_relu_apply_reference(x, mean, inv, gamma, beta, act).contiguous()
 
 
-def _apply_fake(x, mean, inv, gamma, beta):
-    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta))
+def _apply_fake(x, mean, inv, gamma, beta, act="relu"):
+    _check("bn_relu_apply", x, None, (mean, inv, gamma, beta), act)
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
-def bn_relu_apply(x, mean, inv, gamma, beta) -> torch.Tensor:
+def _apply(x, mean, inv, gamma, beta, act: str = "relu") -> torch.Tensor:
+    """The op ``mnasnet_tpu_torch::bn_relu_apply``."""
+    return torch.ops.mnasnet_tpu_torch.bn_relu_apply.default(x, mean, inv, gamma, beta, act)
+
+
+def bn_relu_apply(x, mean, inv, gamma, beta, act: str = "relu") -> torch.Tensor:
     """y = relu(x·a + b) in x's dtype, a = γ·inv and b = β − μ·a rounded to
-    it as the backward's mask rounds them, so ``y > 0`` is that mask.
+    it as the backward's mask rounds them, so ``y > 0`` is that mask; with
+    ``act="silu"`` y = silu(x·a + b), z = x·a + b rounded the same way (the
+    op keeps its first activation's name).
 
     x (N, H, W, C) bf16 or fp32, NHWC, contiguous; mean, inv = rsqrt(var +
     eps), gamma, beta (C,) fp32. Calls the op
@@ -654,15 +717,16 @@ def bn_relu_apply(x, mean, inv, gamma, beta) -> torch.Tensor:
     (``bn_relu_apply.launches`` counts it) or raises.
     """
     _build.refuse_autograd("bn_relu_apply", x, mean, inv, gamma, beta)
-    return torch.ops.mnasnet_tpu_torch.bn_relu_apply.default(x, mean, inv, gamma, beta)
+    return _apply(x, mean, inv, gamma, beta, act)
 
 
 bn_relu_apply.launches = 0
+bn_relu_apply.launches_by_act = dict.fromkeys(ACTS, 0)
 
 _LIB.define("bn_fwd_stats(Tensor x, Tensor? shift) -> Tensor",
             tags=(torch.Tag.needs_exact_strides,))
-_LIB.define("bn_relu_apply(Tensor x, Tensor mean, Tensor inv, Tensor gamma, Tensor beta) "
-            "-> Tensor", tags=(torch.Tag.needs_exact_strides,))
+_LIB.define("bn_relu_apply(Tensor x, Tensor mean, Tensor inv, Tensor gamma, Tensor beta, "
+            "str act=\"relu\") -> Tensor", tags=(torch.Tag.needs_exact_strides,))
 _LIB.impl("bn_fwd_stats", _stats_cpu, "CPU")
 _LIB.impl("bn_fwd_stats", _stats_cuda, "CUDA")
 _LIB.impl("bn_relu_apply", _apply_cpu, "CPU")
@@ -700,21 +764,24 @@ def region_moments(x: torch.Tensor, stats: str, replicas: Replicas | None = None
     return mean, all_reduce_sum(sums(mean)[1], replicas) / n
 
 
-def _fwd_region(x, gamma, beta, eps: float, stats: str, replicas: Replicas | None = None):
+def _fwd_region(x, gamma, beta, eps: float, stats: str, replicas: Replicas | None = None,
+                act: str = "relu"):
     """The region's forward on the ops (:func:`region_moments`, then
     ``mnasnet_tpu_torch::bn_relu_apply``): (y, mean, var), the values of
-    :func:`_fwd_math`, on the CPU the same bits."""
+    :func:`_fwd_math` (for ReLU), on the CPU the same bits."""
     mean, var = region_moments(x, stats, replicas)
     if x.numel() == 0:
         return torch.empty_like(x), mean, var
     inv = torch.rsqrt(var + eps)  # as bn_bwd recomputes it
-    y = torch.ops.mnasnet_tpu_torch.bn_relu_apply.default(x, mean, inv, gamma, beta)
+    y = _apply(x, mean, inv, gamma, beta, act)
     return y, mean, var
 
 
-def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None = None):
-    """(dx, dγ, dβ) of y = relu((x − mean)·rsqrt(var + eps)·γ + β), mean and
-    var the batch statistics of x (``_bn_bwd_pallas``, ``bn_bwd.py:129``).
+def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None = None,
+           act: str = "relu"):
+    """(dx, dγ, dβ) of y = relu((x − mean)·rsqrt(var + eps)·γ + β) (or
+    ``silu``), mean and var the batch statistics of x (``_bn_bwd_pallas``,
+    ``bn_bwd.py:129``).
 
     With ``replicas`` (sync-BN: mean and var are the global batch's) the
     reduce's (2, C) output is summed over the replicas in place, one
@@ -729,46 +796,49 @@ def bn_bwd(x, dy, mean, var, gamma, beta, eps: float, replicas: Replicas | None 
     # launches nothing and adds zeros to the sums.
     empty = x.numel() == 0
     sums = x.new_zeros((2, x.shape[-1]), dtype=torch.float32) if empty \
-        else _reduce(x, dy, mean, inv, gamma, beta)
+        else _reduce(x, dy, mean, inv, gamma, beta, act)
     own, n = sums, x.numel() // x.shape[-1]
     if replicas is not None:
         own = sums.clone()
         all_reduce_sum_([sums], replicas, "all_reduce (BN backward sums)")
         n = global_rows(n, replicas)
     dg, db = sums.unbind()
-    dx = torch.empty_like(x) if empty else \
-        torch.ops.mnasnet_tpu_torch.bn_bwd_dx.default(x, dy, mean, inv, gamma, beta, dg, db, n)
+    dx = torch.empty_like(x) if empty else _dx(x, dy, mean, inv, gamma, beta, dg, db, n, act)
     dg, db = own.unbind()
     return dx, dg.to(gamma.dtype), db.to(beta.dtype)
 
 
 class _BNReluTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, stats, replicas):
+    def forward(ctx, x, gamma, beta, eps, stats, replicas, act):
         x = x.contiguous()
-        y, mean, var = _fwd_region(x, gamma, beta, eps, stats, replicas)
+        y, mean, var = _fwd_region(x, gamma, beta, eps, stats, replicas, act)
         ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.eps = eps
         ctx.replicas = replicas
+        ctx.act = act
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, gamma, beta, mean, var = ctx.saved_tensors
-        dx, dgamma, dbeta = bn_bwd(x, dy, mean, var, gamma, beta, ctx.eps, ctx.replicas)
-        return dx, dgamma, dbeta, None, None, None
+        dx, dgamma, dbeta = bn_bwd(x, dy, mean, var, gamma, beta, ctx.eps, ctx.replicas,
+                                   act=ctx.act)
+        return dx, dgamma, dbeta, None, None, None, None
 
 
 def bn_relu_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   eps: float = 1e-5, stats: str = "one_pass",
-                  replicas: Replicas | None = None):
-    """Training-mode BN (batch statistics) + ReLU with the region forward
-    and backward on the kernels.
+                  replicas: Replicas | None = None, act: str = "relu"):
+    """Training-mode BN (batch statistics) + ReLU (or SiLU, ``act``) with
+    the region forward and backward on the kernels.
 
     x (N, H, W, C) NHWC in the compute dtype; gamma, beta (C,) fp32. Returns
     (y, mean, biased_var); the caller applies the EMA and Bessel's correction
     to the statistics (``models/layers.py``, ``BatchNorm.relu_train_region``).
     ``replicas``: sync-BN over them (:func:`region_moments`, :func:`bn_bwd`).
     """
-    return _BNReluTrain.apply(x, gamma, beta, eps, stats, replicas)
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}; choices: {ACTS}")
+    return _BNReluTrain.apply(x, gamma, beta, eps, stats, replicas, act)

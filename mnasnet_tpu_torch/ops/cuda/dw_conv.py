@@ -1,4 +1,4 @@
-"""Fused depthwise conv + per-channel affine + optional ReLU (``csrc/dw_conv.cu``).
+"""Fused depthwise conv + per-channel affine + optional ReLU or SiLU (``csrc/dw_conv.cu``).
 
 Replaces the Pallas kernels ``_dw_s1_kernel`` and ``_dw_s2_kernel`` of
 ``mnasnet_tpu/ops/pallas/dw_conv.py`` (reached through ``_dw_fused_raw`` and
@@ -135,9 +135,9 @@ def plan(n: int, h: int, w: int, c: int, k: int, stride: int, elem_bytes: int) -
 
 def dw_conv_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, *, stride: int = 1,
-                      relu: bool = True) -> torch.Tensor:
+                      relu: bool = True, silu: bool = False) -> torch.Tensor:
     """Plain PyTorch version: the depthwise conv in fp32 (weights not cast),
-    then the affine and ReLU in fp32, one cast to x's dtype."""
+    then the affine and ReLU (or SiLU) in fp32, one cast to x's dtype."""
     k = w.shape[0]
     c = x.shape[-1]
     w4 = w.reshape(k, k, c).float().permute(2, 0, 1).unsqueeze(1)
@@ -146,6 +146,8 @@ def dw_conv_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     y = y * scale.float() + bias.float()
     if relu:
         y = torch.relu(y)
+    if silu:
+        y = F.silu(y)
     return y.to(x.dtype).contiguous()
 
 
@@ -160,7 +162,9 @@ def _lib() -> ctypes.CDLL:
     return _build.load("dw_conv", _PROTOTYPES)
 
 
-def _check(x, w, scale, bias, stride):
+def _check(x, w, scale, bias, stride, relu=False, silu=False):
+    if relu and silu:
+        raise ValueError("the dw epilogue takes one activation: relu or silu, not both")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     c = x.shape[-1]
@@ -176,8 +180,10 @@ def _check(x, w, scale, bias, stride):
 
 
 def dw_conv_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                   bias: torch.Tensor, *, stride: int = 1, relu: bool = True) -> torch.Tensor:
-    """``y = act(dwconv_kxk(x, w) * scale + bias)`` with padding k//2.
+                   bias: torch.Tensor, *, stride: int = 1, relu: bool = True,
+                   silu: bool = False) -> torch.Tensor:
+    """``y = act(dwconv_kxk(x, w) * scale + bias)`` with padding k//2; act is
+    ReLU (``relu``), SiLU (``silu``, with ``relu=False``) or none.
 
     x (N, H, W, C) bf16 or fp32, NHWC; w (k, k, 1, C) fp32; scale, bias (C,)
     fp32; k in {3, 5}; stride in {1, 2}. Returns (N, Ho, Wo, C) in x's dtype.
@@ -186,14 +192,15 @@ def dw_conv_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     (``dw_conv_bn_act.launches`` counts those launches) or raises.
     """
     _build.refuse_autograd("dw_conv_bn_act", x, w, scale, bias)
-    return torch.ops.mnasnet_tpu_torch.dw_conv_bn_act.default(x, w, scale, bias, stride, relu)
+    return torch.ops.mnasnet_tpu_torch.dw_conv_bn_act.default(x, w, scale, bias, stride, relu,
+                                                              silu)
 
 
-def _dw_cuda(x, w, scale, bias, stride, relu):
+def _dw_cuda(x, w, scale, bias, stride, relu, silu=False):
     """The op's CUDA impl: the op's and the kernel's checks, the plan, one
     launch. Every impl checks its arguments: an artifact calls the op
     directly."""
-    _check(x, w, scale, bias, stride)
+    _check(x, w, scale, bias, stride, relu, silu)
     if x.device.type != "cuda":
         raise ValueError(f"the dw kernel takes x on the card, not on {x.device}")
     if x.dtype not in _DTYPES:
@@ -211,27 +218,29 @@ def _dw_cuda(x, w, scale, bias, stride, relu):
     w32 = w.reshape(k, k, c).to(device=dev, dtype=torch.float32).contiguous()
     s32 = scale.to(device=dev, dtype=torch.float32).contiguous()
     b32 = bias.to(device=dev, dtype=torch.float32).contiguous()
-    y = launch(x, w32, s32, b32, stride, relu, plan(n, h, wd, c, k, stride, x.element_size()))
+    y = launch(x, w32, s32, b32, stride, 2 if silu else int(relu),
+               plan(n, h, wd, c, k, stride, x.element_size()))
     dw_conv_bn_act.launches += 1
     return y
 
 
-def _dw_cpu(x, w, scale, bias, stride, relu):
-    _check(x, w, scale, bias, stride)
-    return dw_conv_reference(x, w, scale, bias, stride=stride, relu=relu)
+def _dw_cpu(x, w, scale, bias, stride, relu, silu=False):
+    _check(x, w, scale, bias, stride, relu, silu)
+    return dw_conv_reference(x, w, scale, bias, stride=stride, relu=relu, silu=silu)
 
 
-def _dw_fake(x, w, scale, bias, stride, relu):
-    _check(x, w, scale, bias, stride)
+def _dw_fake(x, w, scale, bias, stride, relu, silu=False):
+    _check(x, w, scale, bias, stride, relu, silu)
     n, h, wd, c = x.shape
     k = w.shape[0]
     return x.new_empty((n, out_size(h, k, stride), out_size(wd, k, stride), c))
 
 
-def launch(x, w32, s32, b32, stride: int, relu: bool, p: Plan) -> torch.Tensor:
+def launch(x, w32, s32, b32, stride: int, relu: int, p: Plan) -> torch.Tensor:
     """One launch of the kernel with plan ``p`` on checked, contiguous inputs
-    (w32 (k, k, C), s32 and b32 (C,) fp32, on x's device). Counts nothing:
-    the plan sweep and the timings call it."""
+    (w32 (k, k, C), s32 and b32 (C,) fp32, on x's device); ``relu`` is the
+    epilogue's activation: 0 (False) none, 1 (True) ReLU, 2 SiLU. Counts
+    nothing: the plan sweep and the timings call it."""
     n, h, wd, c = x.shape
     k = w32.shape[0]
     y = torch.empty((n, out_size(h, k, stride), out_size(wd, k, stride), c),
@@ -253,7 +262,7 @@ dw_conv_bn_act.launches = 0
 # it has in eager mode (contiguous NHWC), never re-laid out.
 _LIB = torch.library.Library("mnasnet_tpu_torch", "FRAGMENT")
 _LIB.define("dw_conv_bn_act(Tensor x, Tensor w, Tensor scale, Tensor bias, int stride, "
-            "bool relu) -> Tensor", tags=(torch.Tag.needs_exact_strides,))
+            "bool relu, bool silu=False) -> Tensor", tags=(torch.Tag.needs_exact_strides,))
 _LIB.impl("dw_conv_bn_act", _dw_cpu, "CPU")
 _LIB.impl("dw_conv_bn_act", _dw_cuda, "CUDA")
 torch.library.register_fake("mnasnet_tpu_torch::dw_conv_bn_act", _dw_fake, lib=_LIB)

@@ -211,8 +211,10 @@ torch.library.register_fake("mnasnet_tpu_torch::dw_grad_weights", _dw_grad_weigh
 def depthwise_conv_bn_relu_fused(x: torch.Tensor, kernel: torch.Tensor,
                                  scale: torch.Tensor, bias: torch.Tensor, *,
                                  stride: int = 1, padding: int | None = None,
-                                 relu: bool = True, impl: str = "auto") -> torch.Tensor:
-    """Inference-time depthwise conv + folded-BN affine + optional ReLU.
+                                 relu: bool = True, impl: str = "auto",
+                                 silu: bool = False) -> torch.Tensor:
+    """Inference-time depthwise conv + folded-BN affine + optional ReLU, or
+    SiLU with ``silu`` (and ``relu=False``).
 
     ``scale``/``bias`` are the folded BN factors
     (:meth:`mnasnet_tpu_torch.models.layers.BatchNorm.folded`). ``"kernel"``
@@ -221,7 +223,7 @@ def depthwise_conv_bn_relu_fused(x: torch.Tensor, kernel: torch.Tensor,
     k = kernel.shape[0]
     if resolve_impl(impl, x) == "kernel":
         _kernel_padding(kernel, padding)
-        return dw_conv_bn_act(x, kernel, scale, bias, stride=stride, relu=relu)
+        return dw_conv_bn_act(x, kernel, scale, bias, stride=stride, relu=relu, silu=silu)
     y = _torch_depthwise(x, kernel, stride, k // 2 if padding is None else padding)
     y = y * scale.to(y.dtype) + bias.to(y.dtype)
-    return torch.relu(y) if relu else y
+    return F.silu(y) if silu else torch.relu(y) if relu else y

@@ -45,7 +45,8 @@ def load_weights(model: MNASNet, sd: dict[str, torch.Tensor]) -> int:
     from a file (they do not affect eval) are taken as 0. Returns the
     checkpoint's classifier width. A padded model (``channel_pad``) takes
     only a padded model's widths."""
-    check_state_dict(sd, model.alpha, model.channel_pad)
+    if isinstance(model, MNASNet):  # an EfficientNet's shapes are checked by the strict load
+        check_state_dict(sd, model.alpha, model.channel_pad)
     sd = dict(sd)
     sd.pop("_version", None)
     own = model.state_dict()

@@ -60,13 +60,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from mnasnet_tpu_torch.models.layers import DepthwiseConv, PointwiseConv, StemConv
+from mnasnet_tpu_torch.models.layers import (
+    BiasedPointwiseConv,
+    DepthwiseConv,
+    PointwiseConv,
+    StemConv,
+)
 
 Schedule = Callable[[int], float]
 ScalarOrSchedule = Union[float, Schedule]
 Mask = Union[Mapping[str, bool], Callable[[nn.Module], Mapping[str, bool]]]
 
-_DECAYED = (StemConv, DepthwiseConv, PointwiseConv, nn.Linear)
+_DECAYED = (StemConv, DepthwiseConv, PointwiseConv, BiasedPointwiseConv, nn.Linear)
 
 
 def wd_mask(model: nn.Module) -> dict[str, bool]:

@@ -1776,3 +1776,201 @@ def test_halo_exchange_replays_from_a_captured_cuda_graph(nccl_world1):
     for a, b in zip(eager, captured):
         assert torch.equal(a, b)
     assert eager[0].shape[1] == 7 + 2 and not eager[0][:, 7:].any()
+
+
+# ------------------------------------------------- EfficientNet's BN+SiLU regions
+
+
+def _b4_shapes(size: int = 380):
+    """(H, C) of the 64 BN+SiLU regions and (H, C, k, stride) of the 32
+    depthwise convs of efficientnet_b4's training forward at ``size`` px,
+    in order (the stem, each block's expand and dw BN, the head)."""
+    from mnasnet_tpu_torch.models.efficientnet import B0_STEM, stage_table
+    from mnasnet_tpu_torch.models.mnasnet import round_to_multiple_of
+
+    def out_size(n, k, s):
+        return (n + 2 * (k // 2) - k) // s + 1
+
+    h = out_size(size, 3, 2)
+    regions, dws = [(h, round_to_multiple_of(B0_STEM * 1.4, 8))], []
+    table = stage_table(1.4, 1.8)
+    for e, k, s, cin, cout, repeats in table:
+        for j in range(repeats):
+            ci, st = (cin, s) if j == 0 else (cout, 1)
+            mid = round_to_multiple_of(ci * e, 8)
+            if e != 1:
+                regions.append((h, mid))
+            dws.append((h, mid, k, st))
+            h = out_size(h, k, st)
+            regions.append((h, mid))
+    return regions + [(h, 4 * table[-1][4])], dws
+
+
+B4_REGIONS, B4_DWS = _b4_shapes()
+
+
+def test_b4_shapes_are_the_models():
+    assert len(B4_REGIONS) == 64 and len(B4_DWS) == 32
+    assert B4_REGIONS[0] == (190, 48) and B4_REGIONS[-1] == (12, 1792)
+
+
+def _silu_case(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.3).to(dtype)
+    dy = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    gamma = torch.rand(c, device=cuda, generator=g) + 0.5
+    beta = torch.rand(c, device=cuda, generator=g) - 0.5
+    return x, dy, gamma, beta
+
+
+@pytest.mark.parametrize("dtype,tol_dx", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)])
+def test_silu_kernels_match_their_plain_versions_at_the_b4_shapes(cuda, dtype, tol_dx):
+    """The SiLU instantiations of the apply, reduce and dx kernels at each
+    distinct BN+SiLU region shape of efficientnet_b4@380 (batch 2) against
+    their plain versions on the same inputs, at the ReLU kernels'
+    tolerances (the apply within one rounding of the output dtype), each
+    counted once under its activation and not under ReLU's."""
+    ops = (bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    for i, (h, c) in enumerate(sorted(set(B4_REGIONS))):
+        x, dy, gamma, beta = _silu_case(cuda, (2, h, h, c), dtype, seed=i)
+        mean, var = batch_moments(x, "one_pass")
+        vecs = (mean, torch.rsqrt(var + 1e-3), gamma, beta)
+        before = [dict(op.launches_by_act) for op in ops]
+        y = bn_relu_apply(x, *vecs, act="silu")
+        dg, db = bn_bwd_reduce(x, dy, *vecs, act="silu")
+        dx = bn_bwd_dx(x, dy, *vecs, dg, db, act="silu")
+        torch.cuda.synchronize()
+        assert [(op.launches_by_act["silu"] - b["silu"], op.launches_by_act["relu"] - b["relu"])
+                for op, b in zip(ops, before)] == [(1, 0)] * 3
+        _close(y, bn_bwd.bn_relu_apply_reference(x, *vecs, act="silu"),
+               2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
+        rdg, rdb = bn_bwd_reduce_reference(x, dy, *vecs, act="silu")
+        _close(dg, rdg, 1e-4)
+        _close(db, rdb, 1e-4)
+        assert dx.dtype == dtype and dx.is_contiguous()
+        _close(dx, bn_bwd_dx_reference(x, dy, *vecs, rdg, rdb, act="silu"), tol_dx)
+        assert torch.equal(dx, bn_bwd_dx(x, dy, *vecs, dg, db, act="silu"))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 1e-4)),
+                                       (torch.bfloat16, (2.0 ** -6, 2.0 ** -6))])
+def test_bn_silu_region_matches_autograd_at_the_b4_shapes(cuda, dtype, tol):
+    """The BN+SiLU region (stats and SiLU apply forward, SiLU reduce and dx
+    backward) at each of efficientnet_b4's 64 region shapes (batch 2)
+    against float64 autograd of the plain forward, silu((x - μ)·rsqrt(σ² +
+    ε)·γ + β) with batch statistics, on the same x. In fp32 y within a few
+    roundings and dx, dγ, dβ at the ReLU region's tolerance; in bf16 all
+    within 2^-6 of the largest value: the forward's z = x·a + b is two bf16
+    ops (as the ReLU region's and the plain forward's), whose roundings are
+    of x·a, larger than y where β cancels the mean, and the kernels take
+    SiLU's derivative at that rounded z."""
+    tol_y, tol_g = tol
+    counters = (bn_fwd_stats, bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    for i, (h, c) in enumerate(B4_REGIONS):
+        x, dy, gamma, beta = _silu_case(cuda, (2, h, h, c), dtype, seed=100 + i)
+        xs, gs, bs = (t.detach().clone().requires_grad_() for t in (x, gamma, beta))
+        before = [f.launches for f in counters]
+        y, _, _ = bn_relu_train(xs, gs, bs, 1e-3, "one_pass", act="silu")
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+        x64, g64, b64 = (t.detach().double().requires_grad_() for t in (x, gamma, beta))
+        mean = x64.mean(dim=(0, 1, 2))
+        var = x64.var(dim=(0, 1, 2), unbiased=False)
+        y64 = torch.nn.functional.silu((x64 - mean) * torch.rsqrt(var + 1e-3) * g64 + b64)
+        y64.backward(dy.double())
+        _close(y, y64, tol_y)
+        _close(xs.grad, x64.grad, tol_g)
+        _close(gs.grad, g64.grad, tol_g)
+        _close(bs.grad, b64.grad, tol_g)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+def test_dw_kernel_silu_epilogue_at_the_b4_shapes(cuda, dtype, tol):
+    """The dw kernel's SiLU epilogue (EfficientNet's eval forward) at each of
+    efficientnet_b4's 32 depthwise shapes (batch 2) against its plain
+    version, and no ReLU applied."""
+    for i, (h, c, k, s) in enumerate(B4_DWS):
+        x, w, scale, bias = _dw_op_case(cuda, h, c, k, dtype, batch=2, seed=i)
+        before = dw_conv_bn_act.launches
+        y = dw_conv_bn_act(x, w, scale, bias, stride=s, relu=False, silu=True)
+        torch.cuda.synchronize()
+        assert dw_conv_bn_act.launches == before + 1
+        _close(y, dw_conv_reference(x, w, scale, bias, stride=s, relu=False, silu=True), tol)
+        assert (y < 0).any()
+
+
+def _b4(cuda, route="kernel", dtype=torch.bfloat16, **kw):
+    model = create_model("efficientnet_b4", num_classes=10, dtype=dtype, bn_ema="external",
+                         stem_s2d=True, seed=2, dw_impl=route, bn_bwd=route, **kw)
+    tx = create_optimizer("rmsprop", 1e-4, fused="small")
+    return model, tx, TrainState.create(model, tx, seed=4)
+
+
+def test_efficientnet_graph_step_launches_the_silu_kernels(cuda):
+    """efficientnet_b4's train step on the graph route: per counted step the
+    64 BN+SiLU regions launch the stats kernel and the SiLU apply, reduce
+    and dx once each, the 32 dw convs the dw kernel, no ReLU region kernel
+    and no fused MBConv."""
+    model, tx, state = _b4(cuda)
+    step = make_train_step(model, tx, 0.1, route="graph")
+    images, labels = (torch.randn(4, 64, 64, 3, device=cuda), torch.randint(0, 10, (4,),
+                                                                                  device=cuda))
+    ops = (bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    before = ([dict(op.launches_by_act) for op in ops], bn_fwd_stats.launches,
+              dw_conv_bn_act.launches, mbconv_fused.launches)
+    for _ in range(3):
+        state, metrics = step(state, images, labels)
+    torch.cuda.synchronize()
+    n = step.counted()
+    assert n == 2 and torch.isfinite(metrics["loss"])
+    assert [(op.launches_by_act["silu"] - b["silu"], op.launches_by_act["relu"] - b["relu"])
+            for op, b in zip(ops, before[0])] == [(64 * n, 0)] * 3
+    assert (bn_fwd_stats.launches - before[1], dw_conv_bn_act.launches - before[2],
+            mbconv_fused.launches - before[3]) == (64 * n, 32 * n, 0)
+
+
+def test_efficientnet_train_step_kernel_route_matches_torch_route(cuda):
+    """One fp32 step of efficientnet_b4 at 64 px on the kernel route (dw
+    kernel, BN+SiLU region kernels) and on the torch route, at the bars of
+    the MNASNet test above (loss 1e-5, BN moments 1e-5, parameters 5e-3)."""
+    rng = np.random.default_rng(6)
+    images = rng.standard_normal((8, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 8)
+    out = []
+    for route in ("kernel", "torch"):
+        model, tx, state = _b4(cuda, route, torch.float32, dropout=0.0, stochastic_depth=0.0)
+        state, metrics = make_train_step(model, tx, 0.1)(state, images, labels)
+        out.append((float(metrics["loss"]), model.state_dict()))
+    (lk, sk), (lt, st) = out
+    assert abs(lk - lt) <= 1e-5 * abs(lt)
+    _close_moments(sk, st, 1e-5)
+    for k in st:
+        if not k.endswith(("running_mean", "running_var", "num_batches_tracked")):
+            torch.testing.assert_close(sk[k], st[k], rtol=5e-3, atol=1e-4)
+
+
+def test_efficientnet_artifact_serves_on_the_card(cuda):
+    """An exported efficientnet_b4 (bf16, raw uint8 input) served through
+    load_serving's graph route: the live kernel-route forward's logits bit
+    for bit, 32 dw launches a forward and no fused MBConv, and within the
+    serving bf16 bar of the fp32 torch route."""
+    from mnasnet_tpu_torch.serving import load_serving
+    from mnasnet_tpu_torch.tools.export_serving import build_forward, export_artifact
+
+    fn, x = build_forward("efficientnet_b4", 10, "bfloat16", None, 96, 4, raw_input=True,
+                          device=cuda)
+    predict = load_serving(export_artifact(fn, x), route="graph")
+    img = torch.randint(0, 256, (4, 96, 96, 3), dtype=torch.uint8, device=cuda)
+    predict(img)
+    before = (dw_conv_bn_act.launches, mbconv_fused.launches)
+    with torch.no_grad():
+        live = fn(img)
+    torch.cuda.synchronize()
+    assert (dw_conv_bn_act.launches - before[0], mbconv_fused.launches - before[1]) == (32, 0)
+    assert torch.equal(predict(img), live)
+    ref, _ = build_forward("efficientnet_b4", 10, "float32", None, 96, 4, dw_impl="torch",
+                           raw_input=True, device=cuda)
+    with torch.no_grad():
+        assert float((ref(img) - live).abs().max()) <= 0.06 * float(ref(img).abs().max())

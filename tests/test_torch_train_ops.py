@@ -424,6 +424,8 @@ _CTYPES_OF = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctyp
 @pytest.mark.parametrize("module,fn", [
     (bn_bwd_mod, "bn_bwd_reduce"), (bn_bwd_mod, "bn_bwd_dx"),
     (bn_bwd_mod, "bn_fwd_stats"), (bn_bwd_mod, "bn_relu_apply"),
+    (bn_bwd_mod, "bn_silu_bwd_reduce"), (bn_bwd_mod, "bn_silu_bwd_dx"),
+    (bn_bwd_mod, "bn_silu_apply"),
     (dw_conv_mod, "dw_conv_bn_act"), (dw_conv_mod, "dw_conv_smem_bytes"),
     (mbconv_mod, "mbconv_block"), (mbconv_mod, "mbconv_smem_bytes"),
 ])
@@ -440,6 +442,103 @@ def test_prototypes_match_the_sources(module, fn):
     assert argtypes == expect
     assert set(module._PROTOTYPES) == set(_c_signatures(source))
 
+
+
+# ------------------------------------------------- the BN+SiLU region (EfficientNet)
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.float64, 1e-4)])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 16), (2, 14, 14, 72), (3, 5, 5, 6)])
+def test_silu_region_on_the_cpu_ops_matches_autograd(shape, dtype, tol):
+    """The BN+SiLU region (``bn_relu_train(..., act="silu")``) on the ops'
+    CPU impls against autograd of its plain forward, silu((x − μ)·rsqrt(σ² +
+    ε)·γ + β) with batch statistics: y, dx, dγ, dβ, in fp32 at the ReLU
+    region's tolerance of tests/test_bn_bwd.py:58-60, and in float64 within
+    the fp32 round-off of sums over a few hundred rows (the reduce and dx
+    work in fp32, as the kernels do, for ReLU too); the statistics are
+    those of the ReLU region."""
+    g = torch.Generator().manual_seed(shape[-1])
+    x = (torch.randn(*shape, generator=g) * 2 + 0.3).to(dtype)
+    dy = torch.randn(*shape, generator=g).to(dtype)
+    gamma = (torch.rand(shape[-1], generator=g) + 0.5).to(dtype)
+    beta = (torch.rand(shape[-1], generator=g) - 0.5).to(dtype)
+    ours = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    y, mean, var = bn_relu_train(*ours, 1e-3, "one_pass", act="silu")
+    y.backward(dy)
+    _, mr, vr = bn_relu_train(x, gamma, beta, 1e-3, "one_pass")
+    assert torch.equal(mean, mr) and torch.equal(var, vr)
+    ref = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    m = ref[0].mean(dim=(0, 1, 2))
+    v = ref[0].var(dim=(0, 1, 2), unbiased=False)
+    yr = torch.nn.functional.silu((ref[0] - m) * torch.rsqrt(v + 1e-3) * ref[1] + ref[2])
+    yr.backward(dy)
+    torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_silu_ops_cpu_impls_are_the_plain_arithmetic(dtype):
+    """The apply, reduce and dx ops' CPU impls with ``act="silu"`` give the
+    bits of the plain versions; ``act="relu"`` is the op's default; an
+    unknown activation is refused by every op and the region."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(3, 5, 5, 6, generator=g).to(dtype)
+    dy = torch.randn(3, 5, 5, 6, generator=g).to(dtype)
+    mean, inv = torch.randn(6, generator=g) * 0.1, torch.rand(6, generator=g) + 0.5
+    gamma, beta = torch.rand(6, generator=g) + 0.5, torch.randn(6, generator=g) * 0.2
+    vecs = (mean, inv, gamma, beta)
+    ops = torch.ops.mnasnet_tpu_torch
+    assert torch.equal(ops.bn_relu_apply.default(x, *vecs, "silu"),
+                       bn_bwd_mod.bn_relu_apply_reference(x, *vecs, act="silu"))
+    assert torch.equal(ops.bn_relu_apply.default(x, *vecs),
+                       bn_bwd_mod.bn_relu_apply_reference(x, *vecs))
+    sums = ops.bn_bwd_reduce.default(x, dy, *vecs, "silu")
+    assert torch.equal(sums, torch.stack(bn_bwd_mod.bn_bwd_reduce_reference(x, dy, *vecs,
+                                                                            act="silu")))
+    dx = ops.bn_bwd_dx.default(x, dy, *vecs, sums[0], sums[1], 75, "silu")
+    assert torch.equal(dx, bn_bwd_mod.bn_bwd_dx_reference(x, dy, *vecs, sums[0], sums[1], 75,
+                                                          act="silu"))
+    # SiLU's derivative at the forward's z: at dy = 1, dβ sums it.
+    z = (x * (gamma * inv).to(dtype) + (beta - mean * gamma * inv).to(dtype)).float()
+    s = torch.sigmoid(z)
+    torch.testing.assert_close(sums[1], (s * (1 + z * (1 - s)) * dy.float()).sum((0, 1, 2)))
+    with pytest.raises(ValueError, match="activation"):
+        ops.bn_relu_apply.default(x, *vecs, "gelu")
+    with pytest.raises(ValueError, match="activation"):
+        ops.bn_bwd_reduce.default(x, dy, *vecs, "gelu")
+    with pytest.raises(ValueError, match="activation"):
+        bn_relu_train(x, gamma, beta, act="gelu")
+
+
+def test_silu_ops_fake_impls():
+    """The fake impls take the activation and keep the ReLU ops' shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ops = torch.ops.mnasnet_tpu_torch
+    with FakeTensorMode():
+        x, v = _fake_cuda(2, 5, 5, 6, dtype=torch.bfloat16), _fake_cuda(6)
+        assert ops.bn_relu_apply.default(x, v, v, v, v, "silu").shape == x.shape
+        assert ops.bn_bwd_reduce.default(x, x, v, v, v, v, "silu").shape == (2, 6)
+        assert ops.bn_bwd_dx.default(x, x, v, v, v, v, v, v, 50, "silu").shape == x.shape
+        with pytest.raises(ValueError, match="activation"):
+            ops.bn_bwd_dx.default(x, x, v, v, v, v, v, v, 50, "tanh")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_op_silu_epilogue_on_cpu(dtype):
+    """The dw op's SiLU epilogue on the CPU impl: the fp32 conv, affine and
+    SiLU, one cast; ReLU and SiLU together are refused."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 9, 9, 16, generator=g).to(dtype)
+    w = torch.randn(3, 3, 1, 16, generator=g) * 0.3
+    s, b = torch.rand(16, generator=g) + 0.5, torch.randn(16, generator=g) * 0.1
+    y = dw_conv_mod.dw_conv_bn_act(x, w, s, b, stride=2, relu=False, silu=True)
+    lin = dw_conv_mod.dw_conv_reference(x, w, s, b, stride=2, relu=False).float()
+    ref = torch.nn.functional.silu(
+        dw_conv_mod.dw_conv_reference(x.float(), w, s, b, stride=2, relu=False))
+    assert torch.equal(y, ref.to(dtype)) and (lin < 0).any()
+    with pytest.raises(ValueError, match="one activation"):
+        dw_conv_mod.dw_conv_bn_act(x, w, s, b, relu=True, silu=True)
 
 # k, stride, H, C: the cases of tests/test_pallas_dw.py plus an odd size.
 DW_CASES = [(3, 1, 16, 32), (5, 1, 14, 48), (3, 2, 16, 32), (5, 2, 28, 24), (5, 2, 15, 8)]
