@@ -76,11 +76,18 @@ Phases, in order; any failure raises and exits non-zero:
      ReLU versions failing each bar; the dw kernel's SiLU epilogue at each
      distinct shape of its 32 dw convs against its plain version at the dw
      bars, the ReLU and linear epilogues failing them; timed (bf16) beside
-     their bounds and summed over one step's regions and convs; then one
-     counted train step (5 steps on the default train route, the counters
-     zeroed just before): exactly 64 bn_fwd_stats, 64 each of the SiLU
-     apply, reduce and dx, 0 of their ReLU kernels, 32 dw and 0 MBConv
-     launches per counted step, and finite losses;
+     their bounds and summed over one step's regions and convs; the four
+     squeeze-and-excitation kernels (pool, scale, gate gradient, dx) at each
+     distinct shape of its 32 SE planes against their plain versions (the
+     scale bit for bit, pool and dx within one rounding of the dtype, the
+     gate gradient's sums to 1e-5), two launches bit-identical, timed (bf16)
+     beside their bounds, their plain versions, the SE block on the ops and
+     as library ops (``library_ms``: the plain module's forward and its
+     autograd backward), summed over one step's blocks; then one counted
+     train step (5 steps on the default train route, the counters zeroed
+     just before): exactly 64 bn_fwd_stats, 64 each of the SiLU apply,
+     reduce and dx, 0 of their ReLU kernels, 32 dw, 32 of each SE kernel and
+     0 MBConv launches per counted step, and finite losses;
   8. train: ``make_train_step`` on the production configuration
      (``create_model("mnasnet1_0", dtype=bf16, bn_ema="external",
      stem_s2d=True)``, ``create_optimizer("rmsprop", 0.01, fused="small")``,
@@ -417,6 +424,16 @@ from mnasnet_tpu_torch.ops.cuda.dw_conv import launch as dw_launch
 from mnasnet_tpu_torch.ops.cuda.dw_conv import plan as dw_plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import kernel_args, mbconv_fused, mbconv_reference, plan
 from mnasnet_tpu_torch.ops.cuda.mbconv import launch as mb_launch
+from mnasnet_tpu_torch.ops.cuda.se import (
+    se_dgate,
+    se_dgate_reference,
+    se_dx,
+    se_dx_reference,
+    se_pool,
+    se_pool_reference,
+    se_scale,
+    se_scale_reference,
+)
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.parallel import (
     all_reduce_max_,
@@ -502,7 +519,14 @@ B4_BN_EPS = 1e-3
 B4_LAUNCHES_PER_STEP = {"dw_conv_bn_act": 32, "mbconv_block": 0, "bn_fwd_stats": 64,
                         "bn_relu_apply.silu": 64, "bn_bwd_reduce.silu": 64,
                         "bn_bwd_dx.silu": 64, "bn_relu_apply.relu": 0,
-                        "bn_bwd_reduce.relu": 0, "bn_bwd_dx.relu": 0}
+                        "bn_bwd_reduce.relu": 0, "bn_bwd_dx.relu": 0,
+                        "se_pool": 32, "se_scale": 32, "se_dgate": 32, "se_dx": 32}
+# The SE kernels against their plain versions: the pool's mean and the dx
+# pass's fused sum within one rounding of the output dtype (a reordered fp32
+# sum, an FMA for a multiply and an add), the gate gradient's fp32 sums to
+# 1e-5 of the largest; the scale is the same single rounding, bit for bit.
+TOL_SE = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+TOL_SE_DGATE = 1e-5
 # The production train configuration (bench.py's "optimized" build): the
 # learning rate its RMSProp is timed at.
 TRAIN_LR = 0.01
@@ -1332,6 +1356,89 @@ def b4_shapes(size: int = B4_IMAGE) -> tuple[list, list]:
     return regions + [("head", h, 4 * table[-1][4])], dws
 
 
+def b4_se_shapes(size: int = B4_IMAGE) -> list:
+    """(name, H, C, squeeze) of the squeeze-and-excitation of each of
+    efficientnet_b4's 32 blocks at ``size`` px: the dw conv's output plane,
+    the block's squeezed width (a quarter of its input width)."""
+    from mnasnet_tpu_torch.models.efficientnet import SE_RATIO, VARIANTS, stage_table
+    from mnasnet_tpu_torch.models.mnasnet import round_to_multiple_of
+
+    width, depth = VARIANTS["efficientnet_b4"][:2]
+    h, out = out_size(size, 3, 2), []
+    for i, (e, k, s, cin, cout, repeats) in enumerate(stage_table(width, depth)):
+        for j in range(repeats):
+            ci, st = (cin, s) if j == 0 else (cout, 1)
+            h = out_size(h, k, st)
+            out.append((f"s{i + 1}b{j}", h, round_to_multiple_of(ci * e, 8),
+                        max(1, int(ci * SE_RATIO))))
+    return out
+
+
+SE_OPS = (se_pool, se_scale, se_dgate, se_dx)
+
+
+def _b4_se_row(h, c, squeeze, dt, g, timing) -> dict:
+    """The four SE kernels at one of efficientnet_b4's SE planes (batch
+    B4_BATCH) against their plain versions on the same tensors, each
+    launched twice (the same bits); timed (bf16) beside their bounds, the
+    plain versions, and the SE block with ``squeeze`` channels forward and
+    backward on the ops and as library ops (the plain module and
+    autograd)."""
+    from mnasnet_tpu_torch.models.layers import SqueezeExcitation
+
+    dname = str(dt).split(".")[1]
+    x = (torch.randn(B4_BATCH, h, h, c, device="cuda", generator=g) + 0.2).to(dt)
+    dy = torch.randn(B4_BATCH, h, h, c, device="cuda", generator=g).to(dt)
+    gate = torch.sigmoid(torch.randn(B4_BATCH, c, device="cuda", generator=g)).to(dt)
+    dpool = torch.randn(B4_BATCH, c, device="cuda", generator=g).to(dt)
+    before = [op.launches for op in SE_OPS]
+    runs = [(se_pool(x), se_scale(x, gate), se_dgate(dy, x), se_dx(dy, gate, dpool))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    counted = [op.launches - b for op, b in zip(SE_OPS, before)]
+    refs = (se_pool_reference(x), se_scale_reference(x, gate), se_dgate_reference(dy, x),
+            se_dx_reference(dy, gate, dpool))
+    kinds = ("pool", "scale", "dgate", "dx")
+    row = {"shape": f"{h}x{h}x{c}", "dtype": dname, "launches": counted,
+           "deterministic": all(bool(torch.equal(a, b)) for a, b in zip(*runs)),
+           **{f"{k}_rel_err": rel_err(out, ref) for k, out, ref in zip(kinds, runs[0], refs)},
+           **{f"{k}_max_abs_err": float((out.float() - ref.float()).abs().max())
+              for k, out, ref in zip(kinds, runs[0], refs)}}
+    tols = {"pool_rel_err": TOL_SE[dname], "scale_rel_err": 0.0, "dgate_rel_err": TOL_SE_DGATE,
+            "dx_rel_err": TOL_SE[dname]}
+    bad = [k for k, tol in tols.items() if not row[k] <= tol]
+    if counted != [2] * 4:
+        bad.append("launches")
+    if not row["deterministic"]:
+        bad.append("deterministic")
+    if bad or runs[0][0].dtype != dt or runs[0][3].dtype != dt:
+        raise RuntimeError(f"b4 SE {row['shape']} {dname}: {bad}: {row}")
+    n, e = x.numel(), x.element_size()
+    row["pool_bound_ms"], _ = bound(n * e + B4_BATCH * c * 4, n, "float32")
+    row["scale_bound_ms"], _ = bound(2 * n * e, n, "float32")
+    row["dgate_bound_ms"], _ = bound(2 * n * e, 2 * n, "float32")
+    row["dx_bound_ms"], _ = bound(2 * n * e, 2 * n, "float32")
+    if timing and dt == torch.bfloat16:
+        once = {"pool": lambda: se_pool(x), "scale": lambda: se_scale(x, gate),
+                "dgate": lambda: se_dgate(dy, x), "dx": lambda: se_dx(dy, gate, dpool)}
+        for kind, fn in once.items():
+            row[f"{kind}_ms"] = time_ms(fn, 30.0)
+            row[f"{kind}_device_ms"] = time_ms(fn, 30.0, graph=True)
+        row["plain_ms"] = time_ms(lambda: (se_pool_reference(x), se_scale_reference(x, gate),
+                                           se_dgate_reference(dy, x),
+                                           se_dx_reference(dy, gate, dpool)), 30.0)
+        m = SqueezeExcitation(c, squeeze).cuda()
+        xs = nchw(x).detach().requires_grad_()
+
+        def block(kernels):
+            m.kernels = kernels
+            return torch.autograd.grad(m(xs), [xs, *m.parameters()], nchw(dy))
+
+        for key, kernels in (("block_ms", True), ("library_ms", False)):
+            row[key] = time_ms(lambda: block(kernels), 30.0, graph=True)
+    return row
+
+
 def _b4_region_row(h, c, dt, g, timing) -> dict:
     """The SiLU apply, reduce and dx kernels at one region shape of
     efficientnet_b4 (batch B4_BATCH) against their plain versions on the
@@ -1477,6 +1584,16 @@ def b4_phase(timing: bool) -> dict:
             log(f"[b4] dw {row}")
             dw_rows.append(row)
     torch.cuda.empty_cache()
+    se_shapes, se_counts, se_rows = b4_se_shapes(), {}, []
+    for _, h, c, _ in se_shapes:
+        se_counts[f"{h}x{h}x{c}"] = se_counts.get(f"{h}x{h}x{c}", 0) + 1
+    for h, c, squeeze in dict.fromkeys((h, c, q) for _, h, c, q in se_shapes):
+        for dt in (torch.bfloat16, torch.float32):
+            row = _b4_se_row(h, c, squeeze, dt, g, timing)
+            log(f"[b4] se {row}")
+            se_rows.append(row)
+    torch.cuda.empty_cache()
+    se_kinds = ("pool", "scale", "dgate", "dx")
     kinds = ("stats", "apply", "reduce", "dx")
     out = {"regions": len(regions), "dws": len(dws), "region_rows": region_rows,
            "dw_rows": dw_rows,
@@ -1484,7 +1601,12 @@ def b4_phase(timing: bool) -> dict:
                                   [f"{k}_{w}" for k in kinds for w in ("ms", "device_ms",
                                                                        "bound_ms")]
                                   + ["apply_plain_ms"]),
-           "dw_step": _summed(dw_rows, dw_counts, ("ms", "device_ms", "bound_ms", "plain_ms"))}
+           "dw_step": _summed(dw_rows, dw_counts, ("ms", "device_ms", "bound_ms", "plain_ms")),
+           "ses": len(se_shapes), "se_rows": se_rows,
+           "se_step": _summed(se_rows, se_counts,
+                              [f"{k}_{w}" for k in se_kinds for w in ("ms", "device_ms",
+                                                                      "bound_ms")]
+                              + ["plain_ms", "block_ms", "library_ms"])}
 
     # One counted step of the production train step, counters zeroed just
     # before it and read just after.
@@ -1496,7 +1618,7 @@ def b4_phase(timing: bool) -> dict:
     images = torch.randn(B4_BATCH, B4_IMAGE, B4_IMAGE, 3, device="cuda", generator=g)
     labels = torch.randint(0, 1000, (B4_BATCH,), device="cuda", generator=g)
     ops = (bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
-    for fn in (bn_fwd_stats, dw_conv_bn_act, mbconv_fused, *ops):
+    for fn in (bn_fwd_stats, dw_conv_bn_act, mbconv_fused, *ops, *SE_OPS):
         fn.launches = 0
     for op in ops:
         for act in op.launches_by_act:
@@ -1510,7 +1632,8 @@ def b4_phase(timing: bool) -> dict:
     launches = {"dw_conv_bn_act": dw_conv_bn_act.launches, "mbconv_block": mbconv_fused.launches,
                 "bn_fwd_stats": bn_fwd_stats.launches,
                 **{f"{op.__name__}.{act}": op.launches_by_act[act]
-                   for act in ("silu", "relu") for op in ops}}
+                   for act in ("silu", "relu") for op in ops},
+                **{op.__name__: op.launches for op in SE_OPS}}
     losses = [float(v) for v in losses]
     out["train"] = {"route": step.route, "counted_steps": counted, "launches": launches,
                     "losses": losses, "memory_peak_bytes": torch.cuda.max_memory_allocated()}
@@ -1555,6 +1678,16 @@ def b4_kernel_entries(b4: dict) -> list[dict]:
                 **b4["dw_step"],
                 "summed_over": f"{b4['dws']} dw convs of one efficientnet_b4 eval forward "
                                "at 380 px, batch 64, bf16"})
+    se = b4["se_step"]
+    for kind in ("pool", "scale", "dgate", "dx"):
+        out.append({"name": f"se_{kind}", "route": "cuda", "source": "mnasnet_tpu_torch/csrc/se.cu",
+                    "launches_per_step": b4["ses"],
+                    "max_abs_err": max(r[f"{kind}_max_abs_err"] for r in b4["se_rows"]),
+                    "ms": se[f"{kind}_ms"], "device_ms": se[f"{kind}_device_ms"],
+                    "bound_ms": se[f"{kind}_bound_ms"],
+                    "summed_over": f"{b4['ses']} SE blocks of one efficientnet_b4 step at 380 px, "
+                                   "batch 64, bf16"})
+    out[-4].update(plain_ms=se["plain_ms"], block_ms=se["block_ms"], library_ms=se["library_ms"])
     return out
 
 

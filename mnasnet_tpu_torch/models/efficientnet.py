@@ -28,10 +28,12 @@ and ``bn_bwd`` routes. In train mode every BN+SiLU region (stem, each
 expand and dw BN, head) runs ``BatchNorm.relu_train_region(x, "silu")`` on
 the ``"kernel"`` route: the region kernels' SiLU instantiations
 (``ops/cuda/bn_bwd.py``); the project BNs are linear and stay on autograd;
-the squeeze-and-excitation is plain PyTorch (``layers.SqueezeExcitation``).
-In eval mode BN is folded, the dw kernel takes its SiLU epilogue, and no
-block takes the fused MBConv kernel (its single pass cannot wait for the
-whole plane's pooled gate before the project conv).
+the squeeze-and-excitation (``layers.SqueezeExcitation``) takes the SE ops
+(``ops/cuda/se.py``: pool, scale, gate gradient and dx on kernels). In eval
+mode BN is folded, the dw kernel takes its SiLU epilogue, SE the pool and
+scale ops on every dw route but ``"torch"``, and no block takes the fused
+MBConv kernel (its single pass cannot wait for the whole plane's pooled gate
+before the project conv). Off those routes SE is plain PyTorch.
 
 The random draws of a train step are one mask (:meth:`EfficientNet.
 dropout_keep`): ``rows x (head width + residual blocks)`` from one uniform
@@ -145,6 +147,7 @@ class MBConv(nn.Module):
                 yw, dw.kernel(), s, b, stride=self.stride, relu=False, silu=True, impl=impl))
         else:
             y = F.silu(dw_bn(dw(y)))
+        se.kernels = region if self.training else impl != "torch"
         y = project_bn(project(se(y)))
         if not self.residual:
             return y

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import STATS, batch_moments, bn_relu_train
+from mnasnet_tpu_torch.ops.cuda.se import squeeze_excitation
 from mnasnet_tpu_torch.ops.depthwise import depthwise_conv2d
 from mnasnet_tpu_torch.parallel.dist import Replicas, global_rows
 from mnasnet_tpu_torch.parallel.mesh import spatial_of
@@ -338,17 +339,25 @@ class BiasedPointwiseConv(nn.Module):
 class SqueezeExcitation(nn.Module):
     """torchvision's ``SqueezeExcitation`` with SiLU (EfficientNet): the
     plane's mean over H and W, ``fc1`` to ``squeeze`` channels, SiLU, ``fc2``
-    back, sigmoid, and the plane scaled by that gate, all in x's dtype as
-    plain PyTorch ops (span ``mnasnet.model.se``). NCHW channels_last in and
-    out."""
+    back, sigmoid, and the plane scaled by that gate, all in x's dtype (span
+    ``mnasnet.model.se``). NCHW channels_last in and out.
+
+    ``kernels``, which the owning block sets to its route before each call:
+    True takes the SE ops (``ops/cuda/se.py:squeeze_excitation``: the pool,
+    the scale and, in the backward, the gate gradient and the fused dx pass
+    on the kernels, the MLP on torch ops); False, plain PyTorch ops."""
 
     def __init__(self, channels: int, squeeze: int):
         super().__init__()
         self.fc1 = BiasedPointwiseConv(channels, squeeze)
         self.fc2 = BiasedPointwiseConv(squeeze, channels)
+        self.kernels = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("mnasnet.model.se"):
             y = nhwc(x)
+            if self.kernels:
+                return nchw(squeeze_excitation(y, self.fc1.weight, self.fc1.bias,
+                                               self.fc2.weight, self.fc2.bias))
             gate = torch.sigmoid(self.fc2(F.silu(self.fc1(y.mean(dim=(1, 2))))))
             return nchw(y * gate[:, None, None, :])

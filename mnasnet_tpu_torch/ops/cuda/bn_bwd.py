@@ -412,22 +412,25 @@ def _f32(vecs, dev):
 # when made; launches on one stream run in turn and may share them. A larger
 # plan replaces them, so a CUDA graph never holds these: a launch under
 # capture takes its own, from the graph's pool, with its tickets zeroed by a
-# memset captured before it (:func:`_scratch`).
+# memset captured before it (:func:`scratch`).
 _reduce_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _scratch(dev, stream: int, p: ReducePlan) -> tuple[torch.Tensor, torch.Tensor]:
+def scratch(dev, stream: int, floats: int, tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """At least ``floats`` fp32 of partial sums and ``tickets`` zeroed int32
+    tickets for one ticketed reduction on ``stream`` (the SE reductions of
+    ``ops/cuda/se.py`` share them)."""
     if torch.cuda.is_current_stream_capturing():
         # Freed after the launch like any temporary: the graph's pool keeps
         # the memory for its replays, and every replay zeroes the tickets.
-        return (torch.empty(p.partial_floats, dtype=torch.float32, device=dev),
-                torch.zeros(p.tiles, dtype=torch.int32, device=dev))
+        return (torch.empty(floats, dtype=torch.float32, device=dev),
+                torch.zeros(tickets, dtype=torch.int32, device=dev))
     key = (dev.index, stream)
     got = _reduce_scratch.get(key)
-    if got is None or got[0].numel() < p.partial_floats or got[1].numel() < p.tiles:
-        floats, tickets = (got[0].numel(), got[1].numel()) if got is not None else (0, 0)
-        got = (torch.empty(max(floats, p.partial_floats), dtype=torch.float32, device=dev),
-               torch.zeros(max(tickets, p.tiles), dtype=torch.int32, device=dev))
+    if got is None or got[0].numel() < floats or got[1].numel() < tickets:
+        have = (got[0].numel(), got[1].numel()) if got is not None else (0, 0)
+        got = (torch.empty(max(have[0], floats), dtype=torch.float32, device=dev),
+               torch.zeros(max(have[1], tickets), dtype=torch.int32, device=dev))
         _reduce_scratch[key] = got
     return got
 
@@ -456,7 +459,7 @@ def launch_reduce(x, dy, mean, inv, gamma, beta, p: ReducePlan,
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = _stream(dev)
-    partial, tickets = _scratch(dev, stream, p)
+    partial, tickets = scratch(dev, stream, p.partial_floats, p.tiles)
     err = getattr(lib, _ENTRIES["reduce"][act])(
         x.data_ptr(), dy.data_ptr(), *(v.data_ptr() for v in vecs), partial.data_ptr(),
         tickets.data_ptr(), out.data_ptr(), x.numel() // c, c, p.vec_bytes, p.threads, p.tg,
@@ -607,7 +610,7 @@ def launch_stats(x, shift, p: ReducePlan) -> torch.Tensor:
     shift = None if shift is None else _f32((shift,), dev)[0]
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     stream = _stream(dev)
-    partial, tickets = _scratch(dev, stream, p)
+    partial, tickets = scratch(dev, stream, p.partial_floats, p.tiles)
     err = _lib().bn_fwd_stats(
         x.data_ptr(), None if shift is None else shift.data_ptr(), partial.data_ptr(),
         tickets.data_ptr(), out.data_ptr(), x.numel() // c, c, p.vec_bytes, p.threads, p.tg,

@@ -1974,3 +1974,116 @@ def test_efficientnet_artifact_serves_on_the_card(cuda):
                            raw_input=True, device=cuda)
     with torch.no_grad():
         assert float((ref(img) - live).abs().max()) <= 0.06 * float(ref(img).abs().max())
+
+
+# ------------------------------------------------- EfficientNet's squeeze-and-excitation
+
+
+def _b4_se_shapes():
+    """(H, C) of the 12 distinct squeeze-and-excitation planes of
+    efficientnet_b4@380: each block's dw output."""
+    def out_size(n, k, s):
+        return (n + 2 * (k // 2) - k) // s + 1
+
+    return sorted({(out_size(h, k, s), c) for h, c, k, s in B4_DWS})
+
+
+B4_SE = _b4_se_shapes()
+
+
+def _se_case(cuda, h, c, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(2, h, h, c, device=cuda, generator=g) + 0.2).to(dtype)
+    dy = torch.randn(2, h, h, c, device=cuda, generator=g).to(dtype)
+    gate = torch.sigmoid(torch.randn(2, c, device=cuda, generator=g)).to(dtype)
+    dpool = torch.randn(2, c, device=cuda, generator=g).to(dtype)
+    return x, dy, gate, dpool
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -8)])
+def test_se_kernels_match_their_plain_versions_at_the_b4_shapes(cuda, dtype, tol):
+    """The four SE kernels at each of efficientnet_b4's 12 SE plane shapes
+    (batch 2) against their plain versions on the same inputs: the scale bit
+    for bit (one rounding of the same product), the pool and dx within one
+    rounding of the output dtype, the gate gradient's fp32 sums to 1e-5 of
+    the largest; each launched once, and the same bits on a second run (the
+    reductions' fixed-order finish)."""
+    from mnasnet_tpu_torch.ops.cuda import se
+
+    assert len(B4_SE) == 12 and B4_SE[0] == (12, 960) and B4_SE[-1] == (190, 48)
+    ops = (se.se_pool, se.se_scale, se.se_dgate, se.se_dx)
+    for i, (h, c) in enumerate(B4_SE):
+        x, dy, gate, dpool = _se_case(cuda, h, c, dtype, seed=i)
+        before = [op.launches for op in ops]
+        runs = [(se.se_pool(x), se.se_scale(x, gate), se.se_dgate(dy, x), se.se_dx(dy, gate, dpool))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert [op.launches - b for op, b in zip(ops, before)] == [2, 2, 2, 2]
+        pool, y, dgate, dx = runs[0]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        assert pool.dtype == dtype and y.dtype == dtype and dx.dtype == dtype
+        assert dgate.dtype == torch.float32 and y.is_contiguous() and dx.is_contiguous()
+        _close(pool, se.se_pool_reference(x), tol)
+        assert torch.equal(y, se.se_scale_reference(x, gate))
+        _close(dgate, se.se_dgate_reference(dy, x), 1e-5)
+        _close(dx, se.se_dx_reference(dy, gate, dpool), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -6)])
+def test_se_module_matches_autograd_at_the_b4_shapes(cuda, dtype, tol):
+    """The SE module on its kernels (forward and backward) at each of
+    efficientnet_b4's 12 SE plane shapes (batch 2) against float64 autograd
+    of its plain forward on the same inputs and parameters: y, dx and the
+    four parameters' gradients, in fp32 within a few roundings and in bf16
+    within 2^-6 of the largest value (the MLP runs in bf16, as the plain
+    module's does)."""
+    from mnasnet_tpu_torch.models.layers import SqueezeExcitation, nchw
+
+    for i, (h, c) in enumerate(B4_SE):
+        x, dy, _, _ = _se_case(cuda, h, c, dtype, seed=50 + i)
+        m = SqueezeExcitation(c, max(2, c // 24)).to(cuda)
+        with torch.no_grad():
+            for fc in (m.fc1, m.fc2):
+                fc.weight.normal_(0, 1 / fc.weight.shape[1] ** 0.5)
+                fc.bias.normal_(0, 0.1)
+        ref = SqueezeExcitation(c, m.fc1.weight.shape[0]).to(cuda).double()
+        ref.load_state_dict(m.state_dict())
+        xs, x64 = nchw(x).clone().requires_grad_(), nchw(x).double().requires_grad_()
+        m.kernels = True
+        before = _se_launches()
+        y = m(xs)
+        y.backward(nchw(dy))
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_se_launches(), before)] == [1, 1, 1, 1]
+        y64 = ref(x64)
+        y64.backward(nchw(dy).double())
+        _close(y.detach(), y64.detach(), tol)
+        _close(xs.grad, x64.grad, tol)
+        for p, p64 in zip(m.parameters(), ref.parameters()):
+            _close(p.grad, p64.grad, tol)
+
+
+def _se_launches():
+    from mnasnet_tpu_torch.ops.cuda import se
+
+    return [se.se_pool.launches, se.se_scale.launches, se.se_dgate.launches, se.se_dx.launches]
+
+
+def test_efficientnet_graph_step_launches_the_se_kernels(cuda):
+    """efficientnet_b4's train step on the graph route: per counted step the
+    32 blocks launch each SE kernel once, beside the 64 BN+SiLU regions'
+    four kernels and the 32 dw kernels, unchanged."""
+    model, tx, state = _b4(cuda)
+    step = make_train_step(model, tx, 0.1, route="graph")
+    images, labels = (torch.randn(4, 64, 64, 3, device=cuda), torch.randint(0, 10, (4,),
+                                                                                  device=cuda))
+    region = (bn_fwd_stats, bn_relu_apply, bn_bwd_reduce, bn_bwd_dx)
+    before = (_se_launches(), [op.launches for op in region], dw_conv_bn_act.launches)
+    for _ in range(3):
+        state, metrics = step(state, images, labels)
+    torch.cuda.synchronize()
+    n = step.counted()
+    assert n == 2 and torch.isfinite(metrics["loss"])
+    assert [a - b for a, b in zip(_se_launches(), before[0])] == [32 * n] * 4
+    assert [op.launches - b for op, b in zip(region, before[1])] == [64 * n] * 4
+    assert dw_conv_bn_act.launches - before[2] == 32 * n

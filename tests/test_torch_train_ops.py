@@ -32,6 +32,7 @@ from mnasnet_tpu_torch.ops.cuda import _build
 from mnasnet_tpu_torch.ops.cuda import bn_bwd as bn_bwd_mod
 from mnasnet_tpu_torch.ops.cuda import dw_conv as dw_conv_mod
 from mnasnet_tpu_torch.ops.cuda import mbconv as mbconv_mod
+from mnasnet_tpu_torch.ops.cuda import se as se_mod
 from mnasnet_tpu_torch.ops.cuda.bn_bwd import (
     APPLY_TILE_MAX,
     FINISH_BYTES,
@@ -428,6 +429,7 @@ _CTYPES_OF = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctyp
     (bn_bwd_mod, "bn_silu_apply"),
     (dw_conv_mod, "dw_conv_bn_act"), (dw_conv_mod, "dw_conv_smem_bytes"),
     (mbconv_mod, "mbconv_block"), (mbconv_mod, "mbconv_smem_bytes"),
+    (se_mod, "se_pool"), (se_mod, "se_scale"), (se_mod, "se_dgate"), (se_mod, "se_dx"),
 ])
 def test_prototypes_match_the_sources(module, fn):
     """The ctypes prototypes pass each argument as the C entry point takes it:
